@@ -1,0 +1,33 @@
+"""The port stands alone: no module of ``cloud_transformers_tpu_torch`` (nor
+``chip_smoke.py``) imports JAX, flax, the JAX package or ``tools``."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import cloud_transformers_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                    "cloud_transformers_tpu", "tools"))
+n = sum(m.startswith("cloud_transformers_tpu_torch") for m in sys.modules)
+print(n, bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) > 15
+    assert bad == "[]", bad
