@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile DIR]
 
 1. builds the port's CUDA kernels from ``cloud_transformers_tpu_torch/csrc``;
 2. prints the card's name and power limit (nvidia-smi);
@@ -13,6 +13,8 @@
    a seed, clouds of 1500 to 3000 points) through ``InferenceEngine.classify``
    in the B=8 x 2048 bucket, with the launch counters set to 0 just before
    and read just after: 26 splat, 24 slice and 8 conv launches per forward;
+   then runs one forward under ``torch.cuda.set_sync_debug_mode("error")``,
+   so that any operation that makes the host wait for the device raises;
 5. runs the same model and weights on the CPU (plain versions) for one cloud
    and holds the card's logits and mask to it (cosine > 0.999, median
    error <= 1e-3);
@@ -21,9 +23,9 @@
 
 TF32 is off for matmuls and cuDNN convolutions, so everything is float32.
 Any failure raises and the exit code is non-zero; without CUDA the script
-exits non-zero before printing any result.  ``--profile`` adds a
+exits non-zero before printing any result.  ``--profile DIR`` adds a
 torch.profiler table of one forward's device time by kernel, written to
-``chiprun_out/profile_forward.txt``.
+``DIR/profile_forward.txt``.
 """
 
 import argparse
@@ -108,17 +110,17 @@ def check_kernels(gen):
         map_bytes = R * K * 40
         grid = ps.splat_max(*mapping, values, sizes)
         plain = ps.splat_max_plain(*mapping, values, sizes)
-        torch.cuda.synchronize()
         n_diff = int((grid != plain).sum())
         if n_diff:
             raise AssertionError(f"splat_max {sizes} F={f}: {n_diff} "
                                  "elements differ from the plain version")
+        err = float((grid - plain).abs().max())
         idx, w = ps.vertex_index_weights(*mapping, sizes)
         index = idx.reshape(R, K * 8, 1).expand(R, K * 8, f).contiguous()
         src = (w[..., None] * values[:, :, None, :]).reshape(R, K * 8, f)
         rows["splat_max"].append(dict(
             shape=f"{'x'.join(map(str, sizes))} F={f}", per_forward=n_splat,
-            max_abs_err=0.0,
+            max_abs_err=err,
             ms=cuda_ms(lambda: ps.splat_max(*mapping, values, sizes)),
             plain_ms=cuda_ms(lambda: ps.splat_max_plain(*mapping, values,
                                                         sizes), iters=5),
@@ -161,6 +163,9 @@ def check_kernels(gen):
                                  f"{err} > {TOL} x {scale}")
         x_cf = grid.reshape((B, H) + sizes + (f,)).movedim(-1, 2).reshape(
             (B, H * f) + sizes).contiguous()
+        # (output cell, tap) pairs whose input lies inside the grid: the
+        # taps over the zero padding need no work
+        pairs = int(np.prod([3 * s - 2 for s in sizes]))
         rows["grid_conv3d"].append(dict(
             shape=f"{'x'.join(map(str, sizes))} F={f}", per_forward=n_conv,
             max_abs_err=err,
@@ -169,8 +174,9 @@ def check_kernels(gen):
                 grid, weight, bias, sizes, H), iters=5),
             library_ms=cuda_ms(lambda: torch.nn.functional.conv3d(
                 x_cf, weight, bias, padding=1, groups=H)),
-            bound=bound(2 * R * cells * f * 4 + weight.numel() * 4,
-                        R * cells * f * (27 * f * 2 + 1))))
+            bound=bound(2 * R * cells * f * 4 + weight.numel() * 4
+                        + bias.numel() * 4,
+                        R * (pairs * f * f * 2 + cells * f))))
         del grid, out, plain, x_cf
     return rows
 
@@ -222,8 +228,9 @@ def parity(card, cpu, what):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="write a torch.profiler table of one forward")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="write a torch.profiler table of one forward to "
+                         "DIR/profile_forward.txt")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -296,16 +303,28 @@ def main():
     ms_fwd = elapsed / len(batches) * 1e3
     log(f"launches in {len(batches)} forwards: {launches}")
 
+    # the forward itself never makes the host wait for the device
+    pcd = torch.from_numpy(engine.pad_batch(batches[0])[0]).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            engine.model(pcd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("forward: no host-device synchronisation")
+
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             engine.classify(batches[0])
             torch.cuda.synchronize()
-        os.makedirs("chiprun_out", exist_ok=True)
+        os.makedirs(args.profile, exist_ok=True)
         table = prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40)
-        with open("chiprun_out/profile_forward.txt", "w") as fh:
+        with open(os.path.join(args.profile, "profile_forward.txt"),
+                  "w") as fh:
             fh.write(smi + "\n" + table)
         log(table)
 
@@ -319,8 +338,10 @@ def main():
     for t in (card_cls, card_mask):
         if not torch.isfinite(t).all():
             raise AssertionError("non-finite model output on the card")
-    parity(card_cls[:1].cpu(), cpu_cls, "class logits [1, 15]")
-    parity(card_mask[:1].cpu(), cpu_mask, "point mask [1, 2048, 1]")
+    parity(card_cls[:1].cpu(), cpu_cls,
+           f"class logits {list(cpu_cls.shape)}")
+    parity(card_mask[:1].cpu(), cpu_mask,
+           f"point mask {list(cpu_mask.shape)}")
 
     # 6. results
     log(f"{ms_fwd:.3f} ms/forward at B={B} x {K} points, "

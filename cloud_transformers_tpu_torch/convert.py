@@ -27,7 +27,7 @@ _BLOCK_PARTS = {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2",
 
 def _flatten(tree, prefix=()):
     for key, val in tree.items():
-        if isinstance(val, dict) or hasattr(val, "items"):
+        if hasattr(val, "items"):   # dict or flax FrozenDict
             yield from _flatten(val, prefix + (str(key),))
         else:
             yield prefix + (str(key),), np.asarray(val)

@@ -8,6 +8,7 @@ Counterpart of ``cloud_transformers_tpu/core/grid_mapping.py``:
   w_hi   [B, P, H, 4]  vertex weights for row x0+1 (3D offsets [0,1,Z,Z+1])
 """
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -40,6 +41,15 @@ def _sizes(tensor_size, dim) -> Tuple[int, ...]:
     return tuple(tensor_size)
 
 
+@functools.lru_cache(maxsize=None)
+def _half_extent(sizes, dtype, device):
+    """(size - 1) / 2 per axis, exact in f32.  Cached per device, read
+    only: building it afresh would be a blocking host-to-device copy, which
+    makes the host wait for the device once per block."""
+    return torch.tensor([(s - 1) * 0.5 for s in sizes], dtype=dtype,
+                        device=device)
+
+
 def grid_mapping(keys, tensor_size, dim):
     """Normalized keys [..., dim] in [-1, 1] -> GridMapping.
 
@@ -49,9 +59,9 @@ def grid_mapping(keys, tensor_size, dim):
     sizes = _sizes(tensor_size, dim)
     if keys.shape[-1] != dim:
         raise ValueError(f"keys last dim {keys.shape[-1]} != {dim}")
-    sizes_f = torch.tensor(sizes, dtype=keys.dtype, device=keys.device)
     keys = torch.clamp(keys, -1.0 + _EPS, 1.0 - _EPS)
-    keys_scaled = balance_op(keys + 1.0, (sizes_f - 1.0) * 0.5)
+    keys_scaled = balance_op(keys + 1.0,
+                             _half_extent(sizes, keys.dtype, keys.device))
     return GridMapping(*vertex_decomposition(keys_scaled, sizes))
 
 

@@ -14,9 +14,9 @@
 // memory through L1/L2: the F threads of one cell read the same words, and
 // neighbouring cells' stencils overlap.
 //
-// Bound on the H100: float32 operations for 16^3 x 16 (27 * 16 MACs per
-// output, about 7.2 GFLOP at R = 128), bytes and operations close together
-// for 32^3 x 4.  The kernel reaches neither: every MAC reloads its input
+// Bound on the H100: float32 operations (up to 27 * F MACs per output; the
+// taps inside the grid come to about 6.4 GFLOP for 16^3 x 16 and 3.4 GFLOP
+// for 32^3 x 4 at R = 128), with bytes close behind for 32^3 x 4.  The kernel reaches neither: every MAC reloads its input
 // from L1 instead of a register or shared tile.  Register tiling over fo
 // and a shared-memory input halo, or tensor cores (TF32 would cost the
 // float32 parity), are later work.

@@ -73,15 +73,22 @@ def build(timeout=600):
         jobs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT), tmp, so)
     failed = []
-    for stem, (proc, tmp, so) in jobs.items():
-        out, _ = proc.communicate(timeout=timeout)
-        so.with_suffix(".log").write_bytes(out)
-        if proc.returncode != 0:
-            failed.append(f"{stem}: nvcc exited {proc.returncode}\n"
-                          + out.decode(errors="replace"))
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, so)
+    try:
+        for stem, (proc, tmp, so) in jobs.items():
+            out, _ = proc.communicate(timeout=timeout)
+            so.with_suffix(".log").write_bytes(out)
+            if proc.returncode != 0:
+                failed.append(f"{stem}: nvcc exited {proc.returncode}\n"
+                              + out.decode(errors="replace"))
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, so)
+    finally:
+        # a timeout or an error leaves no nvcc running behind the caller
+        for proc, _, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return {stem: so for stem, (_, so) in targets.items()}

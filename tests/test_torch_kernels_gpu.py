@@ -3,7 +3,9 @@
 These tests need a CUDA card (the kernels have no CPU mode) and skip without
 one; they import no JAX, so they run on a machine that has only PyTorch:
 
-    python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
+    python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q --noconftest
+
+(``--noconftest`` skips ``tests/conftest.py``, which sets up JAX.)
 
 ``chip_smoke.py`` runs the same comparison at the classifier's full shapes.
 """
@@ -59,6 +61,17 @@ def test_grid_conv3d_kernel_matches_plain(gen):
     ref = tgc.grid_conv3d_plain(grid, weight, bias, sizes, h)
     assert float((out - ref).abs().max()) <= 1e-5 * max(
         1.0, float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+def test_grid_mapping_does_not_wait_for_the_device(gen):
+    keys = torch.rand(2, 64, 4, 3, generator=gen, device="cuda") * 2 - 1
+    grid_mapping(keys, (16, 16, 16), 3)   # builds the per-device scale
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grid_mapping(keys, (16, 16, 16), 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @pytest.mark.gpu
