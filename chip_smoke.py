@@ -8,11 +8,15 @@
    shape the classifier's forward gives it (R = B*H = 128, K = 2048): the
    splat exactly, slice and grid conv within 1e-5 of the output scale; times
    the kernel, the plain version and, where one PyTorch call computes the
-   same function, that call; and computes each kernel's bound;
-4. serves full-width ScanObjectNN classifier requests (random weights from
-   a seed, clouds of 1500 to 3000 points) through ``InferenceEngine.classify``
-   in the B=8 x 2048 bucket, with the launch counters set to 0 just before
-   and read just after: 26 splat, 24 slice and 8 conv launches per forward;
+   same function, that call (``scatter_reduce_`` amax for the splat,
+   ``grid_sample`` for the slice, grouped ``conv3d`` for the conv; each is
+   held to the plain version too); and computes each kernel's bound from
+   this run's inputs (the slice counts only the grid rows its mapping reads);
+4. serves 100 full-width ScanObjectNN classifier requests (random weights
+   from a seed, clouds of 1024 to 3000 points) through
+   ``InferenceEngine.classify`` in the B=8 x 2048 bucket, with the launch
+   counters set to 0 just before and read just after: 26 splat, 24 slice and
+   8 conv launches per forward; ms/forward is the median over the calls;
    then runs one forward under ``torch.cuda.set_sync_debug_mode("error")``,
    so that any operation that makes the host wait for the device raises;
 5. runs the same model and weights on the CPU (plain versions) for one cloud
@@ -23,9 +27,10 @@
 
 TF32 is off for matmuls and cuDNN convolutions, so everything is float32.
 Any failure raises and the exit code is non-zero; without CUDA the script
-exits non-zero before printing any result.  ``--profile DIR`` adds a
-torch.profiler table of one forward's device time by kernel, written to
-``DIR/profile_forward.txt``.
+exits non-zero before printing any result.  ``--profile DIR`` profiles 10
+more classify calls: it adds their host wall time, device busy time and the
+device's idle share (one window, both clocks) to the result line, and
+writes the torch.profiler table by kernel to ``DIR/profile_forward.txt``.
 """
 
 import argparse
@@ -48,8 +53,10 @@ POINT_SHAPES = [((128, 128), 4, 4, 4), ((32, 32, 32), 4, 4, 4),
                 ((64, 64), 16, 4, 4), ((16, 16, 16), 16, 4, 4),
                 ((16, 16), 16, 5, 4), ((8, 8, 8), 32, 5, 4)]
 CONV_SHAPES = [((32, 32, 32), 4, 4), ((16, 16, 16), 16, 4)]
-N_REQUESTS = 5   # classify calls in the counted, timed run
+N_REQUESTS = 100   # classify calls in the counted, timed run
+PROFILE_CALLS = 10   # classify calls in the --profile window
 TOL = 1e-5   # max abs error relative to max(1, max |plain output|)
+LIB_TOL = 1e-4   # the same, for a library yardstick (other op order)
 REPLACES = {
     "splat_max": "cloud_transformers_tpu/ops/pallas_splat.py:528",
     "slice_gather": "cloud_transformers_tpu/ops/pallas_splat.py:780",
@@ -87,7 +94,8 @@ def bound(n_bytes, n_ops):
 
 def mapping_inputs(sizes, f, gen):
     """A kernel-input mapping as the forward makes it: tanh lattice ->
-    grid_mapping, rows per (b, h); values like post-BN features."""
+    grid_mapping, rows per (b, h); values like post-BN features.  Also
+    returns the keys per row, [R, K, dim], clipped as grid_mapping clips."""
     from cloud_transformers_tpu_torch.core.grid_mapping import grid_mapping
     from cloud_transformers_tpu_torch.core.splat_slice import (
         _flatten_mapping)
@@ -95,7 +103,25 @@ def mapping_inputs(sizes, f, gen):
                                  device="cuda"))
     mapping = _flatten_mapping(grid_mapping(lat, sizes, len(sizes)))
     values = torch.randn(R, K, f, generator=gen, device="cuda")
-    return [a.contiguous() for a in mapping], values
+    keys = lat.transpose(1, 2).reshape(R, K, len(sizes)).clamp(
+        -1 + 1e-7, 1 - 1e-7)
+    return [a.contiguous() for a in mapping], values, keys
+
+
+def grid_sample_inputs(grid, keys, sizes):
+    """The flat grid [R, G, F] and keys [R, K, dim] laid out for
+    ``F.grid_sample``: input [R, F, X, Y(, Z)], sample points [R, 1(, 1), K,
+    dim] with the coordinates in (last axis, ..., first axis) order.
+    align_corners=True maps [-1, 1] to [0, size - 1], the mapping's scale."""
+    r, k, dim = keys.shape
+    inp = grid.reshape((r,) + tuple(sizes) + (grid.shape[-1],)).movedim(-1, 1)
+    pts = keys.flip(-1).reshape((r,) + (1,) * (dim - 1) + (k, dim))
+    return inp.contiguous(), pts.contiguous()
+
+
+def grid_sample_slice(inp, pts):
+    return torch.nn.functional.grid_sample(
+        inp, pts, mode="bilinear", padding_mode="zeros", align_corners=True)
 
 
 def check_kernels(gen):
@@ -104,7 +130,7 @@ def check_kernels(gen):
     from cloud_transformers_tpu_torch.ops import pallas_splat as ps
     rows = {name: [] for name in REPLACES}
     for sizes, f, n_splat, n_slice in POINT_SHAPES:
-        mapping, values = mapping_inputs(sizes, f, gen)
+        mapping, values, keys = mapping_inputs(sizes, f, gen)
         cells = ps.kernel_grid_dims(sizes)[2]
         n_vert = 2 ** len(sizes)
         map_bytes = R * K * 40
@@ -138,16 +164,30 @@ def check_kernels(gen):
         if not err <= TOL * scale:
             raise AssertionError(f"slice {sizes} F={f}: max abs err {err} "
                                  f"> {TOL} x {scale}")
+        # the library yardstick: one grid_sample call, layouts made outside
+        # the timing; it must compute the same function
+        inp, pts = grid_sample_inputs(grid, keys, sizes)
+        lib = grid_sample_slice(inp, pts).reshape(R, f, K).transpose(1, 2)
+        idx, w = ps.vertex_index_weights(*mapping, sizes)
+        lib_err = float((lib - plain).abs().max())
+        if not lib_err <= LIB_TOL * scale:
+            raise AssertionError(f"grid_sample {sizes} F={f}: max abs err "
+                                 f"{lib_err} > {LIB_TOL} x {scale}")
+        # the grid rows this data reads: distinct (r, cell) with weight > 0
+        touched = int(torch.unique(
+            (torch.arange(R, device="cuda")[:, None, None] * cells
+             + idx)[w > 0]).numel())
         rows["slice_gather"].append(dict(
             shape=f"{'x'.join(map(str, sizes))} F={f}", per_forward=n_slice,
-            max_abs_err=err,
+            max_abs_err=err, library_err=lib_err,
+            grid_rows_read=touched, grid_rows=R * cells,
             ms=cuda_ms(lambda: ps.slice_gather(*mapping, grid, sizes)),
             plain_ms=cuda_ms(lambda: ps.slice_plain(*mapping, grid, sizes),
                              iters=5),
-            library_ms=None,
-            bound=bound(map_bytes + R * cells * f * 4 + R * K * f * 4,
+            library_ms=cuda_ms(lambda: grid_sample_slice(inp, pts)),
+            bound=bound(map_bytes + touched * f * 4 + R * K * f * 4,
                         R * K * n_vert * f * 2)))
-        del grid, plain, out
+        del grid, plain, out, inp, pts, lib, idx, w
     for sizes, f, n_conv in CONV_SHAPES:
         cells = ps.kernel_grid_dims(sizes)[2]
         grid = torch.randn(R, cells, f, generator=gen, device="cuda").relu()
@@ -204,7 +244,10 @@ def kernel_line(rows, launches):
                 "ms": s["ms"], "plain_ms": s["plain_ms"],
                 "bound_ms": s["bound"][0], "bound_by": s["bound"][1],
                 "library_ms": s["library_ms"],
-                "max_abs_err": s["max_abs_err"]} for s in shapes],
+                "max_abs_err": s["max_abs_err"],
+                **{k: s[k] for k in ("library_err", "grid_rows_read",
+                                     "grid_rows") if k in s}}
+                for s in shapes],
         })
     return {"kernels": out}
 
@@ -229,7 +272,8 @@ def parity(card, cpu, what):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="write a torch.profiler table of one forward to "
+                    help=f"profile {PROFILE_CALLS} classify calls: device "
+                         "idle share, and the table in "
                          "DIR/profile_forward.txt")
     args = ap.parse_args()
 
@@ -286,10 +330,11 @@ def main():
                 "grid_conv3d": gc.grid_conv3d}
     for w in wrappers.values():
         w.launches = 0
-    t0 = time.perf_counter()
+    call_ms = []   # classify returns numpy, so each call ends synchronised
     for clouds in batches:
+        t0 = time.perf_counter()
         probs = engine.classify(clouds)
-    elapsed = time.perf_counter() - t0
+        call_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {name: w.launches for name, w in wrappers.items()}
     expect = {"splat_max": 26, "slice_gather": 24, "grid_conv3d": 8}
     for name, per_fwd in expect.items():
@@ -300,7 +345,7 @@ def main():
     if probs.shape != (B, 15) or not np.isfinite(probs).all() or \
             not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
         raise AssertionError(f"bad class probabilities {probs}")
-    ms_fwd = elapsed / len(batches) * 1e3
+    ms_fwd = float(np.median(call_ms))
     log(f"launches in {len(batches)} forwards: {launches}")
 
     # the forward itself never makes the host wait for the device
@@ -314,19 +359,37 @@ def main():
         torch.cuda.set_sync_debug_mode("default")
     log("forward: no host-device synchronisation")
 
+    profiled = {}
     if args.profile:
+        # device busy time and host wall time of the same window; the
+        # profiler's own host cost makes this idle share an upper bound
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            engine.classify(batches[0])
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for clouds in batches[:PROFILE_CALLS]:
+                engine.classify(clouds)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        # kernels and copies on the card, summed as the table's footer sums
+        # them; one stream, so they do not overlap
+        device_ms = sum(
+            e.self_device_time_total for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)) / 1e3
+        profiled = {"profiled_calls": PROFILE_CALLS,
+                    "profiled_wall_ms_per_forward": wall_ms / PROFILE_CALLS,
+                    "profiled_device_ms_per_forward":
+                        device_ms / PROFILE_CALLS,
+                    "profiled_device_idle_share": 1 - device_ms / wall_ms}
         os.makedirs(args.profile, exist_ok=True)
-        table = prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=40)
+        table = events.table(sort_by="cuda_time_total", row_limit=40)
         with open(os.path.join(args.profile, "profile_forward.txt"),
                   "w") as fh:
-            fh.write(smi + "\n" + table)
-        log(table)
+            fh.write(f"{smi}\n{json.dumps(profiled)}\n"
+                     f"(totals over {PROFILE_CALLS} classify calls)\n{table}")
+        log(json.dumps(profiled))
 
     # 5. the same model and weights on the CPU, one cloud
     cloud = batches[0][:1]
@@ -344,12 +407,16 @@ def main():
            f"point mask {list(cpu_mask.shape)}")
 
     # 6. results
-    log(f"{ms_fwd:.3f} ms/forward at B={B} x {K} points, "
+    log(f"{ms_fwd:.3f} ms/forward (median) at B={B} x {K} points, "
         f"{B * 1e3 / ms_fwd:.2f} clouds/s "
         f"({len(batches)} classify calls, host clock, synchronised)")
     print(json.dumps({"classify_ms_per_forward": ms_fwd,
                       "clouds_per_s": B * 1e3 / ms_fwd,
-                      "batch": B, "points": K}), flush=True)
+                      "classify_ms_mean": float(np.mean(call_ms)),
+                      "classify_ms_p10": float(np.percentile(call_ms, 10)),
+                      "classify_ms_p90": float(np.percentile(call_ms, 90)),
+                      "classify_calls": len(call_ms),
+                      "batch": B, "points": K, **profiled}), flush=True)
     print(json.dumps(kernel_line(rows, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
