@@ -1,8 +1,9 @@
-"""JAX variables -> the port's ``state_dict``.
+"""JAX variables -> the port's ``state_dict``, and the port's tensors back
+into a JAX tree.
 
-Takes the flax ``variables`` of the JAX package (``{"params": ...,
-"batch_stats": ...}`` nested dicts of numpy arrays, e.g. after
-``jax.device_get``) and returns tensors under the port's module names:
+``jax_to_state_dict`` takes the flax ``variables`` of the JAX package
+(``{"params": ..., "batch_stats": ...}`` nested dicts of numpy arrays, e.g.
+after ``jax.device_get``) and returns tensors under the port's module names:
 
 * Dense ``kernel [in, out]`` -> ``Linear.weight [out, in]``;
 * conv ``kernel [*k, in/groups, out]`` (HWIO / DHWIO, grouped or not)
@@ -13,6 +14,11 @@ Takes the flax ``variables`` of the JAX package (``{"params": ...,
   ``res{3,2}d.<i>.{conv1,bn1,conv2,bn2,skip_conv,skip_bn}``;
 * BatchNorm ``scale``/``bias``/``mean``/``var`` and the frames' ``log_R``/
   ``shift`` keep their names.
+
+``port_to_jax_tree`` goes the other way with the same rules, for tensors
+named as the port names them (gradients from ``named_parameters()``, or a
+``state_dict``): it fills a copy of a JAX tree, so that a test can hold
+``p.grad`` against ``jax.grad`` leaf by leaf.
 """
 
 import re
@@ -44,32 +50,61 @@ def _rename(path):
     return out
 
 
-def _leaf(name, arr):
+def _leaf(name, ndim):
+    """-> (the port's leaf name, axes that take the JAX leaf to the port's
+    layout, or None where the layouts agree)."""
     if name != "kernel":
-        return name, arr
-    if arr.ndim == 2:
-        return "weight", arr.T
-    # [*k, in/groups, out] -> [out, in/groups, *k]
-    return "weight", arr.transpose(arr.ndim - 1, arr.ndim - 2,
-                                   *range(arr.ndim - 2))
+        return name, None
+    # Dense [in, out] -> [out, in]; conv [*k, in/groups, out] ->
+    # [out, in/groups, *k]
+    return "weight", (ndim - 1, ndim - 2, *range(ndim - 2))
+
+
+def _entries(tree):
+    """Every JAX leaf as (port name, axes, index of its stage or None,
+    JAX path, JAX array)."""
+    for path, arr in _flatten(tree):
+        if "stages" in path:
+            i = path.index("stages") + 1
+            stages = [(path[:i] + (str(r),) + path[i:], r)
+                      for r in range(arr.shape[0])]
+        else:
+            stages = [(path, None)]
+        for p, r in stages:
+            name, axes = _leaf(p[-1], arr.ndim - (r is not None))
+            yield ".".join(_rename(p[:-1]) + [name]), axes, r, path, arr
 
 
 def jax_to_state_dict(variables):
     """-> {port parameter/buffer name: float32 tensor}."""
     state = {}
     for collection in ("params", "batch_stats"):
-        for path, arr in _flatten(variables.get(collection, {})):
-            if "stages" in path:
-                i = path.index("stages") + 1
-                entries = [(path[:i] + (str(r),) + path[i:], arr[r])
-                           for r in range(arr.shape[0])]
-            else:
-                entries = [(path, arr)]
-            for p, a in entries:
-                name, a = _leaf(p[-1], a)
-                key = ".".join(_rename(p[:-1]) + [name])
-                state[key] = torch.from_numpy(np.array(a, np.float32))
+        for key, axes, r, _, arr in _entries(variables.get(collection, {})):
+            a = arr if r is None else arr[r]
+            if axes is not None:
+                a = a.transpose(axes)
+            state[key] = torch.from_numpy(np.array(a, np.float32))
     return state
+
+
+def port_to_jax_tree(tensors, tree):
+    """Fill a copy of the JAX ``tree`` (one collection: the ``params`` or the
+    ``batch_stats`` of some variables) from ``tensors``, {port name: tensor}:
+    the inverse of ``jax_to_state_dict`` leaf by leaf, layouts and the
+    stacked stage axis included.  Every leaf of ``tree`` must be there."""
+    out = {}
+    for key, axes, r, path, arr in _entries(tree):
+        a = tensors[key].detach().cpu().numpy()
+        if axes is not None:
+            a = a.transpose(np.argsort(axes))
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        if r is None:
+            node[path[-1]] = a
+        else:
+            node.setdefault(path[-1], np.zeros(arr.shape, a.dtype))[r] = a
+    return out
 
 
 def load_jax_variables(model, variables):

@@ -1,12 +1,15 @@
-"""ScanObjectNN classifier, forward pass.
+"""ScanObjectNN classifier.
 
 Counterpart of ``cloud_transformers_tpu/models/classifier.py``: a 3 -> 512
 stem, 12 MultiHeadUnion blocks (``repeats`` stages of the 3-union
 ``stage_plan``, a Python loop here where JAX scans), two MultiHeadPool
 transitions into grouped Res3D/Res2D trunks, a 2048 -> 1024 class vector,
 the class head, and a per-point mask head conditioned on the class vector.
-Eval mode only: dropout and batch statistics come with the training slice.
-Module names follow the JAX parameter tree so that ``convert.py`` maps it.
+In training mode the BatchNorms use batch statistics and the three
+``Dropout(0.5)`` of the heads are active (``dropout=0`` turns them off).
+The JAX package rematerializes and scans the stages to fit the TPU's memory
+and compile time; here every stage keeps its activations.  Module names
+follow the JAX parameter tree so that ``convert.py`` maps it.
 """
 
 import torch
@@ -116,7 +119,7 @@ class Classifier(nn.Module):
     def __init__(self, n_classes=15, model_dim=512, repeats=4,
                  stage_plan=DEFAULT_STAGE_PLAN, pool_heads=16,
                  pool_feature_dims=(32, 16), pool_sizes=(8, 16),
-                 trunk_width=64, class_dim=1024, mask_dim=256):
+                 trunk_width=64, class_dim=1024, mask_dim=256, dropout=0.5):
         super().__init__()
         self.backbone = ClassifierBackbone(
             model_dim, repeats, stage_plan, pool_heads,
@@ -129,14 +132,16 @@ class Classifier(nn.Module):
                                     bias=False)
         self.mask_bn = BatchNorm(mask_dim)
         self.mask_conv2 = nn.Linear(mask_dim, 1)
+        # one module, three independent draws per forward
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, pcd):
         res, pooled, stats = self.backbone(pcd)
         class_vect = F.relu(self.class_vector_bn(self.class_vector(pooled)))
-        class_pred = self.class_head(class_vect)
+        class_pred = self.class_head(self.dropout(class_vect))
         b, p, _ = res.shape
         mh = torch.cat([res, class_vect[:, None, :].expand(
             b, p, class_vect.shape[-1])], -1)
-        mh = self.mask_bn(self.mask_conv1(mh))
-        mask_pred = self.mask_conv2(F.relu(mh))
+        mh = self.mask_bn(self.mask_conv1(self.dropout(mh)))
+        mask_pred = self.mask_conv2(self.dropout(F.relu(mh)))
         return class_pred, mask_pred, stats

@@ -1,8 +1,9 @@
-"""Multi-Headed Cloud Transform blocks, forward pass.
+"""Multi-Headed Cloud Transform blocks.
 
 Counterpart of ``cloud_transformers_tpu/nn/multihead.py`` (``GridKeysValues``,
 ``head_stats``, ``MultiHead``, ``MultiHeadUnion``, ``MultiHeadPool``) on the
-``"ops"`` strategy: splat, grouped conv and slice as three kernels.  Points
+``"ops"`` strategy: splat, grouped conv and slice as three kernels, each
+with its backward kernel.  Points
 are channel-last ``[B, P, C]``; grids are flat ``[B*H, G, F]``.
 
 Per head group: a 1x1 projection predicts per-head key offsets and values;

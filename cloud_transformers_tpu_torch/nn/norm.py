@@ -1,12 +1,15 @@
-"""BatchNorm with the JAX package's state names, in eval mode.
+"""BatchNorm with the JAX package's state names.
 
 Counterpart of ``cloud_transformers_tpu/nn/norm.py`` (``TorchBatchNorm``):
 parameters ``scale``/``bias`` and buffers ``mean``/``var`` (torch's unbiased
 running variance), eps 1e-5, normalizing over the channel axis ``dim``
 (-1 for the channel-last point tensors, 1 for the channels-first trunks).
 
-Only eval mode (running statistics) is ported in this slice; training mode
-raises until the training slice lands.
+In training mode it normalizes with the biased variance of the batch, taken
+over every axis but the channel axis, and moves ``mean``/``var`` towards the
+batch mean and the *unbiased* batch variance (``n / max(n - 1, 1)``) with
+momentum 0.1, as ``torch.nn.BatchNorm`` and the JAX package do.  In eval
+mode it normalizes with the running statistics.
 """
 
 import torch
@@ -14,6 +17,8 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
+    momentum = 0.1   # weight of the batch statistics in the running ones
+
     def __init__(self, features, scale_init=1.0, eps=1e-5, dim=-1):
         super().__init__()
         self.scale_init = scale_init
@@ -25,11 +30,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm training mode is not ported yet (eval only)")
         shape = [1] * x.dim()
         shape[self.dim] = -1
-        inv = torch.rsqrt(self.var + self.eps) * self.scale
-        return (x - self.mean.view(shape)) * inv.view(shape) \
+        if self.training:
+            axes = [a for a in range(x.dim()) if a != self.dim % x.dim()]
+            mean = x.mean(axes)
+            var = (x - mean.view(shape)).square().mean(axes)
+            n = x.numel() // x.shape[self.dim]
+            with torch.no_grad():
+                self.mean.lerp_(mean, self.momentum)
+                self.var.lerp_(var * (n / max(n - 1, 1)), self.momentum)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean.view(shape)) * inv.view(shape) \
             + self.bias.view(shape)

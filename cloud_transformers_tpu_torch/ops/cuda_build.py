@@ -32,9 +32,12 @@ SIGNATURES = {
     "splat_slice": {
         "ct_splat_max": [_P] * 6 + [_I] * 8 + [_P],
         "ct_slice": [_P] * 6 + [_I] * 8 + [_P],
+        "ct_splat_max_bwd": [_P] * 11 + [_I] * 8 + [_P],
+        "ct_slice_bwd": [_P] * 9 + [_I] * 8 + [_P],
     },
     "grid_conv": {
         "ct_grid_conv3d": [_P] * 4 + [_I] * 6 + [_P],
+        "ct_grid_conv3d_dw": [_P] * 4 + [_I] * 7 + [_P],
     },
 }
 

@@ -1,7 +1,9 @@
-"""Splat-max and Slice on flat per-(batch, head) grids, with their kernels.
+"""Splat-max and Slice on flat per-(batch, head) grids, forward and backward,
+with their kernels.
 
-Counterpart of ``cloud_transformers_tpu/ops/pallas_splat.py``, reduced to
-what the forward pass needs.  Grids are flat ``[R = B*H, G, F]`` with cells
+Counterpart of ``cloud_transformers_tpu/ops/pallas_splat.py``
+(``pallas_splat`` op='max', ``pallas_slice``, ``pallas_splat_bwd`` in winner
+mode, ``pallas_slice_bwd``).  Grids are flat ``[R = B*H, G, F]`` with cells
 in row-major (x, y[, z]) order and F contiguous (the JAX package's
 ``kernel_to_flat`` layout); the TPU's ``[R, X*F_pad, lanes]`` layout exists
 for its vector unit and is not copied.
@@ -13,12 +15,18 @@ weights for rows x0 and x0+1 at lane offsets ``lane_offsets(sizes)``
 
 Each wrapper runs its CUDA kernel (``csrc/splat_slice.cu``) on a CUDA tensor
 and its plain PyTorch version on a CPU tensor; nothing falls back.  The
-wrappers count their kernel launches in ``<wrapper>.launches``.
+wrappers count their kernel launches in ``<wrapper>.launches`` (one per
+wrapper call that reaches the card, whatever number of passes it takes).
+The autograd Functions that join forward and backward are in
+``core/splat_slice.py``.
 """
 
 import torch
 
 from cloud_transformers_tpu_torch.ops import cuda_build
+
+# the winner map's "no point won this cell": larger than any point index
+NO_WINNER = 2 ** 31 - 1
 
 
 def vertex_decomposition(keys_scaled, sizes):
@@ -83,9 +91,10 @@ def vertex_index_weights(x0, lane0, w_lo, w_hi, sizes):
             torch.cat([w_lo, w_hi], -1))
 
 
-def _check_mapping(x0, lane0, w_lo, w_hi, sizes, name, data, data_shape):
+def _check_mapping(x0, lane0, w_lo, w_hi, sizes, *data):
     """Raise unless the mapping is [R, K] int32 / [R, K, 4] float32 and
-    ``data`` (values or grid) is float32 ``data_shape``, all on one device."""
+    every ``(name, tensor, shape)`` of ``data`` (values, grids, cotangents)
+    is float32 of that shape, all on one device."""
     if len(sizes) not in (2, 3):
         raise ValueError(f"sizes must be 2D or 3D, got {sizes}")
     r, k = x0.shape
@@ -95,7 +104,7 @@ def _check_mapping(x0, lane0, w_lo, w_hi, sizes, name, data, data_shape):
             ("lane0", lane0, torch.int32, (r, k)),
             ("w_lo", w_lo, torch.float32, (r, k, 4)),
             ("w_hi", w_hi, torch.float32, (r, k, 4)),
-            (name, data, torch.float32, data_shape)):
+            *((name, t, torch.float32, shape) for name, t, shape in data)):
         if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"{n}: expected {dtype} {shape} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
@@ -127,8 +136,8 @@ def splat_max(x0, lane0, w_lo, w_hi, values, sizes):
     """grid[r, cell, f] = max(0, max over the (k, v) mapping to cell of
     w[r, k, v] * values[r, k, f]).  -> [R, G, F] f32."""
     r, k = x0.shape
-    _check_mapping(x0, lane0, w_lo, w_hi, sizes, "values", values,
-                   (r, k, values.shape[-1]))
+    _check_mapping(x0, lane0, w_lo, w_hi, sizes,
+                   ("values", values, (r, k, values.shape[-1])))
     if not values.is_cuda:
         return splat_max_plain(x0, lane0, w_lo, w_hi, values, sizes)
     r, k, f = values.shape
@@ -164,8 +173,8 @@ def slice_gather(x0, lane0, w_lo, w_hi, grid, sizes):
     -> [R, K, F] f32."""
     r, k = x0.shape
     f = grid.shape[-1]
-    _check_mapping(x0, lane0, w_lo, w_hi, sizes, "grid", grid,
-                   (r, kernel_grid_dims(sizes)[2], f))
+    _check_mapping(x0, lane0, w_lo, w_hi, sizes,
+                   ("grid", grid, (r, kernel_grid_dims(sizes)[2], f)))
     if not grid.is_cuda:
         return slice_plain(x0, lane0, w_lo, w_hi, grid, sizes)
     args = [a.contiguous() for a in (x0, lane0, w_lo, w_hi, grid)]
@@ -180,3 +189,139 @@ def slice_gather(x0, lane0, w_lo, w_hi, grid, sizes):
 
 
 slice_gather.launches = 0
+
+
+# --- splat-max backward -----------------------------------------------------
+
+def _expanded(x0, lane0, w_lo, w_hi, sizes, f):
+    """-> (scatter/gather index [R, K*8, F] int64, weights [R, K, 8])."""
+    r, k = x0.shape
+    idx, w = vertex_index_weights(x0, lane0, w_lo, w_hi, sizes)
+    return idx.reshape(r, k * 8, 1).expand(r, k * 8, f), w
+
+
+def splat_winner_plain(x0, lane0, w_lo, w_hi, values, grid, sizes):
+    """Winner map [R, G, F] int32: the lowest point index k whose
+    contribution ``w * v`` (one f32 multiply) equals ``grid`` at a cell with
+    ``grid > 0``; ``NO_WINNER`` where there is none."""
+    r, k, f = values.shape
+    index, w = _expanded(x0, lane0, w_lo, w_hi, sizes, f)
+    contrib = w[..., None] * values[:, :, None, :]               # [R,K,8,F]
+    gmax = torch.gather(grid, 1, index).reshape(r, k, 8, f)
+    match = (contrib == gmax) & (gmax > 0)
+    point = torch.arange(k, device=values.device).reshape(1, k, 1, 1)
+    cand = torch.where(match, point, NO_WINNER)                  # int64
+    winner = torch.full(grid.shape, NO_WINNER, dtype=torch.int64,
+                        device=values.device)
+    winner.scatter_reduce_(1, index, cand.reshape(r, k * 8, f), "amin",
+                           include_self=True)
+    return winner.to(torch.int32)
+
+
+def splat_max_bwd_plain(x0, lane0, w_lo, w_hi, values, grid, g, sizes):
+    """Plain version: the winner map by a scatter-min of the point index,
+    then ``dcon = g`` for the winning contribution of each (cell, feature)
+    and 0 for every other one (ties do not share)."""
+    r, k, f = values.shape
+    index, w = _expanded(x0, lane0, w_lo, w_hi, sizes, f)
+    winner = splat_winner_plain(x0, lane0, w_lo, w_hi, values, grid, sizes)
+    contrib = w[..., None] * values[:, :, None, :]
+    gmax = torch.gather(grid, 1, index).reshape(r, k, 8, f)
+    point = torch.arange(k, device=values.device).reshape(1, k, 1, 1)
+    # the match too: a 2D point's zero-weight slots share cells with its
+    # real ones, and must not inherit their win
+    win = ((contrib == gmax) & (gmax > 0)
+           & (torch.gather(winner, 1, index).reshape(r, k, 8, f) == point))
+    dcon = torch.where(win, torch.gather(g, 1, index).reshape(r, k, 8, f),
+                       0.0)
+    d_w = (dcon * values[:, :, None, :]).sum(-1)                 # [R, K, 8]
+    d_values = (dcon * w[..., None]).sum(2)                      # [R, K, F]
+    return (d_w[..., :4].contiguous(), d_w[..., 4:].contiguous(), d_values)
+
+
+def splat_max_bwd(x0, lane0, w_lo, w_hi, values, grid, g, sizes,
+                  return_winner=False):
+    """Backward of ``splat_max``: the cotangent ``g`` [R, G, F] goes to the
+    lowest-indexed winner of each (cell, feature).
+    -> (d_w_lo [R, K, 4], d_w_hi [R, K, 4], d_values [R, K, F]), and the
+    int32 winner map [R, G, F] after them with ``return_winner``."""
+    r, k = x0.shape
+    f = values.shape[-1]
+    cells = kernel_grid_dims(sizes)[2]
+    _check_mapping(x0, lane0, w_lo, w_hi, sizes, ("values", values, (r, k, f)),
+                   ("grid", grid, (r, cells, f)), ("g", g, (r, cells, f)))
+    if not values.is_cuda:
+        out = splat_max_bwd_plain(x0, lane0, w_lo, w_hi, values, grid, g,
+                                  sizes)
+        if return_winner:
+            out += (splat_winner_plain(x0, lane0, w_lo, w_hi, values, grid,
+                                       sizes),)
+        return out
+    args = [a.contiguous() for a in (x0, lane0, w_lo, w_hi, values, grid, g)]
+    dev = values.device
+    winner = torch.full((r, cells, f), NO_WINNER, dtype=torch.int32,
+                        device=dev)
+    d_w_lo = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
+    d_w_hi = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
+    d_values = torch.empty(r, k, f, dtype=torch.float32, device=dev)
+    lib = cuda_build.libraries()["splat_slice"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ct_splat_max_bwd(
+        *(a.data_ptr() for a in args), winner.data_ptr(), d_w_lo.data_ptr(),
+        d_w_hi.data_ptr(), d_values.data_ptr(), r,
+        *_launch_args(sizes, k, f), stream)
+    cuda_build.check(err, "splat_max_bwd")
+    splat_max_bwd.launches += 1
+    out = (d_w_lo, d_w_hi, d_values)
+    return out + (winner,) if return_winner else out
+
+
+splat_max_bwd.launches = 0
+
+
+# --- slice backward ---------------------------------------------------------
+
+def slice_bwd_plain(x0, lane0, w_lo, w_hi, g_pts, grid, sizes):
+    """Plain version: scatter-add the weighted point cotangents, and gather
+    the vertex rows for the weight gradient."""
+    r, k, f = g_pts.shape
+    index, w = _expanded(x0, lane0, w_lo, w_hi, sizes, f)
+    d_grid = torch.zeros_like(grid).scatter_add_(
+        1, index, (w[..., None] * g_pts[:, :, None, :]).reshape(r, k * 8, f))
+    gathered = torch.gather(grid, 1, index).reshape(r, k, 8, f)
+    d_w = (gathered * g_pts[:, :, None, :]).sum(-1)              # [R, K, 8]
+    if len(sizes) == 2:
+        # slots 2 and 3 of a 2D mapping are constants, not vertices
+        d_w = d_w * d_w.new_tensor([1, 1, 0, 0, 1, 1, 0, 0])
+    return d_grid, d_w[..., :4].contiguous(), d_w[..., 4:].contiguous()
+
+
+def slice_bwd(x0, lane0, w_lo, w_hi, g_pts, grid, sizes):
+    """Backward of ``slice_gather`` for the point cotangent ``g_pts``
+    [R, K, F]: ``d_grid[r, idx(r,k,v), f] += w[r,k,v] * g_pts[r,k,f]`` and
+    ``d_w[r,k,v] = sum_f grid[r, idx(r,k,v), f] * g_pts[r,k,f]``.
+    -> (d_grid [R, G, F], d_w_lo [R, K, 4], d_w_hi [R, K, 4]).  On the card
+    d_grid is summed with float atomics, in an order that varies by run."""
+    r, k = x0.shape
+    f = grid.shape[-1]
+    cells = kernel_grid_dims(sizes)[2]
+    _check_mapping(x0, lane0, w_lo, w_hi, sizes, ("g_pts", g_pts, (r, k, f)),
+                   ("grid", grid, (r, cells, f)))
+    if not grid.is_cuda:
+        return slice_bwd_plain(x0, lane0, w_lo, w_hi, g_pts, grid, sizes)
+    args = [a.contiguous() for a in (x0, lane0, w_lo, w_hi, g_pts, grid)]
+    dev = grid.device
+    d_grid = torch.zeros(r, cells, f, dtype=torch.float32, device=dev)
+    d_w_lo = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
+    d_w_hi = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
+    lib = cuda_build.libraries()["splat_slice"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ct_slice_bwd(
+        *(a.data_ptr() for a in args), d_grid.data_ptr(), d_w_lo.data_ptr(),
+        d_w_hi.data_ptr(), r, *_launch_args(sizes, k, f), stream)
+    cuda_build.check(err, "slice_bwd")
+    slice_bwd.launches += 1
+    return d_grid, d_w_lo, d_w_hi
+
+
+slice_bwd.launches = 0
