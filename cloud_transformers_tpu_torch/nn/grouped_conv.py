@@ -43,8 +43,7 @@ class _GridConv3d(torch.autograd.Function):
         sizes, heads = ctx.sizes, ctx.heads
         g = g.contiguous()
         d_gk = grid_conv3d(g, transpose_weight(weight, heads),
-                           torch.zeros_like(weight[:, 0, 0, 0, 0]), sizes,
-                           heads)
+                           weight.new_zeros(weight.shape[0]), sizes, heads)
         d_weight = grid_conv3d_dw(gk, g, sizes, heads)
         f = gk.shape[-1]
         d_bias = g.reshape(-1, heads, g.shape[1], f).sum((0, 2)).reshape(-1)

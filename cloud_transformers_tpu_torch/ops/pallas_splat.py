@@ -200,39 +200,49 @@ def _expanded(x0, lane0, w_lo, w_hi, sizes, f):
     return idx.reshape(r, k * 8, 1).expand(r, k * 8, f), w
 
 
-def splat_winner_plain(x0, lane0, w_lo, w_hi, values, grid, sizes):
-    """Winner map [R, G, F] int32: the lowest point index k whose
-    contribution ``w * v`` (one f32 multiply) equals ``grid`` at a cell with
-    ``grid > 0``; ``NO_WINNER`` where there is none."""
+def _matches(x0, lane0, w_lo, w_hi, values, grid, sizes):
+    """-> (index [R, K*8, F], weights [R, K, 8], match [R, K, 8, F], point
+    [1, K, 1, 1]): ``match`` marks the contributions ``w * v`` (one f32
+    multiply) that equal ``grid`` at a cell with ``grid > 0``."""
     r, k, f = values.shape
     index, w = _expanded(x0, lane0, w_lo, w_hi, sizes, f)
     contrib = w[..., None] * values[:, :, None, :]               # [R,K,8,F]
     gmax = torch.gather(grid, 1, index).reshape(r, k, 8, f)
-    match = (contrib == gmax) & (gmax > 0)
     point = torch.arange(k, device=values.device).reshape(1, k, 1, 1)
-    cand = torch.where(match, point, NO_WINNER)                  # int64
-    winner = torch.full(grid.shape, NO_WINNER, dtype=torch.int64,
-                        device=values.device)
-    winner.scatter_reduce_(1, index, cand.reshape(r, k * 8, f), "amin",
-                           include_self=True)
-    return winner.to(torch.int32)
+    return index, w, (contrib == gmax) & (gmax > 0), point
+
+
+def _winner(index, match, point, shape):
+    """int64 winner map: the lowest matching point index per (cell,
+    feature), ``NO_WINNER`` where nothing matches."""
+    winner = torch.full(shape, NO_WINNER, dtype=torch.int64,
+                        device=match.device)
+    return winner.scatter_reduce_(
+        1, index, torch.where(match, point, NO_WINNER).reshape(index.shape),
+        "amin", include_self=True)
+
+
+def splat_winner_plain(x0, lane0, w_lo, w_hi, values, grid, sizes):
+    """Winner map [R, G, F] int32: the lowest point index k whose
+    contribution equals ``grid`` at a cell with ``grid > 0``; ``NO_WINNER``
+    where there is none."""
+    index, _, match, point = _matches(x0, lane0, w_lo, w_hi, values, grid,
+                                      sizes)
+    return _winner(index, match, point, grid.shape).to(torch.int32)
 
 
 def splat_max_bwd_plain(x0, lane0, w_lo, w_hi, values, grid, g, sizes):
     """Plain version: the winner map by a scatter-min of the point index,
     then ``dcon = g`` for the winning contribution of each (cell, feature)
     and 0 for every other one (ties do not share)."""
-    r, k, f = values.shape
-    index, w = _expanded(x0, lane0, w_lo, w_hi, sizes, f)
-    winner = splat_winner_plain(x0, lane0, w_lo, w_hi, values, grid, sizes)
-    contrib = w[..., None] * values[:, :, None, :]
-    gmax = torch.gather(grid, 1, index).reshape(r, k, 8, f)
-    point = torch.arange(k, device=values.device).reshape(1, k, 1, 1)
+    index, w, match, point = _matches(x0, lane0, w_lo, w_hi, values, grid,
+                                      sizes)
+    winner = _winner(index, match, point, grid.shape)
     # the match too: a 2D point's zero-weight slots share cells with its
     # real ones, and must not inherit their win
-    win = ((contrib == gmax) & (gmax > 0)
-           & (torch.gather(winner, 1, index).reshape(r, k, 8, f) == point))
-    dcon = torch.where(win, torch.gather(g, 1, index).reshape(r, k, 8, f),
+    win = match & (torch.gather(winner, 1, index).reshape(match.shape)
+                   == point)
+    dcon = torch.where(win, torch.gather(g, 1, index).reshape(match.shape),
                        0.0)
     d_w = (dcon * values[:, :, None, :]).sum(-1)                 # [R, K, 8]
     d_values = (dcon * w[..., None]).sum(2)                      # [R, K, F]
