@@ -418,16 +418,42 @@ def device_ms(events):
         and not getattr(e, "is_user_annotation", False)) / 1e3
 
 
+# device kernels by a part of their name, first match wins
+KERNEL_GROUPS = (
+    ("grid_conv3d_dw", "grid_conv3d_dw"),
+    ("grid_conv3d_kernel", "grid_conv3d"),
+    ("splat_winner", "splat_max_bwd"), ("splat_route", "splat_max_bwd"),
+    ("splat_max_kernel", "splat_max"), ("slice_bwd", "slice_bwd"),
+    ("slice_kernel", "slice_gather"),
+    ("cudnn", "cuDNN convolutions and their layout kernels"),
+    ("implicit_gemm", "cuDNN convolutions and their layout kernels"),
+    ("implicit_convolve", "cuDNN convolutions and their layout kernels"),
+    ("gemm", "matmuls (cuBLAS, CUTLASS)"),
+    ("", "elementwise, reductions, copies and the rest"))
+
+
 def device_table(events, passes, limit=40):
-    """The kernels and copies on the card by self time: ms and launches per
-    pass (forward or training step), longest first."""
+    """The kernels and copies on the card by self time, per pass (forward
+    or training step): sums by ``KERNEL_GROUPS``, then ms and launches of
+    the longest kernels."""
     rows = sorted(((e.self_device_time_total / 1e3 / passes,
                     e.count / passes, e.key) for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)),
                   reverse=True)
-    lines = [f"{ms:10.3f} ms {n:9.1f} launches  {key[:120]}"
-             for ms, n, key in rows[:limit]]
+    total = sum(ms for ms, _, _ in rows)
+    groups = {}
+    for ms, n, key in rows:
+        name = next(g for part, g in KERNEL_GROUPS if part in key)
+        t, c = groups.get(name, (0.0, 0.0))
+        groups[name] = (t + ms, c + n)
+    lines = [f"{ms:10.3f} ms {100 * ms / total:5.1f}% {n:9.1f} launches  "
+             f"{name}" for name, (ms, n) in sorted(
+                 groups.items(), key=lambda item: -item[1][0])]
+    lines.append(f"{total:10.3f} ms in all, "
+                 f"{sum(n for _, n, _ in rows):.1f} launches")
+    lines += [f"{ms:10.3f} ms {n:9.1f} launches  {key[:120]}"
+              for ms, n, key in rows[:limit]]
     rest = sum(ms for ms, _, _ in rows[limit:])
     return "\n".join(lines + [f"{rest:10.3f} ms in {len(rows) - limit} "
                               "more kernels"] * (len(rows) > limit))
