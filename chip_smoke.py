@@ -41,9 +41,47 @@
    mode, no dropout) takes one forward + backward on the card (kernels) and
    one on the CPU (plain versions): loss within 1e-4, the concatenated
    gradient with cosine > 0.999 and median error <= 1e-3 of its scale;
-8. prints ms/forward and clouds/s, then the training line (ms/step, clouds/s,
-   peak memory), then one ``{"kernels": [...]}`` line, then the ``{"ok":
-   true, "device": ...}`` line last.
+8. the completion path: trains the full-width ``completion_inpainter`` of
+   ``configs/inpainting.yaml`` through ``Trainer`` (synthetic ShapeNet
+   pairs, B=2, 2048 partial and 16384 decoder points, the EMD loss at eps
+   0.005 and 50 rounds): one warm-up step, then 20 timed steps with the
+   eight launch counters set to 0 just before and read just after: per step
+   50 splat, 48 slice, 32 conv, 50 splat-backward, 48 slice-backward and 16
+   weight-gradient launches, and one ``top2`` launch per auction round.
+   Every loss and gradient is finite, every decoder key ``scale`` has a
+   nonzero gradient, the assignment is in range; the model's forward,
+   backward and update run under ``set_sync_debug_mode("error")`` (the
+   auction waits for the device once a round and is left out).  Then it
+   saves a checkpoint, restores it into a fresh model with
+   ``restore_params_only`` and holds the two reconstructions equal, and
+   runs the evaluation protocol (F-score@0.01, Chamfer x 1000, EMD at eps
+   0.004 and up to 3000 rounds) on 4 synthetic test clouds;
+9. the same EMD with the window tail switched on, on a pair that converges
+   (B=2 x 16384): it ends inside the budget, one to one, at a cost within
+   2% of the staged tail's, through ``auction_window`` launches;
+10. the completion path on the card against the CPU: the full-width
+   inpainter with one stage each side, B=1, same weights and noise
+   (cosine > 0.999, median error <= 1e-3), and ``loss_emd`` at N=2048
+   within 2%;
+11. prints ms/forward and clouds/s, then the training line (ms/step,
+   clouds/s, peak memory), then the completion line (ms/step, clouds/s,
+   peak memory, the EMD's share of a step, the evaluation's table values,
+   rounds and seconds per cloud, both tails), then one ``{"kernels":
+   [...]}`` line of all eight kernels, then the ``{"ok": true, "device":
+   ...}`` line last.
+
+In phase 3 the auction's two kernels are held too: ``top2`` against
+``top2_plain`` at every (B, W, M) the staged schedule gives it at N = 16384
+(B = 2 in training, 1 in evaluation; W = 16384, 2048, 1024, 512, 256), at a
+shape that is a multiple of nothing, with duplicated targets and with one
+target: values within 2e-5 (they are bit-equal), the index equal wherever
+the top two are more than 1e-5 apart; ``auction_window`` against
+``auction_window_plain`` from a mid-auction state at B=2, W=512, M=16384,
+up to 64 rounds: owner map and rounds used equal, prices within 2e-5, two
+calls equal.  ``top2`` is timed beside ``torch.cdist`` + ``topk(2)`` (two
+library calls and an elementwise pass, not one); its bound is B * W * M
+values of 12 float32 operations, or their square roots at the
+special-function rate, whichever takes longer.
 
 TF32 is off for matmuls and cuDNN convolutions, so everything is float32.
 Any failure raises and the exit code is non-zero; without CUDA the script
@@ -51,7 +89,9 @@ exits non-zero before printing any result.  ``--profile DIR`` profiles 10
 more classify calls: it adds their host wall time, device busy time and the
 device's idle share (one window, both clocks) to the result line, and
 writes the torch.profiler table by kernel to ``DIR/profile_forward.txt``;
-it does the same for 5 more training steps (``DIR/profile_train.txt``).
+it does the same for 5 more training steps of the classifier
+(``DIR/profile_train.txt``) and of the completion model
+(``DIR/profile_completion.txt``).
 """
 
 import argparse
@@ -83,6 +123,17 @@ PARITY_B = 4   # clouds in the card-vs-CPU gradient comparison
 TOL = 1e-5   # max abs error relative to max(1, max |plain output|)
 ROUTE_TOL = 1e-6   # the same, for the splat backward (no atomics, few terms)
 LIB_TOL = 1e-4   # the same, for a library yardstick (other op order)
+SFU_OP_PER_S = 132 * 16 * 1.98e9   # H100 SXM: 16 special-function results
+#                                    a clock on each of 132 SMs at 1.98 GHz
+EMD_TOL = 2e-5   # max abs error of bid values and prices (numbers near 3)
+# top2 shapes (B, W, M): the widths of the staged schedule at N = 16384 for
+# the training batch (B = 2) and for one evaluated cloud (B = 1), and one
+# shape that is a multiple of nothing
+TOP2_SHAPES = [(b, w, 16384) for b in (2, 1)
+               for w in (16384, 2048, 1024, 512, 256)] + [(2, 777, 3001)]
+WINDOW_SHAPE = (2, 512, 16384)   # (B, W, M) of the auction_window check
+COMPLETION_STEPS = 20   # timed optimizer steps, after one warm-up step
+EVAL_CLOUDS = 4
 REPLACES = {
     "splat_max": "cloud_transformers_tpu/ops/pallas_splat.py:528",
     "slice_gather": "cloud_transformers_tpu/ops/pallas_splat.py:780",
@@ -90,18 +141,35 @@ REPLACES = {
     "splat_max_bwd": "cloud_transformers_tpu/ops/pallas_splat.py:1179",
     "slice_bwd": "cloud_transformers_tpu/ops/pallas_splat.py:1382",
     "grid_conv3d_dw": "cloud_transformers_tpu/ops/pallas_grid_conv.py:183",
+    "top2": "cloud_transformers_tpu/ops/pallas_emd.py:112",
+    "auction_window": "cloud_transformers_tpu/ops/pallas_emd.py:373",
 }
 _SPLAT_CU = "cloud_transformers_tpu_torch/csrc/splat_slice.cu"
 _CONV_CU = "cloud_transformers_tpu_torch/csrc/grid_conv.cu"
+_EMD_CU = "cloud_transformers_tpu_torch/csrc/emd.cu"
 SOURCES = {
     "splat_max": _SPLAT_CU, "slice_gather": _SPLAT_CU,
     "grid_conv3d": _CONV_CU, "splat_max_bwd": _SPLAT_CU,
     "slice_bwd": _SPLAT_CU, "grid_conv3d_dw": _CONV_CU,
+    "top2": _EMD_CU, "auction_window": _EMD_CU,
 }
 # launches per forward of the serving path, and per training step
 PER_FORWARD = {"splat_max": 26, "slice_gather": 24, "grid_conv3d": 8}
 PER_STEP = {"splat_max": 26, "slice_gather": 24, "grid_conv3d": 16,
             "splat_max_bwd": 26, "slice_bwd": 24, "grid_conv3d_dw": 8}
+# per completion training step: the encoder (the classifier's backbone, 26
+# splats) and the decoder (4 stages x 3 unions x 2 heads groups, 24 splats)
+PER_STEP_COMPLETION = {
+    "splat_max": 50, "slice_gather": 48, "grid_conv3d": 32,
+    "splat_max_bwd": 50, "slice_bwd": 48, "grid_conv3d_dw": 16}
+# where ``library_ms`` is not the time of one PyTorch call
+LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
+                      "library calls, not one"}
+# the path whose run gives each kernel's ``launches``
+MAIN_PATH = {"splat_max": "serving", "slice_gather": "serving",
+             "grid_conv3d": "serving", "splat_max_bwd": "training",
+             "slice_bwd": "training", "grid_conv3d_dw": "training",
+             "top2": "completion", "auction_window": "window"}
 
 
 def log(*a):
@@ -353,15 +421,166 @@ def check_kernels(gen):
     return rows
 
 
-def kernel_line(rows, serving, training):
+def bound_top2(pairs, n_bytes):
+    """The bid search's least time: ``pairs`` values of 12 float32
+    operations and one square root each, the square roots at the
+    special-function rate, against ``n_bytes`` moved."""
+    t_ops = max(pairs * 12 / F32_FLOP_PER_S, pairs / SFU_OP_PER_S) * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def held_top2(what, got, plain):
+    """Bid values within EMD_TOL; the index equal wherever the plain
+    version's best and second-best are more than 1e-5 apart.  -> (max abs
+    error, number of indices that differ at all)."""
+    err = max(held(f"{what} {n}", a, b, EMD_TOL)
+              for n, a, b in (("best", got[0], plain[0]),
+                              ("better", got[1], plain[1])))
+    differ = got[2] != plain[2]
+    clear = (plain[0] - plain[1]) > 1e-5
+    if bool((differ & clear).any()):
+        raise AssertionError(f"{what}: {int((differ & clear).sum())} argmax "
+                             "indices differ where the top two are apart")
+    return err, int(differ.sum())
+
+
+def mid_auction_state(x1, x2, eps, until):
+    """The staged auction of ``losses/emd.py`` run until at most ``until``
+    points of a row are unassigned.  -> (state, rounds)."""
+    from cloud_transformers_tpu_torch.losses import emd
+    b, n, _ = x1.shape
+    state = emd._init_state(b, n, n, x1.device)
+    rounds = 0
+    caps = [None] + [c for c in (n // 8, n // 16, n // 32, n // 64)
+                     if c >= 256]
+    for cap, nxt in zip(caps, caps[1:] + [0]):
+        while emd._max_unassigned(state[0]) > max(until, nxt):
+            idx = (None if cap is None
+                   else emd._compact_unassigned(state[0][:, :n], cap))
+            state = emd._auction_round(x1, x2, eps, 2048, state, last=False,
+                                       idx=idx)
+            rounds += 1
+    return state, rounds
+
+
+def check_emd_kernels(gen):
+    """Phase 3, the auction's two kernels: compare, time and bound."""
+    from cloud_transformers_tpu_torch.losses import emd
+    from cloud_transformers_tpu_torch.ops import pallas_emd as pe
+    rows = {"top2": [], "auction_window": []}
+    for b, w, m in TOP2_SHAPES:
+        x1 = torch.rand(b, w, 3, generator=gen, device="cuda") * 2 - 1
+        x2 = torch.rand(b, m, 3, generator=gen, device="cuda") * 2 - 1
+        price = torch.rand(b, m, generator=gen, device="cuda") * 0.1
+        got = pe.top2(x1, x2, price)
+        plain = pe.top2_plain(x1, x2, price)
+        err, n_differ = held_top2(f"top2 {(b, w, m)}", got, plain)
+        if not bool(((got[2] >= 0) & (got[2] < m)).all()):
+            raise AssertionError(f"top2 {(b, w, m)}: index out of range")
+
+        def library():
+            # two library calls and an elementwise pass, not one call
+            value = 3.0 - torch.cdist(x1, x2) - price[:, None, :]
+            return value.topk(2, dim=-1)
+        lib = library()
+        lib_err = max(held(f"cdist+topk {(b, w, m)} best",
+                           lib.values[..., 0], plain[0], LIB_TOL),
+                      held(f"cdist+topk {(b, w, m)} better",
+                           lib.values[..., 1], plain[1], LIB_TOL))
+        del lib
+        rows["top2"].append(dict(
+            shape=f"B={b} W={w} M={m}", b=b, w=w, calls=0.0,
+            max_abs_err=err, index_differs=n_differ, library_err=lib_err,
+            split=pe.top2_split(b * w),
+            ms=cuda_ms(lambda: pe.top2(x1, x2, price)),
+            plain_ms=cuda_ms(lambda: pe.top2_plain(x1, x2, price), iters=3,
+                             warmup=1),
+            library_ms=cuda_ms(library, iters=3, warmup=1),
+            bound=bound_top2(b * w * m,
+                             (b * w * 3 + b * m * 4 + b * w * 3) * 4)))
+        log(f"top2 B={b} W={w} M={m}: {rows['top2'][-1]['ms']:.4f} ms, "
+            f"plain {rows['top2'][-1]['plain_ms']:.3f} ms, "
+            f"{n_differ} indices differ")
+        del x1, x2, price, got, plain
+
+    # exact duplicates: the second-best equals the best, the first
+    # occurrence wins; and a single target: no second-best
+    x1 = torch.rand(2, 1024, 3, generator=gen, device="cuda")
+    half = torch.rand(2, 3000, 3, generator=gen, device="cuda")
+    x2 = torch.cat([half, half], 1)
+    price = torch.zeros(2, 6000, device="cuda")
+    got, plain = pe.top2(x1, x2, price), pe.top2_plain(x1, x2, price)
+    held_top2("top2 duplicated targets", got, plain)
+    if not (torch.equal(got[2], plain[2]) and bool((got[2] < 3000).all())
+            and torch.equal(got[0], got[1])):
+        raise AssertionError("top2 duplicated targets: not the first "
+                             "occurrence, or the second-best is not the best")
+    one = pe.top2(x1, x2[:, :1].contiguous(), price[:, :1].contiguous())
+    if not (bool((one[1] == -1e9).all()) and bool((one[2] == 0).all())):
+        raise AssertionError("top2 with one target: second-best is not -1e9")
+    log("top2: duplicated targets and the single target hold")
+
+    # the window from a mid-auction state
+    b, w, m = WINDOW_SHAPE
+    eps = 0.004
+    x1 = torch.rand(b, m, 3, generator=gen, device="cuda") * 2 - 1
+    x2 = torch.rand(b, m, 3, generator=gen, device="cuda") * 2 - 1
+    state, rounds = mid_auction_state(x1, x2, eps, 2 * w)
+    idx = emd._compact_unassigned(state[0][:, :m], w)
+    x1w = torch.gather(x1, 1, idx.clamp(max=m - 1)[..., None]
+                       .expand(-1, -1, 3)).contiguous()
+    j_real = idx.to(torch.int32).contiguous()
+    owner = state[1].to(torch.int32)
+    args = (x1w, j_real, x2, state[2], owner, 3000, eps, m)
+    price_k, owner_k, used_k = pe.auction_window(*args, rounds_cap=64)
+    price_p, owner_p, used_p, bids = pe.auction_window_plain(
+        *args, rounds_cap=64, return_bids=True)
+    if not (torch.equal(owner_k, owner_p) and torch.equal(used_k, used_p)):
+        raise AssertionError(
+            f"auction_window: owner map or rounds used differ from the "
+            f"plain version ({int((owner_k != owner_p).sum())} owners, "
+            f"used {used_k.tolist()} vs {used_p.tolist()})")
+    err = held("auction_window price", price_k, price_p, EMD_TOL)
+    again = pe.auction_window(*args, rounds_cap=64)
+    if not all(torch.equal(a, c) for a, c in zip(
+            (price_k, owner_k, used_k), again)):
+        raise AssertionError("auction_window: two calls differ")
+    n_rounds = int(used_k.max())
+    # the bids the data needed, each over M targets, and per round the
+    # W * W comparisons of the resolve pass
+    t_bound = bound_top2(bids * m, b * (w * 16 + m * 28))[0] \
+        + int(used_k.sum()) * w * w / F32_FLOP_PER_S * 1e3
+    rows["auction_window"].append(dict(
+        shape=f"B={b} W={w} M={m}", calls=0.0, max_abs_err=err,
+        rounds_before=rounds, used=used_k.tolist(), bids=bids,
+        unassigned_before=int((state[0][:, :m] < 0).sum(1).max()),
+        ms=cuda_ms(lambda: pe.auction_window(*args, rounds_cap=64),
+                   iters=5, warmup=1),
+        plain_ms=cuda_ms(lambda: pe.auction_window_plain(
+            *args, rounds_cap=64), iters=2, warmup=0),
+        library_ms=None, bound=(t_bound, "operations")))
+    r = rows["auction_window"][-1]
+    log(f"auction_window {r['shape']}: used {r['used']} rounds, {bids} bids, "
+        f"{r['ms']:.3f} ms ({r['ms'] / max(n_rounds, 1):.3f} ms a round), "
+        f"plain {r['plain_ms']:.1f} ms")
+    return rows
+
+
+def kernel_line(rows, launches):
     """Per kernel: times summed over the calls of one pass of its path
     (each shape times its calls): one forward for the three kernels of the
-    serving path, one training step for the three backward kernels.
-    ``launches`` is the count of that path's run; both runs' counts stand
-    beside it."""
+    serving path, one training step of the classifier for the three
+    backward kernels, one training step of the completion model for
+    ``top2``, the one checked call for ``auction_window``.  ``launches``
+    is {path: {kernel: count}}: a kernel's ``launches`` is the count of its
+    path's run (``MAIN_PATH``), and every path's count stands beside it."""
+    times_are = {"serving": "per_forward", "training": "per_step",
+                 "completion": "per_completion_step",
+                 "window": "per_call_from_the_checked_state"}
     out = []
     for name, shapes in rows.items():
-        per = "per_forward" if name in PER_FORWARD else "per_step"
+        per = times_are[MAIN_PATH[name]]
 
         def total(key):
             return sum(s[key] * s["calls"] for s in shapes)
@@ -372,21 +591,26 @@ def kernel_line(rows, serving, training):
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": (serving if name in PER_FORWARD else training)[name],
-            "launches_serving": serving.get(name, 0),
-            "launches_training": training[name], "times_are": per,
+            "launches": launches[MAIN_PATH[name]][name],
+            **{f"launches_{path}": counts.get(name, 0)
+               for path, counts in launches.items()},
+            "times_are": per,
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": t_bound, "bound_by": by["bound"][1],
             "library_ms": lib,
+            **({"library_is": LIBRARY_IS[name]} if name in LIBRARY_IS
+               else {}),
             "per_shape": [{
                 "shape": s["shape"], per: s["calls"],
                 "ms": s["ms"], "plain_ms": s["plain_ms"],
                 "bound_ms": s["bound"][0], "bound_by": s["bound"][1],
                 "library_ms": s["library_ms"],
                 "max_abs_err": s["max_abs_err"],
-                **{k: s[k] for k in ("library_err", "grid_rows_read",
-                                     "grid_rows", "won") if k in s}}
+                **{k: s[k] for k in (
+                    "library_err", "grid_rows_read", "grid_rows", "won",
+                    "index_differs", "split", "used", "bids",
+                    "rounds_before", "unassigned_before") if k in s}}
                 for s in shapes],
         })
     return {"kernels": out}
@@ -420,6 +644,7 @@ def device_ms(events):
 
 # device kernels by a part of their name, first match wins
 KERNEL_GROUPS = (
+    ("top2_kernel", "top2"), ("auction_window_kernel", "auction_window"),
     ("grid_conv3d_dw", "grid_conv3d_dw"),
     ("grid_conv3d_kernel", "grid_conv3d"),
     ("splat_winner", "splat_max_bwd"), ("splat_route", "splat_max_bwd"),
@@ -499,8 +724,7 @@ def train_phase(wrappers, smi, profile_dir, exp_root):
     torch.cuda.reset_peak_memory_stats()
     trainer.train_step(next(batches))            # warm-up (cuDNN plans)
     torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_launches(wrappers)
     step_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         batch = next(batches)
@@ -510,7 +734,7 @@ def train_phase(wrappers, smi, profile_dir, exp_root):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss"])
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = read_launches(wrappers)
     peak = torch.cuda.max_memory_allocated()
     for name, per_step in PER_STEP.items():
         if launches[name] != per_step * TRAIN_STEPS:
@@ -658,13 +882,383 @@ def gradient_parity():
             "parity_worst_tensor": worst[1]}
 
 
+class EmdRecorder:
+    """Stands in for ``losses.emd.emd_auction_with_rounds`` and
+    ``_top2_dispatch`` while a phase runs: it passes every call through and
+    keeps the rounds each auction used, the CUDA events around it, its
+    last assignment, and the bid searches by (batch, width)."""
+
+    def __init__(self):
+        from cloud_transformers_tpu_torch.losses import emd
+        self.emd = emd
+        self.auction, self.dispatch = (emd.emd_auction_with_rounds,
+                                       emd._top2_dispatch)
+        self.rounds, self.events, self.widths = [], [], {}
+        self.assignment = None
+
+    def __enter__(self):
+        def auction(xyz1, xyz2, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dist, assignment, rounds = self.auction(xyz1, xyz2, *args,
+                                                    **kwargs)
+            end.record()
+            self.rounds.append(rounds)
+            self.events.append((start, end))
+            self.assignment = assignment
+            return dist, assignment, rounds
+
+        def dispatch(x1w, x2, price, chunk_size):
+            key = (x1w.shape[0], x1w.shape[1])
+            self.widths[key] = self.widths.get(key, 0) + 1
+            return self.dispatch(x1w, x2, price, chunk_size)
+
+        self.emd.emd_auction_with_rounds = auction
+        self.emd._top2_dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.emd.emd_auction_with_rounds = self.auction
+        self.emd._top2_dispatch = self.dispatch
+
+    def ms(self):
+        """Device time between each auction's first and last kernel."""
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def read_launches(wrappers):
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def zero_launches(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def completion_phase(wrappers, smi, profile_dir, exp_root):
+    """The third path: the full-width completion model trained for 1 +
+    COMPLETION_STEPS steps through the Trainer on synthetic ShapeNet pairs,
+    a checkpoint round trip, and the evaluation protocol on EVAL_CLOUDS
+    test clouds.  -> (result dict, launches in the timed steps, launches in
+    the evaluation, bid searches per step by (batch, width)).  An auction
+    makes the host wait once per round (its exit test) and once more where
+    a phase of the width schedule ends."""
+    from cloud_transformers_tpu_torch import eval_inpainting
+    from cloud_transformers_tpu_torch.core.noise import partial_postprocess
+    from cloud_transformers_tpu_torch.data import (
+        DataLoader,
+        ShapeNetCompletion,
+    )
+    from cloud_transformers_tpu_torch.tasks import completion
+    from cloud_transformers_tpu_torch.train.checkpoint import (
+        restore_params_only,
+    )
+    from cloud_transformers_tpu_torch.train.config import (
+        load_config,
+        model_from_config,
+    )
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs", "inpainting.yaml"))
+    d = cfg["data"]
+    bsz, n_in, n_gt = d["batch_size"], d["input_size"], d["gt_size"]
+    if (bsz, n_in, n_gt) != (2, 2048, 16384):
+        raise AssertionError("configs/inpainting.yaml is not B=2, 2048 "
+                             "partial and 16384 ground-truth points")
+    cfg["experiment"] = {"root": exp_root}
+    gens = {"train": torch.Generator("cuda").manual_seed(1)}
+    trainer = Trainer(
+        model_from_config(cfg), cfg, "chip_smoke_completion",
+        completion.make_loss_fn(
+            gens["train"], float(cfg["train"].get("chamfer_weight", 0.0))),
+        device="cuda", seed=0, generators=gens)
+    model = trainer.model
+    if (len(model.encoder.backbone.trunk.stages), len(model.decoder.stages),
+            model.start_conv.out_features, model.mapping.out_features) \
+            != (4, 4, 512, 512):
+        raise AssertionError("the completion model is not the full-width one")
+    train_loader, _ = completion.make_datasets(cfg, synthetic=True)
+    batches = endless(train_loader)
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(next(batches))            # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    step_ms, losses = [], []
+    with EmdRecorder() as rec:
+        zero_launches(wrappers)
+        for _ in range(COMPLETION_STEPS):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"])
+        launches = read_launches(wrappers)
+        emd_ms = rec.ms()
+    peak = torch.cuda.max_memory_allocated()
+    expect = {k: v * COMPLETION_STEPS for k, v in PER_STEP_COMPLETION.items()}
+    # one bid search per round, the last round included; with
+    # _KERNEL_BID_MIN_WIDTH = 1 every one of them is a kernel launch
+    expect.update(top2=sum(rec.rounds), auction_window=0)
+    if launches != expect or sum(rec.widths.values()) != launches["top2"]:
+        raise AssertionError(f"completion training: launches {launches}, "
+                             f"expected {expect}; bid searches {rec.widths}")
+    log(f"launches in {COMPLETION_STEPS} completion steps: {launches}; "
+        f"rounds per auction {rec.rounds}; bid searches by (B, W) "
+        f"{rec.widths}")
+    a = rec.assignment
+    if a.shape != (bsz, n_gt) or int(a.min()) < 0 or int(a.max()) >= n_gt:
+        raise AssertionError("completion training: assignment out of range")
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite completion loss: {losses}")
+    scale_grads = {}
+    for name, param in model.named_parameters():
+        if param.grad is None or not bool(torch.isfinite(param.grad).all()):
+            raise AssertionError(f"{name}: missing or non-finite gradient")
+        if name.startswith("decoder.") and name.endswith(".scale") \
+                and param.dim() == 0:
+            scale_grads[name] = float(param.grad.abs())
+    if len(scale_grads) != 24 or not all(g > 0 for g in scale_grads.values()):
+        raise AssertionError("a decoder key scale has no gradient: the key "
+                             f"path is not connected ({scale_grads})")
+    if trainer.global_step != COMPLETION_STEPS + 1:
+        raise AssertionError(f"trainer step count {trainer.global_step}")
+
+    # the model's forward, backward and update never make the host wait;
+    # the auction does, once a round, and is left out of this check
+    batch = trainer.to_device(next(batches))
+    parts, noise = partial_postprocess(gens["train"], batch["partial"], n_gt)
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.optimizer.zero_grad()
+        recon, _ = model(noise, parts)
+        recon.square().mean().backward()
+        trainer.optimizer.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("completion model step: no host-device synchronisation")
+
+    ms = float(np.median(step_ms))
+    result = {
+        "completion_ms_per_step": ms,
+        "completion_clouds_per_s": bsz * 1e3 / ms,
+        "completion_ms_mean": float(np.mean(step_ms)),
+        "completion_ms_p10": float(np.percentile(step_ms, 10)),
+        "completion_ms_p90": float(np.percentile(step_ms, 90)),
+        "completion_steps": COMPLETION_STEPS,
+        "completion_peak_memory_bytes": int(peak),
+        "completion_emd_ms_per_step": float(np.median(emd_ms)),
+        "completion_emd_share_of_step": float(np.sum(emd_ms)
+                                              / np.sum(step_ms)),
+        "completion_emd_rounds": rec.rounds,
+        "completion_loss_first": float(losses[0]),
+        "completion_loss_last": float(losses[-1]),
+        "completion_scale_grad_min": min(scale_grads.values()),
+        "batch": bsz, "partial_points": n_in, "points": n_gt}
+    widths_per_step = {k: v / COMPLETION_STEPS for k, v in rec.widths.items()}
+
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                trainer.train_step(next(batches))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        busy = device_ms(events)
+        profiled = {"completion_profiled_steps": PROFILE_STEPS,
+                    "completion_profiled_wall_ms_per_step":
+                        wall_ms / PROFILE_STEPS,
+                    "completion_profiled_device_ms_per_step":
+                        busy / PROFILE_STEPS,
+                    "completion_profiled_device_idle_share":
+                        1 - busy / wall_ms}
+        table = events.table(sort_by="cuda_time_total", row_limit=40)
+        with open(os.path.join(profile_dir, "profile_completion.txt"),
+                  "w") as fh:
+            fh.write(f"{smi}\n{json.dumps(profiled)}\n"
+                     f"device kernels, per completion training step:\n"
+                     f"{device_table(events, PROFILE_STEPS)}\n"
+                     f"(totals over {PROFILE_STEPS} training steps)\n{table}")
+        log(json.dumps(profiled))
+        result.update(profiled)
+
+    # checkpoint: save, restore into a fresh model, same reconstruction
+    path = trainer.save()
+    fresh = restore_params_only(path, model_from_config(cfg)).to("cuda")
+    model.eval()
+    fresh.eval()
+    with torch.no_grad():
+        same = torch.equal(model(noise, parts)[0], fresh(noise, parts)[0])
+    if not same:
+        raise AssertionError("the restored model's reconstruction differs "
+                             "from the trainer's")
+    result["checkpoint_bytes"] = os.path.getsize(path)
+    log(f"checkpoint {result['checkpoint_bytes'] / 2 ** 20:.1f} MiB: the "
+        "restored model reconstructs bit for bit")
+    del trainer, model
+
+    # the evaluation protocol on synthetic test clouds
+    ds = ShapeNetCompletion(split="test", n_input=n_in, n_output=n_gt)
+    loader = DataLoader(ds, 1, shuffle=False, drop_last=False)
+    with EmdRecorder() as rec:
+        zero_launches(wrappers)
+        per_cat = eval_inpainting.evaluate(
+            fresh, loader, torch.Generator("cuda").manual_seed(2), "cuda",
+            limit=EVAL_CLOUDS, emd=True, emd_eps=0.004, emd_iters=3000)
+        eval_launches = read_launches(wrappers)
+        eval_emd_ms = rec.ms()
+    table = eval_inpainting.format_table(per_cat, emd=True)
+    log(table)
+    m = next(iter(per_cat.values()))
+    flat = [v for key in ("f", "cd", "emd") for v in m[key]]
+    if len(per_cat) != 1 or len(m["f"]) != EVAL_CLOUDS \
+            or not np.isfinite(flat).all():
+        raise AssertionError(f"evaluation: bad table\n{table}")
+    if eval_launches["top2"] != sum(m["rounds"]):
+        raise AssertionError(f"evaluation: {eval_launches['top2']} top2 "
+                             f"launches, rounds {m['rounds']}")
+    result.update({
+        "eval_clouds": EVAL_CLOUDS, "eval_f_score": float(np.mean(m["f"])),
+        "eval_chamfer_x1000": float(np.mean(m["cd"])),
+        "eval_emd": float(np.mean(m["emd"])), "eval_rounds": m["rounds"],
+        "eval_seconds_per_cloud": float(np.median(m["seconds"])),
+        "eval_seconds": m["seconds"],
+        "eval_emd_ms_per_cloud": float(np.median(eval_emd_ms)),
+        "eval_top2_launches_per_cloud": eval_launches["top2"] / EVAL_CLOUDS,
+        "eval_bid_searches_by_width": {
+            f"B={k[0]} W={k[1]}": v for k, v in rec.widths.items()}})
+    return result, launches, eval_launches, widths_per_step
+
+
+def window_tail_phase(wrappers):
+    """The EMD once more with the window tail switched on (the module
+    switch, set and restored here): a pair that converges (uniform clouds,
+    the first a permutation of the second plus noise of 0.01, B=2 x 16384,
+    eps 0.004, up to 3000 rounds) through the staged tail and through the
+    window tail.  The synthetic ShapeNet pairs do not converge within 3000
+    rounds under either tail (their clipped corners hold exact duplicates),
+    so they cannot show that the window tail ends.
+    -> (result dict, launches)."""
+    from cloud_transformers_tpu_torch.losses import emd
+
+    rs = np.random.RandomState(0)
+    n = 16384
+    gt = rs.rand(2, n, 3).astype(np.float32)
+    perm = np.stack([rs.permutation(n) for _ in range(2)])
+    x1 = torch.as_tensor(
+        np.take_along_axis(gt, perm[..., None], 1)
+        + 0.01 * rs.randn(2, n, 3).astype(np.float32)).to("cuda")
+    x2 = torch.as_tensor(gt).to("cuda")
+    runs = {}
+    for tail in (False, True):
+        emd._WINDOW_TAIL = tail
+        try:
+            zero_launches(wrappers)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist, assignment, rounds = emd.emd_auction_with_rounds(
+                x1, x2, eps=0.004, iters=3000)
+            torch.cuda.synchronize()
+            runs[tail] = (time.perf_counter() - t0, rounds,
+                          float(torch.sqrt(dist + 1e-12).mean()),
+                          assignment, read_launches(wrappers))
+        finally:
+            emd._WINDOW_TAIL = False
+    (s_sec, s_rounds, s_cost, _, s_launches) = runs[False]
+    (w_sec, w_rounds, w_cost, w_asg, w_launches) = runs[True]
+    one_to_one = all(int(torch.unique(w_asg[i]).numel()) == n
+                     for i in range(w_asg.shape[0]))
+    rel = abs(w_cost - s_cost) / s_cost
+    log(f"window tail: {w_rounds} rounds in {w_sec:.3f} s, "
+        f"{w_launches['auction_window']} window launches, cost {w_cost:.6f}; "
+        f"staged tail: {s_rounds} rounds in {s_sec:.3f} s, cost "
+        f"{s_cost:.6f}; rel diff {rel:.3e}")
+    if not (w_rounds < 3000 and one_to_one and rel <= 0.02
+            and w_launches["auction_window"] > 0
+            and s_launches["auction_window"] == 0):
+        raise AssertionError(
+            f"window tail: rounds {w_rounds}, one to one {one_to_one}, cost "
+            f"rel diff {rel}, launches {w_launches}")
+    return ({"window_tail_rounds": w_rounds, "window_tail_seconds": w_sec,
+             "window_tail_launches": w_launches["auction_window"],
+             "window_tail_top2_launches": w_launches["top2"],
+             "window_tail_cost": w_cost, "staged_tail_rounds": s_rounds,
+             "staged_tail_seconds": s_sec, "staged_tail_cost": s_cost,
+             "staged_tail_top2_launches": s_launches["top2"],
+             "window_vs_staged_cost_rel_diff": rel}, w_launches)
+
+
+def completion_parity():
+    """Card against CPU for the completion path: the full-width inpainter
+    with one encoder and one decoder stage, B=1, the same weights and the
+    same noise (PARITY.md criteria on the reconstruction), and ``loss_emd``
+    on one pair of clouds at N=2048 within 2% (the auction amplifies
+    rounding, so the loss is held and not the assignment)."""
+    from cloud_transformers_tpu_torch.core.noise import partial_postprocess
+    from cloud_transformers_tpu_torch.data import ShapeNetCompletion
+    from cloud_transformers_tpu_torch.losses import loss_emd
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.nn.init import init_model_
+
+    item = ShapeNetCompletion(split="test")[0]
+    partial = torch.as_tensor(item["partial"])[None] * 2.0
+    parts, noise = partial_postprocess(torch.Generator().manual_seed(3),
+                                       partial, 16384)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = get_model("completion_inpainter", encoder_repeats=1,
+                          decoder_repeats=1)
+        init_model_(model, torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            # the key scales start at 0; a trained model's are not
+            for name, p in model.named_parameters():
+                if name.endswith(".scale") and p.dim() == 0:
+                    p.fill_(0.05)
+        model = model.to(device).eval()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[device] = model(noise.to(device), parts.to(device))[0].cpu()
+        log(f"completion parity: {device} forward in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if not bool(torch.isfinite(out["cuda"]).all()):
+        raise AssertionError("non-finite reconstruction on the card")
+    parity(out["cuda"], out["cpu"],
+           f"reconstruction {list(out['cpu'].shape)}")
+
+    rs = np.random.RandomState(4)
+    x2 = rs.rand(1, 2048, 3).astype(np.float32)
+    x1 = (x2[:, rs.permutation(2048)]
+          + 0.05 * rs.randn(1, 2048, 3)).astype(np.float32)
+    x1, x2 = torch.as_tensor(x1), torch.as_tensor(x2)
+    card = float(loss_emd(x1.cuda(), x2.cuda(), eps=0.004, iters=3000))
+    cpu = float(loss_emd(x1, x2, eps=0.004, iters=3000))
+    rel = abs(card - cpu) / cpu
+    log(f"loss_emd N=2048: card {card:.7f}, CPU {cpu:.7f}, rel diff "
+        f"{rel:.3e}")
+    if not rel <= 0.02:
+        raise AssertionError(f"loss_emd card {card} vs CPU {cpu}")
+    return {"completion_parity_loss_emd_rel_diff": rel}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
                     help=f"profile {PROFILE_CALLS} classify calls and "
-                         f"{PROFILE_STEPS} training steps: device idle "
-                         "share, and the tables in DIR/profile_forward.txt "
-                         "and DIR/profile_train.txt")
+                         f"{PROFILE_STEPS} training steps of each model: "
+                         "device idle share, and the tables in "
+                         "DIR/profile_forward.txt, DIR/profile_train.txt "
+                         "and DIR/profile_completion.txt")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -673,6 +1267,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cloud_transformers_tpu_torch.nn.precision import strict_f32
     from cloud_transformers_tpu_torch.ops import cuda_build
+    from cloud_transformers_tpu_torch.ops import pallas_emd as pe
     from cloud_transformers_tpu_torch.ops import pallas_grid_conv as gc
     from cloud_transformers_tpu_torch.ops import pallas_splat as ps
     from cloud_transformers_tpu_torch.serve import InferenceEngine
@@ -706,6 +1301,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     rows = check_kernels(gen)
+    rows.update(check_emd_kernels(gen))
     log(f"kernel checks done in {time.perf_counter() - t0:.1f} s")
 
     # 4. the main path: serve full-width classifier requests
@@ -719,17 +1315,17 @@ def main():
     wrappers = {"splat_max": ps.splat_max, "slice_gather": ps.slice_gather,
                 "grid_conv3d": gc.grid_conv3d,
                 "splat_max_bwd": ps.splat_max_bwd, "slice_bwd": ps.slice_bwd,
-                "grid_conv3d_dw": gc.grid_conv3d_dw}
-    for w in wrappers.values():
-        w.launches = 0
+                "grid_conv3d_dw": gc.grid_conv3d_dw, "top2": pe.top2,
+                "auction_window": pe.auction_window}
+    zero_launches(wrappers)
     call_ms = []   # classify returns numpy, so each call ends synchronised
     for clouds in batches:
         t0 = time.perf_counter()
         probs = engine.classify(clouds)
         call_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = read_launches(wrappers)
     expect = dict(PER_FORWARD, splat_max_bwd=0, slice_bwd=0,
-                  grid_conv3d_dw=0)
+                  grid_conv3d_dw=0, top2=0, auction_window=0)
     for name, per_fwd in expect.items():
         if launches[name] != per_fwd * len(batches):
             raise AssertionError(
@@ -807,7 +1403,33 @@ def main():
     # 7. the same gradients on the card and on the CPU
     trained.update(gradient_parity())
 
-    # 8. results
+    # 8. the third path: completion training, checkpoint, evaluation
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as exp_root:
+        completed, completion_launches, eval_launches, widths_per_step = \
+            completion_phase(wrappers, smi, args.profile, exp_root)
+    log(f"completion phase done in {time.perf_counter() - t0:.1f} s")
+    for row in rows["top2"]:
+        row["calls"] = widths_per_step.get((row["b"], row["w"]), 0.0)
+    if round(sum(r["calls"] for r in rows["top2"]) * COMPLETION_STEPS) \
+            != completion_launches["top2"]:
+        raise AssertionError("a bid search of the completion step ran at a "
+                             f"width that was not checked: {widths_per_step}")
+
+    # 9. the window tail, a path of its own
+    torch.cuda.empty_cache()
+    windowed, window_launches = window_tail_phase(wrappers)
+    # the window's times are of the one checked call, from a mid-auction
+    # state with every lane bidding; the tail's own calls mostly have a few
+    # lanes left and cost less (window_tail_seconds has their sum)
+    rows["auction_window"][0]["calls"] = 1.0
+    completed.update(windowed)
+
+    # 10. the completion path on the card and on the CPU
+    completed.update(completion_parity())
+
+    # 11. results
     log(f"{ms_fwd:.3f} ms/forward (median) at B={B} x {K} points, "
         f"{B * 1e3 / ms_fwd:.2f} clouds/s "
         f"({len(batches)} classify calls, host clock, synchronised)")
@@ -823,8 +1445,18 @@ def main():
         f"{trained['train_peak_memory_bytes'] / 2 ** 30:.2f} GiB "
         f"({TRAIN_STEPS} steps, host clock, synchronised)")
     print(json.dumps(trained), flush=True)
-    print(json.dumps(kernel_line(rows, launches, train_launches)),
-          flush=True)
+    log(f"{completed['completion_ms_per_step']:.3f} ms/step (median) for the "
+        f"completion model at B={completed['batch']} x "
+        f"{completed['partial_points']} -> {completed['points']} points, "
+        f"{completed['completion_clouds_per_s']:.3f} clouds/s, peak memory "
+        f"{completed['completion_peak_memory_bytes'] / 2 ** 30:.2f} GiB, EMD "
+        f"{100 * completed['completion_emd_share_of_step']:.1f}% of a step; "
+        f"evaluation {completed['eval_seconds_per_cloud']:.3f} s/cloud")
+    print(json.dumps(completed), flush=True)
+    print(json.dumps(kernel_line(rows, {
+        "serving": launches, "training": train_launches,
+        "completion": completion_launches, "evaluation": eval_launches,
+        "window": window_launches})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,8 +8,10 @@ after ``jax.device_get``) and returns tensors under the port's module names:
 * Dense ``kernel [in, out]`` -> ``Linear.weight [out, in]``;
 * conv ``kernel [*k, in/groups, out]`` (HWIO / DHWIO, grouped or not)
   -> ``weight [out, in/groups, *k]`` (OIHW / OIDHW);
-* ``nn.scan``'s stacked leading axis of length ``repeats`` under
-  ``backbone/trunk/stages`` -> one entry per stage ``stages.<r>``;
+* ``nn.scan``'s stacked leading axis of length ``repeats`` under any
+  ``.../stages`` (the classifier's ``backbone/trunk/stages``, the
+  inpainter's ``decoder/stages``) -> one entry per stage ``stages.<r>``;
+* an AdaIN's auto-named ``Dense_0`` -> ``dense``;
 * the Res trunks' auto-named ``Res{3,2}DBlock_i/{Conv,BatchNorm}_j`` ->
   ``res{3,2}d.<i>.{conv1,bn1,conv2,bn2,skip_conv,skip_bn}``;
 * BatchNorm ``scale``/``bias``/``mean``/``var`` and the frames' ``log_R``/
@@ -28,7 +30,7 @@ import torch
 
 _BLOCK_PARTS = {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2",
                 "BatchNorm_1": "bn2", "Conv_2": "skip_conv",
-                "BatchNorm_2": "skip_bn"}
+                "BatchNorm_2": "skip_bn", "Dense_0": "dense"}
 
 
 def _flatten(tree, prefix=()):

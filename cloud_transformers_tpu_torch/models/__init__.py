@@ -1,6 +1,6 @@
 """Model registry of the port (counterpart of
-``cloud_transformers_tpu/models/__init__.py``).  This slice registers the
-ScanObjectNN classifier."""
+``cloud_transformers_tpu/models/__init__.py``): the ScanObjectNN classifier
+and the ShapeNet completion inpainter."""
 
 from typing import Any, Dict
 
@@ -24,3 +24,4 @@ def get_model(name, **kwargs):
 
 # import for side-effect registration
 from cloud_transformers_tpu_torch.models import classifier  # noqa: E402,F401
+from cloud_transformers_tpu_torch.models import inpainter  # noqa: E402,F401

@@ -1,0 +1,114 @@
+"""ShapeNet completion ("inpainter") model.
+
+Counterpart of ``cloud_transformers_tpu/models/inpainter.py``: an encoder
+that is the classifier backbone ending in a ``latent_width`` vector, a
+mapping to the latent ``z``, and an AdaIN-conditioned decoder of
+``decoder_repeats`` stages of the 3-union stage plan over a labeled
+sphere-noise cloud ``[B, P, 4]`` (xyz + is-a-real-point label), its keys
+driven by the noise xyz.  The JAX package scans and rematerializes the
+decoder's stages; here they are a ``ModuleList`` that keeps its
+activations, as the classifier's trunk does.  Module names follow the JAX
+parameter tree so that ``convert.py`` maps it.
+"""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cloud_transformers_tpu_torch.models import register
+from cloud_transformers_tpu_torch.models.classifier import (
+    DEFAULT_STAGE_PLAN,
+    ClassifierBackbone,
+)
+from cloud_transformers_tpu_torch.nn.multihead_adain import (
+    MultiHeadUnionAdaIn,
+)
+from cloud_transformers_tpu_torch.nn.norm import AdaIn1d, BatchNorm
+
+
+class CompletionEncoder(nn.Module):
+    """Backbone -> Linear(pooled, latent_width) + BN + ReLU."""
+
+    def __init__(self, model_dim=512, latent_width=1024, repeats=4,
+                 stage_plan=DEFAULT_STAGE_PLAN, pool_heads=16,
+                 pool_feature_dims=(32, 16), pool_sizes=(8, 16),
+                 trunk_width=64):
+        super().__init__()
+        self.backbone = ClassifierBackbone(
+            model_dim, repeats, stage_plan, pool_heads, pool_feature_dims,
+            pool_sizes, trunk_width)
+        self.class_head = nn.Linear(2 * trunk_width * pool_heads,
+                                    latent_width)
+        self.class_head_bn = BatchNorm(latent_width)
+
+    def forward(self, pcd):
+        _, pooled, stats = self.backbone(pcd)
+        return F.relu(self.class_head_bn(self.class_head(pooled))), stats
+
+
+class AdaInStage(nn.Module):
+    """One repeat of the stage plan: ``union_0 .. union_{n-1}``."""
+
+    def __init__(self, model_dim, latent_dim, stage_plan):
+        super().__init__()
+        self.n = len(stage_plan)
+        for i, (f, h, s, d) in enumerate(stage_plan):
+            self.add_module(f"union_{i}", MultiHeadUnionAdaIn(
+                model_dim, latent_dim, features_dims=f, tensor_sizes=s,
+                tensor_dims=d, heads=h, model_dim_out=model_dim))
+
+    def forward(self, x, z, keys_xyz):
+        stats = []
+        for i in range(self.n):
+            x, s = getattr(self, f"union_{i}")(x, z, keys_xyz)
+            stats += s
+        return x, stats
+
+
+class AdaInDecoder(nn.Module):
+    def __init__(self, model_dim, latent_dim, repeats, stage_plan):
+        super().__init__()
+        self.stages = nn.ModuleList(
+            AdaInStage(model_dim, latent_dim, stage_plan)
+            for _ in range(repeats))
+
+    def forward(self, x, z, keys_xyz):
+        stats = []
+        for stage in self.stages:
+            x, s = stage(x, z, keys_xyz)
+            stats += s
+        return x, stats
+
+
+@register("completion_inpainter")
+class Inpainter(nn.Module):
+    """(noise [B, P, 4], partial [B, Pin, 3]) -> (reconstruction [B, P, 3],
+    stats: a list of per-head-group dicts of scalars, encoder first)."""
+
+    def __init__(self, num_latent=512, model_dim=512, latent_width=1024,
+                 encoder_repeats=4, decoder_repeats=4,
+                 stage_plan=DEFAULT_STAGE_PLAN, pool_heads=16,
+                 pool_feature_dims=(32, 16), pool_sizes=(8, 16),
+                 trunk_width=64):
+        super().__init__()
+        self.encoder = CompletionEncoder(
+            model_dim, latent_width, encoder_repeats, stage_plan, pool_heads,
+            pool_feature_dims, pool_sizes, trunk_width)
+        self.mapping = nn.Linear(latent_width, num_latent)
+        self.start_conv = nn.Linear(4, model_dim, bias=False)
+        self.start_adain = AdaIn1d(num_latent, model_dim)
+        self.decoder = AdaInDecoder(model_dim, num_latent, decoder_repeats,
+                                    stage_plan)
+        # the final head takes the noise channels once more
+        self.final_conv1 = nn.Linear(model_dim + 4, model_dim, bias=False)
+        self.final_adain = AdaIn1d(num_latent, model_dim)
+        self.final_conv2 = nn.Linear(model_dim, 3)
+
+    def forward(self, noise, partial):
+        z, enc_stats = self.encoder(partial)
+        z = F.relu(self.mapping(z))
+        x = F.relu(self.start_adain(self.start_conv(noise), z))
+        x, dec_stats = self.decoder(x, z, noise[..., :3])
+        x = self.final_conv1(torch.cat([x, noise], -1))
+        x = F.relu(self.final_adain(x, z))
+        return self.final_conv2(x), enc_stats + dec_stats

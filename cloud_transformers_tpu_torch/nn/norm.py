@@ -1,6 +1,7 @@
-"""BatchNorm with the JAX package's state names.
+"""BatchNorm with the JAX package's state names, instance norm and AdaIN.
 
-Counterpart of ``cloud_transformers_tpu/nn/norm.py`` (``TorchBatchNorm``):
+Counterpart of ``cloud_transformers_tpu/nn/norm.py``.  ``BatchNorm``
+(``TorchBatchNorm`` there):
 parameters ``scale``/``bias`` and buffers ``mean``/``var`` (torch's unbiased
 running variance), eps 1e-5, normalizing over the channel axis ``dim``
 (-1 for the channel-last point tensors, 1 for the channels-first trunks).
@@ -10,6 +11,11 @@ over every axis but the channel axis, and moves ``mean``/``var`` towards the
 batch mean and the *unbiased* batch variance (``n / max(n - 1, 1)``) with
 momentum 0.1, as ``torch.nn.BatchNorm`` and the JAX package do.  In eval
 mode it normalizes with the running statistics.
+
+``instance_norm_1d`` normalizes ``[B, P, C]`` over the point axis with the
+biased variance, in training and in eval mode alike.  ``AdaIn1d`` follows it
+with a per-channel affine from a latent code, ``x * (scale + 1) + bias``
+with both halves from one ``Linear(L, 2C)``.
 """
 
 import torch
@@ -45,3 +51,26 @@ class BatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps) * self.scale
         return (x - mean.view(shape)) * inv.view(shape) \
             + self.bias.view(shape)
+
+
+def instance_norm_1d(x, eps=1e-5):
+    """InstanceNorm over the point axis of ``[B, P, C]``, no parameters."""
+    mean = x.mean(1, keepdim=True)
+    var = x.var(1, unbiased=False, keepdim=True)
+    return (x - mean) * torch.reciprocal(torch.sqrt(var + eps))
+
+
+class AdaIn1d(nn.Module):
+    """Adaptive instance norm: ``AdaIn1d(L, C)(x [B, P, C], z [B, L])``."""
+
+    def __init__(self, latent_dim, features):
+        super().__init__()
+        self.features = features
+        self.dense = nn.Linear(latent_dim, 2 * features)
+
+    def forward(self, x, z):
+        var_bias = self.dense(z)
+        scale = var_bias[:, :self.features]
+        bias = var_bias[:, self.features:]
+        return instance_norm_1d(x) * (scale[:, None, :] + 1.0) \
+            + bias[:, None, :]

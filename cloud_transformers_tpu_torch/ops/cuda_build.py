@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the entry points, by library (source stem)
 SIGNATURES = {
     "splat_slice": {
@@ -38,6 +39,10 @@ SIGNATURES = {
     "grid_conv": {
         "ct_grid_conv3d": [_P] * 4 + [_I] * 6 + [_P],
         "ct_grid_conv3d_dw": [_P] * 4 + [_I] * 7 + [_P],
+    },
+    "emd": {
+        "ct_emd_top2": [_P] * 6 + [_I] * 4 + [_P],
+        "ct_emd_auction_window": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
     },
 }
 

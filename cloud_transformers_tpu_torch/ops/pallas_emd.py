@@ -1,0 +1,217 @@
+"""The auction's bid search and its fused window of rounds, with their kernels.
+
+Counterpart of ``cloud_transformers_tpu/ops/pallas_emd.py`` (``pallas_top2``,
+``pallas_auction_window``).  The arrays are flat: bidders ``[B, W, 3]``,
+targets ``[B, M, 3]``, prices ``[B, M]`` float32, owners ``[B, M]`` int32.
+The TPU kernels' ``[.., 8]`` lane padding, their packed target blocks and
+their far-away dummy targets exist for that chip's block rules and are not
+copied.
+
+    value[j, k] = 3 - sqrt(max(|x1_j|^2 + |x2_k|^2 - 2 <x1_j, x2_k>, 0))
+                    - price_k
+
+``top2`` gives, per bidder, the best and second-best value over the targets
+and the first target that reaches the best.  ``auction_window`` runs up to
+``rounds_cap`` whole auction rounds for a fixed window of bidders.
+
+Each wrapper runs its CUDA kernel (``csrc/emd.cu``) on a CUDA tensor and its
+plain PyTorch version on a CPU tensor; nothing falls back.  The wrappers
+count their kernel launches in ``<wrapper>.launches``.  The plain versions
+round every multiply, add and subtract on its own, in the kernels' order, so
+on one device the two agree bit for bit.
+"""
+
+import torch
+
+from cloud_transformers_tpu_torch.ops import cuda_build
+
+_NEG = -1e9          # "no second-best"; the same in losses/emd.py
+_BIG_J = 2 ** 30     # "no bidder" in a per-target lowest-id search
+# what one block may have of dynamic shared memory on an H100
+_SMEM_BYTES = 232448
+# threads the card should have in flight before a bidder stops being split
+# over more lanes: 132 SMs x 768
+_TOP2_FILL_THREADS = 132 * 768
+
+
+def _sq_norm(x):
+    return x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] \
+        + x[..., 2] * x[..., 2]
+
+
+def _values(x1, x1_sq, x2, price):
+    """[B, W, C] bid values of bidders against one chunk of targets."""
+    cross = (x1[:, :, None, 0] * x2[:, None, :, 0]
+             + x1[:, :, None, 1] * x2[:, None, :, 1]
+             + x1[:, :, None, 2] * x2[:, None, :, 2])
+    d_sq = (x1_sq[:, :, None] + _sq_norm(x2)[:, None, :]) - 2.0 * cross
+    return (3.0 - torch.sqrt(d_sq.clamp_min(0.0))) - price[:, None, :]
+
+
+def top2_plain(x1, x2, price, chunk_size=2048):
+    """Plain version of ``top2``: a loop over chunks of targets, each
+    chunk's top-2 merged into the running one.  First-occurrence argmax:
+    ``max`` returns the first of equal maxima inside a chunk, and a later
+    chunk replaces the index only with a strictly greater value."""
+    b, w, _ = x1.shape
+    m = x2.shape[1]
+    x1_sq = _sq_norm(x1)
+    best = x1.new_full((b, w), _NEG)
+    better = x1.new_full((b, w), _NEG)
+    best_i = torch.zeros(b, w, dtype=torch.int64, device=x1.device)
+    for k0 in range(0, m, chunk_size):
+        value = _values(x1, x1_sq, x2[:, k0:k0 + chunk_size],
+                        price[:, k0:k0 + chunk_size])
+        c1, a1 = value.max(-1)
+        c2 = value.scatter(-1, a1[..., None], _NEG).max(-1).values
+        better = torch.maximum(torch.minimum(best, c1),
+                               torch.maximum(better, c2))
+        best_i = torch.where(c1 > best, k0 + a1, best_i)
+        best = torch.maximum(best, c1)
+    return best, better, best_i.to(torch.int32)
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{name}: expected {dtype} {shape} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def top2_split(bidders):
+    """Lanes per bidder for ``bidders`` = B * W bidders in one launch: the
+    smallest power of two up to 32 that puts ``_TOP2_FILL_THREADS`` threads
+    in flight."""
+    split = 1
+    while split < 32 and bidders * split < _TOP2_FILL_THREADS:
+        split *= 2
+    return split
+
+
+def top2(x1, x2, price):
+    """Bid search: x1 [B, W, 3], x2 [B, M, 3], price [B, M] float32 ->
+    (best [B, W], better [B, W] float32, best_i [B, W] int32)."""
+    b, w, _ = x1.shape
+    m = x2.shape[1]
+    dev = x1.device
+    _check("x1", x1, torch.float32, (b, w, 3), dev)
+    _check("x2", x2, torch.float32, (b, m, 3), dev)
+    _check("price", price, torch.float32, (b, m), dev)
+    if m < 1:
+        raise ValueError("top2 needs at least one target")
+    if not x1.is_cuda:
+        return top2_plain(x1, x2, price)
+    x1, x2, price = x1.contiguous(), x2.contiguous(), price.contiguous()
+    best = torch.empty(b, w, dtype=torch.float32, device=dev)
+    better = torch.empty(b, w, dtype=torch.float32, device=dev)
+    best_i = torch.empty(b, w, dtype=torch.int32, device=dev)
+    lib = cuda_build.libraries()["emd"]
+    err = lib.ct_emd_top2(x1.data_ptr(), x2.data_ptr(), price.data_ptr(),
+                          best.data_ptr(), better.data_ptr(),
+                          best_i.data_ptr(), b, w, m, top2_split(b * w),
+                          torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "top2")
+    top2.launches += 1
+    return best, better, best_i
+
+
+top2.launches = 0
+
+
+def auction_window_plain(x1w, j_real, x2, price, owner, rem, eps, n,
+                         rounds_cap=64, return_bids=False):
+    """Plain version of ``auction_window``: the rounds one by one, all rows
+    together, a row that is done (or out of budget) masked out.  With
+    ``return_bids`` a fourth result counts the bids made: active lanes
+    summed over the rounds, which is the work the window needed."""
+    b, w, _ = x1w.shape
+    m = x2.shape[1]
+    dev = x1w.device
+    price = price.clone()
+    owner = owner.to(torch.int64)
+    j = j_real.to(torch.int64)
+    valid = j < n
+    la = torch.full((b, w), -1, dtype=torch.int64, device=dev)
+    done = ~valid.any(1)
+    used = torch.zeros(b, dtype=torch.int64, device=dev)
+    bids = torch.zeros((), dtype=torch.int64, device=dev)
+    for r in range(rounds_cap):
+        run = ~done & (r < rem)
+        if not bool(run.any()):
+            break
+        active = (la < 0) & valid & run[:, None]
+        bids += active.sum()
+        best, better, best_i = top2_plain(x1w, x2, price)
+        best_i = best_i.to(torch.int64)
+        inc = (best - better) + eps
+        inc_m = torch.where(active, inc, inc.new_tensor(_NEG))
+        seg_max = price.new_full((b, m), _NEG).scatter_reduce_(
+            1, best_i, inc_m, "amax", include_self=True)
+        is_top = active & (inc_m >= seg_max.gather(1, best_i))
+        seg_argj = torch.full((b, m), _BIG_J, dtype=torch.int64,
+                              device=dev).scatter_reduce_(
+            1, best_i, torch.where(is_top, j, _BIG_J), "amin",
+            include_self=True)
+        winner = is_top & (j == seg_argj.gather(1, best_i))
+        prev = owner.gather(1, best_i)
+        # one winner per target: the other addends are exact zeros
+        price.scatter_add_(1, best_i, torch.where(winner, inc,
+                                                  torch.zeros_like(inc)))
+        owner = torch.where(seg_argj < _BIG_J, seg_argj, owner)
+        evicted = torch.where(winner & (prev >= 0), prev, -1)
+        ev_lane = ((evicted[:, :, None] == j[:, None, :])
+                   & (evicted >= 0)[:, :, None]).any(1)
+        la = torch.where(winner, best_i, la)
+        la = torch.where(ev_lane, -1, la)
+        used += run
+        done = done | ~((la < 0) & valid).any(1) | (r + 1 >= rem)
+    out = (price, owner.to(torch.int32), used.to(torch.int32))
+    return out + (int(bids),) if return_bids else out
+
+
+def auction_window(x1w, j_real, x2, price, owner, rem, eps, n,
+                   rounds_cap=64):
+    """Up to ``rounds_cap`` auction rounds for a fixed window of bidders.
+
+    x1w [B, W, 3] the window's coordinates (padding lanes arbitrary),
+    j_real [B, W] int32 the lanes' original point ids with ``n`` for a
+    padding lane, x2 [B, M, 3], price [B, M] float32, owner [B, M] int32
+    (-1 = free), ``rem`` the rounds left of the auction's budget, ``eps``
+    the bid slack.  A lane that wins a target stops bidding, a lane whose
+    target is taken by another lane of the window bids again, an owner
+    outside the window that loses its target waits for a later window.
+
+    -> (price', owner', used [B] int32: rounds each row ran).  The inputs
+    are left as they were."""
+    b, w, _ = x1w.shape
+    m = x2.shape[1]
+    dev = x1w.device
+    _check("x1w", x1w, torch.float32, (b, w, 3), dev)
+    _check("j_real", j_real, torch.int32, (b, w), dev)
+    _check("x2", x2, torch.float32, (b, m, 3), dev)
+    _check("price", price, torch.float32, (b, m), dev)
+    _check("owner", owner, torch.int32, (b, m), dev)
+    rem, rounds_cap, eps = int(rem), int(rounds_cap), float(eps)
+    if not x1w.is_cuda:
+        return auction_window_plain(x1w, j_real, x2, price, owner, rem, eps,
+                                    n, rounds_cap)
+    if w * 20 > _SMEM_BYTES:
+        raise ValueError(f"auction_window: a window of {w} lanes does not "
+                         "fit in one block's shared memory")
+    in_smem = int(w * 20 + m * 8 <= _SMEM_BYTES)
+    x1w, j_real, x2 = x1w.contiguous(), j_real.contiguous(), x2.contiguous()
+    price = price.clone(memory_format=torch.contiguous_format)
+    owner = owner.clone(memory_format=torch.contiguous_format)
+    scratch = torch.empty(b, m, 4, dtype=torch.float32, device=dev)
+    used = torch.empty(b, dtype=torch.int32, device=dev)
+    lib = cuda_build.libraries()["emd"]
+    err = lib.ct_emd_auction_window(
+        x1w.data_ptr(), j_real.data_ptr(), x2.data_ptr(), scratch.data_ptr(),
+        price.data_ptr(), owner.data_ptr(), used.data_ptr(), b, w, m, int(n),
+        rem, rounds_cap, eps, in_smem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "auction_window")
+    auction_window.launches += 1
+    return price, owner, used
+
+
+auction_window.launches = 0

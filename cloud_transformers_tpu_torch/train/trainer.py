@@ -8,8 +8,17 @@ optimizer step, and keeps the metrics on the device until a window of
 ``seed`` through an explicit ``torch.Generator``; the same seed also seeds
 PyTorch's generators, which dropout draws from.
 
-Checkpoints, auto-resume, TensorBoard/CSV logging, profiling hooks and the
-device mesh of the JAX trainer are not ported yet.
+Checkpoints: ``fit`` saves ``ckpt_latest`` every ``save_each`` steps, every
+``save_each_epoch`` epochs and when ``max_steps`` ends the run (unless
+``train.save`` is false), with the model, the optimizer and its schedule,
+the step and epoch counts and the states of the random generators (the
+trainer's, PyTorch's global ones, and the task's ``generators``).  A new
+``Trainer`` in an experiment directory that holds a ``ckpt_latest`` resumes
+from it (unless ``train.auto_resume`` is false); the interrupted epoch
+starts again from its first batch.
+
+The best-metric checkpoints, TensorBoard/CSV logging, profiling hooks and
+the device mesh of the JAX trainer are not ported yet.
 """
 
 import logging
@@ -20,6 +29,7 @@ import torch
 
 from cloud_transformers_tpu_torch.nn.init import init_model_
 from cloud_transformers_tpu_torch.nn.precision import strict_f32
+from cloud_transformers_tpu_torch.train.checkpoint import CheckpointManager
 from cloud_transformers_tpu_torch.train.config import experiment_dirs
 from cloud_transformers_tpu_torch.train.optim import make_optimizer
 
@@ -28,7 +38,9 @@ logger = logging.getLogger("cloud_transformers_tpu_torch")
 
 class Trainer:
     def __init__(self, model, cfg, exp_name, loss_fn, eval_fn=None,
-                 device="cuda", seed=0):
+                 device="cuda", seed=0, generators=None):
+        """``generators``: {name: torch.Generator} of the task (the noise
+        of a loss function, say), saved and restored with a checkpoint."""
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn or loss_fn
@@ -44,6 +56,48 @@ class Trainer:
                                         self.model.named_parameters())
         self.global_step = 0
         self.epoch = 0
+        self.generators = dict(generators or {})
+        self.ckpt = CheckpointManager(self.exp_dir)
+        if (bool(cfg.get("train", {}).get("auto_resume", True))
+                and self.ckpt.exists("latest")):
+            self.load_checkpoint(self.ckpt.restore("latest"))
+            logger.info("resumed from %s (step %d, epoch %d)",
+                        self.ckpt.path("latest"), self.global_step,
+                        self.epoch)
+
+    # --- checkpoints -----------------------------------------------------
+    def checkpoint(self):
+        """Everything a resumed run needs, as one dict of tensors, numbers
+        and lists."""
+        rng = {"trainer": self.generator.get_state(),
+               "torch": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        rng.update({f"task.{k}": g.get_state()
+                    for k, g in self.generators.items()})
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.optimizer.state_dict(),
+                "scheduler": self.optimizer.scheduler.state_dict(),
+                "meta": {"global_step": self.global_step,
+                         "epoch": self.epoch},
+                "generators": rng}
+
+    def load_checkpoint(self, payload):
+        self.model.load_state_dict(payload["model"], strict=True)
+        self.optimizer.optimizer.load_state_dict(payload["optimizer"])
+        self.optimizer.scheduler.load_state_dict(payload["scheduler"])
+        self.global_step = int(payload["meta"]["global_step"])
+        self.epoch = int(payload["meta"]["epoch"])
+        rng = payload["generators"]
+        self.generator.set_state(rng["trainer"].cpu())
+        torch.set_rng_state(rng["torch"].cpu())
+        if self.device.type == "cuda" and "cuda" in rng:
+            torch.cuda.set_rng_state(rng["cuda"].cpu(), self.device)
+        for k, g in self.generators.items():
+            g.set_state(rng[f"task.{k}"].cpu())
+
+    def save(self, tag="latest"):
+        return self.ckpt.save(self.checkpoint(), tag)
 
     def to_device(self, batch):
         """Numpy batch -> tensors on the device (labels as int64)."""
@@ -78,12 +132,17 @@ class Trainer:
     def fit(self, train_loader, val_loader=None, eval_hook=None,
             num_epochs=None, max_steps=None):
         """The epoch loop: a host-side metric window every ``show_each``
-        steps, validation every ``val_step`` epochs, stop after
-        ``max_steps`` optimizer steps if given.  -> the model."""
+        steps, ``ckpt_latest`` every ``save_each`` steps and
+        ``save_each_epoch`` epochs, validation every ``val_step`` epochs,
+        stop (and save) after ``max_steps`` optimizer steps if given.
+        -> the model."""
         tcfg = self.cfg["train"]
         num_epochs = num_epochs or int(tcfg.get("num_epochs", 1))
         show_each = int(tcfg.get("show_each", 100))
         val_step = int(tcfg.get("val_step", 1))
+        save_each = int(tcfg.get("save_each", 0))
+        save_each_epoch = int(tcfg.get("save_each_epoch", 1))
+        save = bool(tcfg.get("save", True))
         for epoch in range(self.epoch, num_epochs):
             self.epoch = epoch
             train_loader.set_epoch(epoch)
@@ -98,8 +157,15 @@ class Trainer:
                     logger.info("epoch %d step %d: %s", epoch,
                                 self.global_step,
                                 {k: round(v, 4) for k, v in host.items()})
+                if save and save_each and self.global_step % save_each == 0:
+                    self.save()
                 if max_steps and self.global_step >= max_steps:
+                    if save:
+                        self.save()
                     return self.model
+            self.epoch = epoch + 1   # a resumed run starts the next epoch
+            if save and (epoch + 1) % save_each_epoch == 0:
+                self.save()
             if val_loader is not None and (epoch + 1) % val_step == 0:
                 val = self.validate(val_loader, eval_hook)
                 logger.info("epoch %d val: %s", epoch,

@@ -7,7 +7,7 @@ one; they import no JAX, so they run on a machine that has only PyTorch:
 
 (``--noconftest`` skips ``tests/conftest.py``, which sets up JAX.)
 
-``chip_smoke.py`` runs the same comparison at the classifier's full shapes.
+``chip_smoke.py`` runs the same comparison at the models' full shapes.
 """
 
 import pytest
@@ -18,7 +18,9 @@ from cloud_transformers_tpu_torch.core.splat_slice import (
     _flatten_mapping,
     _SliceGather,
 )
+from cloud_transformers_tpu_torch.losses import emd as temd
 from cloud_transformers_tpu_torch.nn.grouped_conv import GridConvK
+from cloud_transformers_tpu_torch.ops import pallas_emd as tpe
 from cloud_transformers_tpu_torch.ops import pallas_grid_conv as tgc
 from cloud_transformers_tpu_torch.ops import pallas_splat as tps
 
@@ -228,3 +230,98 @@ def test_cuda_wrappers_validate_inputs(gen):
     with pytest.raises(ValueError):
         tgc.grid_conv3d(grid, torch.zeros(8, 4, 3, 3, 3), torch.zeros(8),
                         (4, 4, 4), 2)           # weight on the CPU
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,w,m", [(2, 4096, 4096), (1, 700, 2500),
+                                   (2, 33, 5), (1, 1, 1)])
+def test_top2_kernel_matches_plain(gen, b, w, m):
+    """Every lane split the widths pick (4096 x 2 bidders take 16 lanes
+    each, the narrow ones 32), ragged tiles, fewer targets than lanes, and
+    exact duplicates: bit for bit, the kernel rounding as the plain
+    version does."""
+    x1 = torch.rand(b, w, 3, generator=gen, device="cuda")
+    x2 = torch.rand(b, m, 3, generator=gen, device="cuda")
+    x2[:, m // 2:] = x2[:, :m - m // 2]         # duplicated targets
+    price = torch.rand(b, m, generator=gen, device="cuda") * 0.1
+    price[:, m // 2:] = price[:, :m - m // 2]
+    n = tpe.top2.launches
+    got = tpe.top2(x1, x2, price)
+    assert tpe.top2.launches == n + 1
+    ref = tpe.top2_plain(x1, x2, price, chunk_size=1024)
+    assert got[2].dtype == torch.int32
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+    if m == 1:
+        assert bool((got[1] == -1e9).all())
+
+
+def _window_inputs(gen, b, n, w, eps):
+    x1 = torch.rand(b, n, 3, generator=gen, device="cuda")
+    x2 = torch.rand(b, n, 3, generator=gen, device="cuda")
+    state = temd._init_state(b, n, n, "cuda")
+    while temd._max_unassigned(state[0]) > 2 * w:
+        state = temd._auction_round(x1, x2, eps, 2048, state, last=False)
+    idx = temd._compact_unassigned(state[0][:, :n], w)
+    x1w = torch.gather(x1, 1, idx.clamp(max=n - 1)[..., None]
+                       .expand(-1, -1, 3)).contiguous()
+    return (x1w, idx.int().contiguous(), x2, state[2], state[1].int())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,w,rem", [(2048, 128, 64), (2048, 128, 3),
+                                     (40000, 256, 8)])
+def test_auction_window_kernel_matches_plain(gen, n, w, rem):
+    """Owner map and rounds used equal, prices bit for bit; the same over
+    two calls; the inputs untouched.  n=40000 keeps the state in device
+    memory (it does not fit in one block's shared memory)."""
+    eps = 0.01
+    args = _window_inputs(gen, 2, n, w, eps)
+    price_in, owner_in = args[3].clone(), args[4].clone()
+    count = tpe.auction_window.launches
+    got = tpe.auction_window(*args, rem, eps, n, rounds_cap=64)
+    assert tpe.auction_window.launches == count + 1
+    ref = tpe.auction_window_plain(*args, rem, eps, n, rounds_cap=64)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    assert float((got[0] - ref[0]).abs().max()) <= 2e-5
+    assert 1 <= int(got[2].max()) <= min(rem, 64)
+    again = tpe.auction_window(*args, rem, eps, n, rounds_cap=64)
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+    assert torch.equal(args[3], price_in) and torch.equal(args[4], owner_in)
+
+
+@pytest.mark.gpu
+def test_emd_auction_on_the_card_goes_through_the_kernels(gen, monkeypatch):
+    n = 4096
+    x2 = torch.rand(2, n, 3, generator=gen, device="cuda")
+    x1 = (x2[:, torch.randperm(n, device="cuda")]
+          + 0.01 * torch.randn(2, n, 3, generator=gen, device="cuda"))
+    count = tpe.top2.launches
+    dist, assignment, rounds = temd.emd_auction_with_rounds(
+        x1, x2, eps=0.004, iters=3000)
+    assert tpe.top2.launches == count + rounds
+    cpu = temd.emd_auction_with_rounds(x1.cpu(), x2.cpu(), eps=0.004,
+                                       iters=3000)
+    assert abs(float(dist.sum()) - float(cpu[0].sum())) \
+        <= 0.02 * float(cpu[0].sum())
+    monkeypatch.setattr(temd, "_WINDOW_TAIL", True)
+    windows = tpe.auction_window.launches
+    d_w, a_w, r_w = temd.emd_auction_with_rounds(x1, x2, eps=0.004,
+                                                 iters=3000)
+    assert tpe.auction_window.launches > windows and r_w < 2999
+    assert all(int(torch.unique(row).numel()) == n for row in a_w)
+    assert abs(float(d_w.sum()) - float(dist.sum())) \
+        <= 0.02 * float(dist.sum())
+
+
+@pytest.mark.gpu
+def test_emd_wrappers_raise_on_the_card(gen):
+    x = torch.zeros(1, 8, 3, device="cuda")
+    with pytest.raises(ValueError):
+        tpe.top2(x, x, torch.zeros(1, 8))            # price on the CPU
+    with pytest.raises(ValueError):
+        tpe.auction_window(x, torch.zeros(1, 8, device="cuda"), x,
+                           torch.zeros(1, 8, device="cuda"),
+                           torch.zeros(1, 8, dtype=torch.int32,
+                                       device="cuda"), 1, 0.01, 8)
