@@ -17,7 +17,15 @@
    routes a cotangent to the lowest-indexed winner, so the splat backward
    has none); and computes each kernel's bound from this run's inputs (the
    slice and the two point backwards count only the grid rows their mapping
-   touches);
+   touches).  The kernels of the JAX package's execution switches too: the
+   2D conv and its weight gradient at the three 2D head-group shapes and
+   the 3D pair at 8^3 x 32 (against ``conv2d``/``conv3d`` and
+   ``convolution_backward``), the winner-tracking splat (grid and map
+   equal to the plain version's and to splat_max's) and the routing pass
+   alone (bit-equal to the two-pass backward) at every splat shape, and the
+   fused block at every head group's shape, with and without gk2 (gk
+   exact, points and gk2 within 1e-5), timed beside the three separate
+   kernels;
 4. serves 100 full-width ScanObjectNN classifier requests (random weights
    from a seed, clouds of 1024 to 3000 points) through
    ``InferenceEngine.classify`` in the B=8 x 2048 bucket, with the launch
@@ -27,7 +35,12 @@
    so that any operation that makes the host wait for the device raises;
 5. runs the same model and weights on the CPU (plain versions) for one cloud
    and holds the card's logits and mask to it (cosine > 0.999, median
-   error <= 1e-3);
+   error <= 1e-3); then serves the same 100 requests, runs the sync-free
+   forward and holds the card to the CPU under set A
+   (``set_grid_conv_strategy("pallas")`` + ``FWD_WINNER``: 26 splat, 24
+   slice, 12 3D and 12 2D conv launches per forward) and under set B
+   (``set_block_fusion("fused")``: 24 fused blocks and the pools' 2 splats
+   per forward), with the switches set and restored by the script;
 6. trains the full-width classifier through ``Trainer`` (synthetic
    ScanObjectNN, the optimizer of ``configs/scanobjectnn.yaml``, B=8 x 2048):
    one warm-up step, then 50 timed steps with the six launch counters set
@@ -40,7 +53,13 @@
 7. gradient parity: the same full-width model (one stage, B=4 x 2048, train
    mode, no dropout) takes one forward + backward on the card (kernels) and
    one on the CPU (plain versions): loss within 1e-4, the concatenated
-   gradient with cosine > 0.999 and median error <= 1e-3 of its scale;
+   gradient with cosine > 0.999 and median error <= 1e-3 of its scale.
+   Phases 6 and 7 run again under set A (1 + 20 steps, per step 26
+   winner-tracking splats and 26 routing passes, no plain splat and no
+   two-pass backward, 24 slice and slice backward, 24 3D and 24 2D convs,
+   12 weight gradients of each) and under set B (per step 24 fused blocks,
+   2 splats, 26 two-pass splat backwards, 24 slice backwards, 12 of each
+   conv and each weight gradient);
 8. the completion path: trains the full-width ``completion_inpainter`` of
    ``configs/inpainting.yaml`` through ``Trainer`` (synthetic ShapeNet
    pairs, B=2, 2048 partial and 16384 decoder points, the EMD loss at eps
@@ -53,7 +72,9 @@
    backward and update run under ``set_sync_debug_mode("error")`` (the
    auction waits for the device once a round and is left out).  Then it
    saves a checkpoint, restores it into a fresh model with
-   ``restore_params_only`` and holds the two reconstructions equal, and
+   ``restore_params_only`` and holds the two reconstructions equal (after
+   one more training step under each set, whose loss and gradients must be
+   finite and whose launches follow from the default step's), and
    runs the evaluation protocol (F-score@0.01, Chamfer x 1000, EMD at eps
    0.004 and up to 3000 rounds) on 4 synthetic test clouds;
 9. the same EMD with the window tail switched on, on a pair that converges
@@ -66,9 +87,11 @@
 11. prints ms/forward and clouds/s, then the training line (ms/step,
    clouds/s, peak memory), then the completion line (ms/step, clouds/s,
    peak memory, the EMD's share of a step, the evaluation's table values,
-   rounds and seconds per cloud, both tails), then one ``{"kernels":
-   [...]}`` line of all eight kernels, then the ``{"ok": true, "device":
-   ...}`` line last.
+   rounds and seconds per cloud, both tails), then the ``{"switched":
+   ...}`` line (both sets' serving, training and parity numbers), then one
+   ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
+   table's twelve rows, row 9 as its forward and its routed backward), then
+   the ``{"ok": true, "device": ...}`` line last.
 
 In phase 3 the auction's two kernels are held too: ``top2`` against
 ``top2_plain`` at every (B, W, M) the staged schedule gives it at N = 16384
@@ -91,10 +114,12 @@ device's idle share (one window, both clocks) to the result line, and
 writes the torch.profiler table by kernel to ``DIR/profile_forward.txt``;
 it does the same for 5 more training steps of the classifier
 (``DIR/profile_train.txt``) and of the completion model
-(``DIR/profile_completion.txt``).
+(``DIR/profile_completion.txt``), and for the classify calls and training
+steps under each set (``DIR/profile_{forward,train}_set_{a,b}.txt``).
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -114,7 +139,16 @@ R = B * H
 POINT_SHAPES = [((128, 128), 4, 4, 4), ((32, 32, 32), 4, 4, 4),
                 ((64, 64), 16, 4, 4), ((16, 16, 16), 16, 4, 4),
                 ((16, 16), 16, 5, 4), ((8, 8, 8), 32, 5, 4)]
-CONV_SHAPES = [((32, 32, 32), 4, 4), ((16, 16, 16), 16, 4)]
+# (sizes, F, calls per forward on the default path, calls per forward
+# under set A): 8^3 x 32 reaches the kernel under "pallas" only
+CONV_SHAPES = [((32, 32, 32), 4, 4, 4), ((16, 16, 16), 16, 4, 4),
+               ((8, 8, 8), 32, 0, 4)]
+# the 2D head groups: (sizes, F, calls per forward under set A)
+CONV2D_SHAPES = [((128, 128), 4, 4), ((64, 64), 16, 4), ((16, 16), 16, 4)]
+# every head group's block: (sizes, F, fused launches per forward, set B)
+BLOCK_SHAPES = [((128, 128), 4, 4), ((32, 32, 32), 4, 4), ((64, 64), 16, 4),
+                ((16, 16, 16), 16, 4), ((16, 16), 16, 4), ((8, 8, 8), 32, 4)]
+SWITCHED_STEPS = 20   # timed optimizer steps under each set, after a warm-up
 N_REQUESTS = 100   # classify calls in the counted, timed run
 PROFILE_CALLS = 10   # classify calls in the --profile window
 TRAIN_STEPS = 50   # timed optimizer steps, after one warm-up step
@@ -143,6 +177,12 @@ REPLACES = {
     "grid_conv3d_dw": "cloud_transformers_tpu/ops/pallas_grid_conv.py:183",
     "top2": "cloud_transformers_tpu/ops/pallas_emd.py:112",
     "auction_window": "cloud_transformers_tpu/ops/pallas_emd.py:373",
+    "grid_conv2d": "cloud_transformers_tpu/ops/pallas_grid_conv.py:277",
+    "grid_conv2d_dw": "cloud_transformers_tpu/ops/pallas_grid_conv.py:362",
+    # pallas_splat(..., with_winner=True) and pallas_splat_bwd_routed
+    "splat_max_winner": "cloud_transformers_tpu/ops/pallas_splat.py:528",
+    "splat_route": "cloud_transformers_tpu/ops/pallas_splat.py:1024",
+    "fused_block": "cloud_transformers_tpu/ops/pallas_fused_block.py:196",
 }
 _SPLAT_CU = "cloud_transformers_tpu_torch/csrc/splat_slice.cu"
 _CONV_CU = "cloud_transformers_tpu_torch/csrc/grid_conv.cu"
@@ -152,11 +192,24 @@ SOURCES = {
     "grid_conv3d": _CONV_CU, "splat_max_bwd": _SPLAT_CU,
     "slice_bwd": _SPLAT_CU, "grid_conv3d_dw": _CONV_CU,
     "top2": _EMD_CU, "auction_window": _EMD_CU,
+    "grid_conv2d": _CONV_CU, "grid_conv2d_dw": _CONV_CU,
+    "splat_max_winner": _SPLAT_CU, "splat_route": _SPLAT_CU,
+    "fused_block": "cloud_transformers_tpu_torch/csrc/fused_block.cu",
 }
 # launches per forward of the serving path, and per training step
 PER_FORWARD = {"splat_max": 26, "slice_gather": 24, "grid_conv3d": 8}
 PER_STEP = {"splat_max": 26, "slice_gather": 24, "grid_conv3d": 16,
             "splat_max_bwd": 26, "slice_bwd": 24, "grid_conv3d_dw": 8}
+# the JAX package's execution switches, as the port names them (launches
+# per pass under each: ``set_counts``):
+# set A = set_grid_conv_strategy("pallas") + FWD_WINNER: every grid conv on
+# the kernels (12 blocks x one 2D and one 3D head group), every splat under
+# a gradient tracks its winner map, whose backward is the routing pass alone
+# set B = set_block_fusion("fused"): each head group one fused block, the
+# two pools plain splats; the backward composes the slice backward, the
+# conv's backward kernels (whatever the conv strategy) and the two-pass
+# splat backward
+SETS = ("set_a", "set_b")
 # per completion training step: the encoder (the classifier's backbone, 26
 # splats) and the decoder (4 stages x 3 unions x 2 heads groups, 24 splats)
 PER_STEP_COMPLETION = {
@@ -169,7 +222,11 @@ LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
 MAIN_PATH = {"splat_max": "serving", "slice_gather": "serving",
              "grid_conv3d": "serving", "splat_max_bwd": "training",
              "slice_bwd": "training", "grid_conv3d_dw": "training",
-             "top2": "completion", "auction_window": "window"}
+             "top2": "completion", "auction_window": "window",
+             "grid_conv2d": "serving_set_a",
+             "grid_conv2d_dw": "training_set_a",
+             "splat_max_winner": "training_set_a",
+             "splat_route": "training_set_a", "fused_block": "serving_set_b"}
 
 
 def log(*a):
@@ -274,7 +331,50 @@ def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
         bound=bound(map_bytes + R * K * f * 4 + 2 * touched * f * 4
                     + R * K * f * 4 + R * K * 32,
                     R * K * n_vert * f * 5)))
-    del g, d_lo, d_hi, d_val, winner, p_lo, p_hi, p_val
+
+    # set A: the splat that records the winner map in the forward, then the
+    # routing pass alone, bit-equal to the two-pass backward
+    w_grid, w_map = ps.splat_max_winner(*mapping, values, sizes)
+    p_grid, p_map = ps.splat_max_winner_plain(*mapping, values, sizes)
+    if not (torch.equal(w_grid, p_grid) and torch.equal(w_map, p_map)
+            and torch.equal(w_grid, grid) and torch.equal(w_map, winner)):
+        raise AssertionError(f"splat_max_winner {shape}: the grid or the "
+                             "winner map differs from the plain version's")
+    rows["splat_max_winner"].append(dict(
+        shape=shape, calls=n_splat,
+        max_abs_err=float((w_grid - p_grid).abs().max()),
+        won=int((w_map != ps.NO_WINNER).sum()),
+        ms=cuda_ms(lambda: ps.splat_max_winner(*mapping, values, sizes)),
+        plain_ms=cuda_ms(lambda: ps.splat_max_winner_plain(
+            *mapping, values, sizes), iters=3, warmup=1),
+        library_ms=None,
+        # reads the mapping and the values; writes the grid and the map
+        # (the packed buffer between the two passes is scratch)
+        bound=bound(map_bytes + R * K * f * 4 + 2 * R * cells * f * 4,
+                    R * K * n_vert * f * 2)))
+    del w_grid, w_map, p_grid, p_map
+    routed = ps.splat_route(*mapping, values, winner, g, sizes)
+    if not all(torch.equal(a, b) for a, b in zip(routed, (d_lo, d_hi, d_val))):
+        raise AssertionError(f"splat_route {shape}: not bit-equal to the "
+                             "two-pass splat_max_bwd")
+    plain = ps.splat_route_plain(*mapping, values, winner, g, sizes)
+    err = max(held(f"splat_route {shape} {n}", a, b, ROUTE_TOL)
+              for n, a, b in zip(("d_w_lo", "d_w_hi", "d_values"), routed,
+                                 plain))
+    rows["splat_route"].append(dict(
+        shape=shape, calls=n_splat, max_abs_err=err,
+        grid_rows_read=touched, grid_rows=R * cells,
+        ms=cuda_ms(lambda: ps.splat_route(*mapping, values, winner, g,
+                                          sizes)),
+        plain_ms=cuda_ms(lambda: ps.splat_route_plain(
+            *mapping, values, winner, g, sizes), iters=3, warmup=1),
+        library_ms=None,
+        # reads the mapping, the values and the touched rows of the winner
+        # map and of the cotangent; writes d_values and the two d_w
+        bound=bound(map_bytes + R * K * f * 4 + 2 * touched * f * 4
+                    + R * K * f * 4 + R * K * 32,
+                    R * K * n_vert * f * 4)))
+    del g, d_lo, d_hi, d_val, winner, p_lo, p_hi, p_val, routed, plain
 
     g_pts = torch.randn(R, K, f, generator=gen, device="cuda")
     d_grid, d_lo, d_hi = ps.slice_bwd(*mapping, g_pts, grid, sizes)
@@ -368,57 +468,132 @@ def check_kernels(gen):
         check_point_backwards(ps, rows, gen, mapping, values, grid, sizes,
                               f, n_splat, n_slice, touched)
         del grid
-    for sizes, f, n_conv in CONV_SHAPES:
-        cells = ps.kernel_grid_dims(sizes)[2]
-        grid = torch.randn(R, cells, f, generator=gen, device="cuda").relu()
-        weight = torch.randn(H * f, f, 3, 3, 3, generator=gen,
-                             device="cuda") * (27 * f) ** -0.5
-        bias = torch.randn(H * f, generator=gen, device="cuda") * 0.1
-        out = gc.grid_conv3d(grid, weight, bias, sizes, H)
-        plain = gc.grid_conv3d_plain(grid, weight, bias, sizes, H)
-        err = held(f"grid_conv3d {sizes} F={f}", out, plain, TOL)
-        x_cf = grid.reshape((B, H) + sizes + (f,)).movedim(-1, 2).reshape(
-            (B, H * f) + sizes).contiguous()
-        # (output cell, tap) pairs whose input lies inside the grid: the
-        # taps over the zero padding need no work
-        pairs = int(np.prod([3 * s - 2 for s in sizes]))
-        rows["grid_conv3d"].append(dict(
-            shape=f"{'x'.join(map(str, sizes))} F={f}", calls=n_conv,
-            max_abs_err=err,
-            ms=cuda_ms(lambda: gc.grid_conv3d(grid, weight, bias, sizes, H)),
-            plain_ms=cuda_ms(lambda: gc.grid_conv3d_plain(
-                grid, weight, bias, sizes, H), iters=5),
-            library_ms=cuda_ms(lambda: torch.nn.functional.conv3d(
-                x_cf, weight, bias, padding=1, groups=H)),
-            bound=bound(2 * R * cells * f * 4 + weight.numel() * 4
-                        + bias.numel() * 4,
-                        R * (pairs * f * f * 2 + cells * f))))
-        del out, plain
-        # the weight gradient for a cotangent of the output's shape
-        g = torch.randn(R, cells, f, generator=gen, device="cuda")
-        d_w = gc.grid_conv3d_dw(grid, g, sizes, H)
-        plain = gc.grid_conv3d_dw_plain(grid, g, sizes, H)
-        err = held(f"grid_conv3d_dw {sizes} F={f}", d_w, plain, TOL)
-        g_cf = g.reshape((B, H) + sizes + (f,)).movedim(-1, 2).reshape(
-            (B, H * f) + sizes).contiguous()
-
-        def library():
-            return torch.ops.aten.convolution_backward(
-                g_cf, x_cf, weight, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
-                False, [0, 0, 0], H, (False, True, False))[1]
-        lib_err = held(f"convolution_backward {sizes} F={f}", library(),
-                       plain, LIB_TOL)
-        rows["grid_conv3d_dw"].append(dict(
-            shape=f"{'x'.join(map(str, sizes))} F={f}", calls=n_conv,
-            max_abs_err=err, library_err=lib_err,
-            ms=cuda_ms(lambda: gc.grid_conv3d_dw(grid, g, sizes, H)),
-            plain_ms=cuda_ms(lambda: gc.grid_conv3d_dw_plain(
-                grid, g, sizes, H), iters=5),
-            library_ms=cuda_ms(library),
-            bound=bound(2 * R * cells * f * 4 + weight.numel() * 4,
-                        R * pairs * f * f * 2)))
-        del grid, g, x_cf, g_cf, d_w, plain
+    for sizes, f, n_conv, n_set_a in CONV_SHAPES:
+        check_conv(gc, rows, gen, sizes, f, n_conv, n_set_a)
+    for sizes, f, n_set_a in CONV2D_SHAPES:
+        check_conv(gc, rows, gen, sizes, f, n_set_a, n_set_a)
+    for sizes, f, n_set_b in BLOCK_SHAPES:
+        check_fused_block(rows, gen, sizes, f, n_set_b)
     return rows
+
+
+def check_conv(gc, rows, gen, sizes, f, calls, calls_set_a):
+    """The grid conv and its weight gradient of the grid's dimension at one
+    shape; ``calls`` per forward (per step for the weight gradient) on the
+    kernel's main path, ``calls_set_a`` under set A."""
+    dim = len(sizes)
+    fwd, dw = ("grid_conv2d", "grid_conv2d_dw") if dim == 2 else (
+        "grid_conv3d", "grid_conv3d_dw")
+    conv = torch.nn.functional.conv2d if dim == 2 else \
+        torch.nn.functional.conv3d
+    shape = f"{'x'.join(map(str, sizes))} F={f}"
+    cells = int(np.prod(sizes))
+    grid = torch.randn(R, cells, f, generator=gen, device="cuda").relu()
+    weight = torch.randn((H * f, f) + (3,) * dim, generator=gen,
+                         device="cuda") * (3 ** dim * f) ** -0.5
+    bias = torch.randn(H * f, generator=gen, device="cuda") * 0.1
+    out = getattr(gc, fwd)(grid, weight, bias, sizes, H)
+    plain = gc.grid_conv_plain(grid, weight, bias, sizes, H)
+    err = held(f"{fwd} {shape}", out, plain, TOL)
+    x_cf = grid.reshape((B, H) + sizes + (f,)).movedim(-1, 2).reshape(
+        (B, H * f) + sizes).contiguous()
+    lib_out = conv(x_cf, weight, bias, padding=1, groups=H)
+    lib_err = held(f"conv{dim}d {shape}", lib_out.reshape(
+        (B, H, f) + sizes).movedim(2, -1).reshape(R, cells, f), plain,
+        LIB_TOL)
+    # (output cell, tap) pairs whose input lies inside the grid: the taps
+    # over the zero padding need no work
+    pairs = int(np.prod([3 * s - 2 for s in sizes]))
+    rows[fwd].append(dict(
+        shape=shape, calls=calls, calls_set_a=calls_set_a, max_abs_err=err,
+        library_err=lib_err,
+        ms=cuda_ms(lambda: getattr(gc, fwd)(grid, weight, bias, sizes, H)),
+        plain_ms=cuda_ms(lambda: gc.grid_conv_plain(
+            grid, weight, bias, sizes, H), iters=5),
+        library_ms=cuda_ms(lambda: conv(x_cf, weight, bias, padding=1,
+                                        groups=H)),
+        bound=bound(2 * R * cells * f * 4 + weight.numel() * 4
+                    + bias.numel() * 4,
+                    R * (pairs * f * f * 2 + cells * f))))
+    del out, plain, lib_out
+    # the weight gradient for a cotangent of the output's shape
+    g = torch.randn(R, cells, f, generator=gen, device="cuda")
+    d_w = getattr(gc, dw)(grid, g, sizes, H)
+    plain = gc.grid_conv_dw_plain(grid, g, sizes, H)
+    err = held(f"{dw} {shape}", d_w, plain, TOL)
+    if not torch.equal(d_w, getattr(gc, dw)(grid, g, sizes, H)):
+        raise AssertionError(f"{dw} {shape}: two runs differ")
+    g_cf = g.reshape((B, H) + sizes + (f,)).movedim(-1, 2).reshape(
+        (B, H * f) + sizes).contiguous()
+
+    def library():
+        return torch.ops.aten.convolution_backward(
+            g_cf, x_cf, weight, None, [1] * dim, [1] * dim, [1] * dim,
+            False, [0] * dim, H, (False, True, False))[1]
+    lib_err = held(f"convolution_backward {shape}", library(), plain,
+                   LIB_TOL)
+    rows[dw].append(dict(
+        shape=shape, calls=calls, calls_set_a=calls_set_a, max_abs_err=err,
+        library_err=lib_err,
+        ms=cuda_ms(lambda: getattr(gc, dw)(grid, g, sizes, H)),
+        plain_ms=cuda_ms(lambda: gc.grid_conv_dw_plain(grid, g, sizes, H),
+                         iters=5),
+        library_ms=cuda_ms(library),
+        bound=bound(2 * R * cells * f * 4 + weight.numel() * 4,
+                    R * pairs * f * f * 2)))
+
+
+def check_fused_block(rows, gen, sizes, f, calls):
+    """Set B's fused block at one head group's shape, with and without
+    gk2: gk bit-equal to the plain composition's, the points and gk2
+    within TOL.  Timed beside the three separate kernels on the same
+    inputs; no single PyTorch call computes the block."""
+    from cloud_transformers_tpu_torch.ops import pallas_fused_block as fb
+    from cloud_transformers_tpu_torch.ops import pallas_grid_conv as gc
+    from cloud_transformers_tpu_torch.ops import pallas_splat as ps
+    dim = len(sizes)
+    shape = f"{'x'.join(map(str, sizes))} F={f}"
+    cells = int(np.prod(sizes))
+    mapping, values, _ = mapping_inputs(sizes, f, gen)
+    weight = torch.randn((H * f, f) + (3,) * dim, generator=gen,
+                         device="cuda") * (3 ** dim * f) ** -0.5
+    bias = torch.randn(H * f, generator=gen, device="cuda") * 0.1
+    args = (*mapping, values, weight, bias, sizes, H)
+    plain = fb.fused_block_plain(*args, want_gk2=True)
+    err = 0.0
+    for want in (False, True):
+        got = fb.fused_block(*args, want_gk2=want)
+        if not torch.equal(got[1], plain[1]):
+            raise AssertionError(f"fused_block {shape}: gk differs from the "
+                                 "plain splat's")
+        err = max(err, held(f"fused_block {shape} pts", got[0], plain[0],
+                            TOL))
+        if want:
+            err = max(err, held(f"fused_block {shape} gk2", got[2],
+                                plain[2], TOL))
+    del got, plain
+    conv = gc.grid_conv2d if dim == 2 else gc.grid_conv3d
+
+    def separate():
+        gk = ps.splat_max(*mapping, values, sizes)
+        return ps.slice_gather(*mapping, conv(gk, weight, bias, sizes, H),
+                               sizes)
+    n_vert = 2 ** dim
+    pairs = int(np.prod([3 * s - 2 for s in sizes]))
+    rows["fused_block"].append(dict(
+        shape=shape, calls=calls, max_abs_err=err,
+        ms=cuda_ms(lambda: fb.fused_block(*args)),
+        ms_with_gk2=cuda_ms(lambda: fb.fused_block(*args, want_gk2=True)),
+        separate_kernels_ms=cuda_ms(separate),
+        plain_ms=cuda_ms(lambda: fb.fused_block_plain(*args), iters=3,
+                         warmup=1),
+        library_ms=None,
+        # reads the mapping, the values and the weights; writes the points
+        # and gk (serving: no gk2)
+        bound=bound(R * K * 40 + 2 * R * K * f * 4 + weight.numel() * 4
+                    + bias.numel() * 4 + R * cells * f * 4,
+                    R * K * n_vert * f * 4
+                    + R * (pairs * f * f * 2 + cells * f))))
 
 
 def bound_top2(pairs, n_bytes):
@@ -577,7 +752,10 @@ def kernel_line(rows, launches):
     path's run (``MAIN_PATH``), and every path's count stands beside it."""
     times_are = {"serving": "per_forward", "training": "per_step",
                  "completion": "per_completion_step",
-                 "window": "per_call_from_the_checked_state"}
+                 "window": "per_call_from_the_checked_state",
+                 "serving_set_a": "per_forward_set_a",
+                 "training_set_a": "per_step_set_a",
+                 "serving_set_b": "per_forward_set_b"}
     out = []
     for name, shapes in rows.items():
         per = times_are[MAIN_PATH[name]]
@@ -601,6 +779,8 @@ def kernel_line(rows, launches):
             "library_ms": lib,
             **({"library_is": LIBRARY_IS[name]} if name in LIBRARY_IS
                else {}),
+            **({"separate_kernels_ms": total("separate_kernels_ms")}
+               if name == "fused_block" else {}),
             "per_shape": [{
                 "shape": s["shape"], per: s["calls"],
                 "ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -610,7 +790,8 @@ def kernel_line(rows, launches):
                 **{k: s[k] for k in (
                     "library_err", "grid_rows_read", "grid_rows", "won",
                     "index_differs", "split", "used", "bids",
-                    "rounds_before", "unassigned_before") if k in s}}
+                    "rounds_before", "unassigned_before", "calls_set_a",
+                    "ms_with_gk2", "separate_kernels_ms") if k in s}}
                 for s in shapes],
         })
     return {"kernels": out}
@@ -645,9 +826,16 @@ def device_ms(events):
 # device kernels by a part of their name, first match wins
 KERNEL_GROUPS = (
     ("top2_kernel", "top2"), ("auction_window_kernel", "auction_window"),
-    ("grid_conv3d_dw", "grid_conv3d_dw"),
-    ("grid_conv3d_kernel", "grid_conv3d"),
-    ("splat_winner", "splat_max_bwd"), ("splat_route", "splat_max_bwd"),
+    ("grid_conv_dw_partial_kernel<1", "grid_conv2d_dw"),
+    ("grid_conv_dw_partial_wide_kernel<1", "grid_conv2d_dw"),
+    ("grid_conv_dw_reduce_kernel<1", "grid_conv2d_dw"),
+    ("grid_conv_dw", "grid_conv3d_dw"),
+    ("grid_conv_kernel<1", "grid_conv2d"), ("grid_conv_kernel", "grid_conv3d"),
+    ("fused_block", "fused_block"), ("splat_max_winner", "splat_max_winner"),
+    ("splat_unpack", "splat_max_winner"),
+    # the routing pass: splat_max_bwd's second pass, or splat_route alone
+    ("splat_winner", "splat_max_bwd"),
+    ("splat_route", "splat routing pass (splat_max_bwd, splat_route)"),
     ("splat_max_kernel", "splat_max"), ("slice_bwd", "slice_bwd"),
     ("slice_kernel", "slice_gather"),
     ("cudnn", "cuDNN convolutions and their layout kernels"),
@@ -684,6 +872,127 @@ def device_table(events, passes, limit=40):
                               "more kernels"] * (len(rows) > limit))
 
 
+@contextlib.contextmanager
+def switches(name):
+    """The port's execution switches set as ``name`` ("set_a", "set_b")
+    says, and back to the defaults afterwards."""
+    from cloud_transformers_tpu_torch.core import splat_slice as ss
+    from cloud_transformers_tpu_torch.nn import grouped_conv as gcm
+    try:
+        if name == "set_a":
+            gcm.set_grid_conv_strategy("pallas")
+            ss.FWD_WINNER = True
+        elif name == "set_b":
+            gcm.set_block_fusion("fused")
+        else:
+            raise ValueError(name)
+        yield
+    finally:
+        gcm.set_grid_conv_strategy(None)
+        gcm.set_block_fusion(None)
+        ss.FWD_WINNER = False
+
+
+def set_counts(name, n_splat, n_slice, training):
+    """Launches per forward (or per training step) under a set, from the
+    default path's splat and slice counts of a model whose head groups are
+    half 2D and half 3D (the pools' splats have no slice): each slice is
+    one head group.  The classifier (26 splats, 24 slices): set A 26 splat,
+    24 slice, 12 + 12 conv per forward; per step 26 winner splats and
+    routing passes, 24 slice and slice backward, 24 + 24 conv, 12 + 12
+    weight gradients.  Set B 24 fused and 2 splat per forward; per step 24
+    fused, 2 splat, 26 splat backward, 24 slice backward, 12 of each conv
+    and each weight gradient."""
+    groups = n_slice // 2   # of each dimension
+    if name == "set_a":
+        if not training:
+            return {"splat_max": n_splat, "slice_gather": n_slice,
+                    "grid_conv3d": groups, "grid_conv2d": groups}
+        return {"splat_max_winner": n_splat, "splat_route": n_splat,
+                "slice_gather": n_slice, "slice_bwd": n_slice,
+                "grid_conv3d": 2 * groups, "grid_conv3d_dw": groups,
+                "grid_conv2d": 2 * groups, "grid_conv2d_dw": groups}
+    if not training:
+        return {"fused_block": n_slice, "splat_max": n_splat - n_slice}
+    return {"fused_block": n_slice, "splat_max": n_splat - n_slice,
+            "splat_max_bwd": n_splat, "slice_bwd": n_slice,
+            "grid_conv3d": groups, "grid_conv3d_dw": groups,
+            "grid_conv2d": groups, "grid_conv2d_dw": groups}
+
+
+def profile_serving(engine, batches, smi, path):
+    """``PROFILE_CALLS`` more classify calls under torch.profiler: the
+    device kernels by group in ``path``.  -> {profiled_...} with the device
+    busy time and host wall time of the same window; the profiler's own
+    host cost makes this idle share an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for clouds in batches[:PROFILE_CALLS]:
+            engine.classify(clouds)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy = device_ms(events)
+    profiled = {"profiled_calls": PROFILE_CALLS,
+                "profiled_wall_ms_per_forward": wall_ms / PROFILE_CALLS,
+                "profiled_device_ms_per_forward": busy / PROFILE_CALLS,
+                "profiled_device_idle_share": 1 - busy / wall_ms}
+    table = events.table(sort_by="cuda_time_total", row_limit=40)
+    with open(path, "w") as fh:
+        fh.write(f"{smi}\n{json.dumps(profiled)}\n"
+                 f"device kernels, per forward:\n"
+                 f"{device_table(events, PROFILE_CALLS)}\n"
+                 f"(totals over {PROFILE_CALLS} classify calls)\n{table}")
+    log(json.dumps(profiled))
+    return profiled
+
+
+def switched_serving(name, engine, cpu_engine, batches, wrappers, smi,
+                     profile_dir):
+    """The serving path under a set: the timed, counted classify calls, one
+    forward under ``set_sync_debug_mode("error")``, and the card's logits
+    and mask against the CPU's for one cloud; with ``profile_dir``, the
+    profile of ``PROFILE_CALLS`` more calls.  -> (result, launches)."""
+    engine.classify(batches[0])                  # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    call_ms = []
+    for clouds in batches:
+        t0 = time.perf_counter()
+        probs = engine.classify(clouds)
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches(wrappers)
+    check_launches(launches, set_counts(
+        name, PER_FORWARD["splat_max"], PER_FORWARD["slice_gather"], False),
+        len(batches), f"{name} forwards")
+    if probs.shape != (B, 15) or not np.isfinite(probs).all():
+        raise AssertionError(f"{name}: bad class probabilities {probs}")
+    pcd = torch.from_numpy(engine.pad_batch(batches[0])[0]).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            engine.model(pcd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cloud = batches[0][:1]
+    (card_cls, card_mask, _), _, _, _ = engine.predict_padded(cloud)
+    (cpu_cls, cpu_mask, _), _, _, _ = cpu_engine.predict_padded(cloud)
+    parity(card_cls[:1].cpu(), cpu_cls, f"{name} class logits")
+    parity(card_mask[:1].cpu(), cpu_mask, f"{name} point mask")
+    ms = float(np.median(call_ms))
+    log(f"{name}: {ms:.3f} ms/forward (median), launches {launches}")
+    result = {"classify_ms_per_forward": ms, "clouds_per_s": B * 1e3 / ms,
+              "classify_ms_p10": float(np.percentile(call_ms, 10)),
+              "classify_ms_p90": float(np.percentile(call_ms, 90))}
+    if profile_dir:
+        result.update(profile_serving(engine, batches, smi, os.path.join(
+            profile_dir, f"profile_forward_{name}.txt")))
+    return result, launches
+
+
 def endless(loader):
     """Batches of ``loader``, epoch after epoch."""
     epoch = 0
@@ -693,10 +1002,13 @@ def endless(loader):
         epoch += 1
 
 
-def train_phase(wrappers, smi, profile_dir, exp_root):
+def train_phase(wrappers, smi, profile_dir, exp_root, steps=TRAIN_STEPS,
+                per_step=PER_STEP, profile_name="profile_train.txt"):
     """Phase 6: optimizer steps on the full-width classifier through the
-    Trainer, whose experiment directories go under ``exp_root``.
-    -> (result dict, launches in the timed steps)."""
+    Trainer, whose experiment directories go under ``exp_root``, with
+    ``per_step`` launches of each kernel in each of the ``steps`` timed
+    steps (none of the others).  -> (result dict, launches in the timed
+    steps)."""
     from cloud_transformers_tpu_torch.tasks import classification
     from cloud_transformers_tpu_torch.train.config import (
         load_config,
@@ -726,7 +1038,7 @@ def train_phase(wrappers, smi, profile_dir, exp_root):
     torch.cuda.synchronize()
     zero_launches(wrappers)
     step_ms, losses = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         batch = next(batches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -736,12 +1048,8 @@ def train_phase(wrappers, smi, profile_dir, exp_root):
         losses.append(metrics["loss"])
     launches = read_launches(wrappers)
     peak = torch.cuda.max_memory_allocated()
-    for name, per_step in PER_STEP.items():
-        if launches[name] != per_step * TRAIN_STEPS:
-            raise AssertionError(
-                f"{name}: {launches[name]} launches in {TRAIN_STEPS} "
-                f"training steps, expected {per_step} per step")
-    log(f"launches in {TRAIN_STEPS} training steps: {launches}")
+    check_launches(launches, per_step, steps, "training steps")
+    log(f"launches in {steps} training steps: {launches}")
 
     losses = torch.stack(losses).cpu().numpy()
     if not np.isfinite(losses).all():
@@ -759,7 +1067,7 @@ def train_phase(wrappers, smi, profile_dir, exp_root):
     if not key_grad > 0:
         raise AssertionError("every key_bn.bias gradient is zero: the key "
                              "path through d_w is not connected")
-    if trainer.global_step != TRAIN_STEPS + 1 or \
+    if trainer.global_step != steps + 1 or \
             trainer.optimizer.lrs != [1e-3]:
         raise AssertionError("the trainer's step count or learning rate "
                              f"is off: {trainer.global_step}, "
@@ -784,7 +1092,7 @@ def train_phase(wrappers, smi, profile_dir, exp_root):
               "train_ms_mean": float(np.mean(step_ms)),
               "train_ms_p10": float(np.percentile(step_ms, 10)),
               "train_ms_p90": float(np.percentile(step_ms, 90)),
-              "train_steps": TRAIN_STEPS,
+              "train_steps": steps,
               "train_peak_memory_bytes": int(peak),
               "loss_first10": first, "loss_last10": last,
               "key_bn_bias_grad_max": key_grad, "batch": B, "points": K}
@@ -808,7 +1116,7 @@ def train_phase(wrappers, smi, profile_dir, exp_root):
                         busy / PROFILE_STEPS,
                     "train_profiled_device_idle_share": 1 - busy / wall_ms}
         table = events.table(sort_by="cuda_time_total", row_limit=40)
-        with open(os.path.join(profile_dir, "profile_train.txt"), "w") as fh:
+        with open(os.path.join(profile_dir, profile_name), "w") as fh:
             fh.write(f"{smi}\n{json.dumps(profiled)}\n"
                      f"device kernels, per training step:\n"
                      f"{device_table(events, PROFILE_STEPS)}\n"
@@ -932,6 +1240,15 @@ def read_launches(wrappers):
     return {name: w.launches for name, w in wrappers.items()}
 
 
+def check_launches(launches, per_pass, passes, what):
+    """Raise unless every kernel launched ``per_pass[name]`` (0 where it is
+    not named) times in each of ``passes`` passes."""
+    expect = {name: per_pass.get(name, 0) * passes for name in launches}
+    if launches != expect:
+        raise AssertionError(f"{what}: launches {launches} in {passes} "
+                             f"passes, expected {expect}")
+
+
 def zero_launches(wrappers):
     for w in wrappers.values():
         w.launches = 0
@@ -1000,7 +1317,8 @@ def completion_phase(wrappers, smi, profile_dir, exp_root):
         launches = read_launches(wrappers)
         emd_ms = rec.ms()
     peak = torch.cuda.max_memory_allocated()
-    expect = {k: v * COMPLETION_STEPS for k, v in PER_STEP_COMPLETION.items()}
+    expect = {name: PER_STEP_COMPLETION.get(name, 0) * COMPLETION_STEPS
+              for name in launches}
     # one bid search per round, the last round included; with
     # _KERNEL_BID_MIN_WIDTH = 1 every one of them is a kernel launch
     expect.update(top2=sum(rec.rounds), auction_window=0)
@@ -1093,6 +1411,29 @@ def completion_phase(wrappers, smi, profile_dir, exp_root):
         log(json.dumps(profiled))
         result.update(profiled)
 
+    # one training step under each set: the AdaIN blocks take the same
+    # branches as the classifier's
+    switched_launches = {}
+    for name in SETS:
+        with switches(name), EmdRecorder() as rec:
+            zero_launches(wrappers)
+            metrics = trainer.train_step(next(batches))
+            torch.cuda.synchronize()
+            got = read_launches(wrappers)
+        expect = set_counts(name, PER_STEP_COMPLETION["splat_max"],
+                            PER_STEP_COMPLETION["slice_gather"], True)
+        expect["top2"] = sum(rec.rounds)
+        check_launches(got, expect, 1, f"completion step under {name}")
+        loss = float(metrics["loss"])
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        if not np.isfinite(loss) or bad:
+            raise AssertionError(f"completion step under {name}: loss {loss}, "
+                                 f"missing or non-finite gradients {bad[:5]}")
+        result[f"completion_{name}_loss"] = loss
+        switched_launches[name] = got
+        log(f"completion step under {name}: loss {loss:.6f}, launches {got}")
+
     # checkpoint: save, restore into a fresh model, same reconstruction
     path = trainer.save()
     fresh = restore_params_only(path, model_from_config(cfg)).to("cuda")
@@ -1138,7 +1479,8 @@ def completion_phase(wrappers, smi, profile_dir, exp_root):
         "eval_top2_launches_per_cloud": eval_launches["top2"] / EVAL_CLOUDS,
         "eval_bid_searches_by_width": {
             f"B={k[0]} W={k[1]}": v for k, v in rec.widths.items()}})
-    return result, launches, eval_launches, widths_per_step
+    return result, launches, eval_launches, widths_per_step, \
+        switched_launches
 
 
 def window_tail_phase(wrappers):
@@ -1257,17 +1599,24 @@ def main():
                     help=f"profile {PROFILE_CALLS} classify calls and "
                          f"{PROFILE_STEPS} training steps of each model: "
                          "device idle share, and the tables in "
-                         "DIR/profile_forward.txt, DIR/profile_train.txt "
-                         "and DIR/profile_completion.txt")
+                         "DIR/profile_forward.txt, DIR/profile_train.txt, "
+                         "DIR/profile_completion.txt and, under each set, "
+                         "DIR/profile_{forward,train}_set_{a,b}.txt")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing was run")
         return 2
+    # the default path is the JAX package's defaults; the sets of switches
+    # are set by the phases themselves
+    for var in ("CT_GRID_CONV", "CT_BLOCK_FUSION"):
+        if os.environ.pop(var, None) is not None:
+            log(f"{var} ignored: chip_smoke runs each set of switches itself")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cloud_transformers_tpu_torch.nn.precision import strict_f32
     from cloud_transformers_tpu_torch.ops import cuda_build
     from cloud_transformers_tpu_torch.ops import pallas_emd as pe
+    from cloud_transformers_tpu_torch.ops import pallas_fused_block as fb
     from cloud_transformers_tpu_torch.ops import pallas_grid_conv as gc
     from cloud_transformers_tpu_torch.ops import pallas_splat as ps
     from cloud_transformers_tpu_torch.serve import InferenceEngine
@@ -1316,7 +1665,11 @@ def main():
                 "grid_conv3d": gc.grid_conv3d,
                 "splat_max_bwd": ps.splat_max_bwd, "slice_bwd": ps.slice_bwd,
                 "grid_conv3d_dw": gc.grid_conv3d_dw, "top2": pe.top2,
-                "auction_window": pe.auction_window}
+                "auction_window": pe.auction_window,
+                "grid_conv2d": gc.grid_conv2d,
+                "grid_conv2d_dw": gc.grid_conv2d_dw,
+                "splat_max_winner": ps.splat_max_winner,
+                "splat_route": ps.splat_route, "fused_block": fb.fused_block}
     zero_launches(wrappers)
     call_ms = []   # classify returns numpy, so each call ends synchronised
     for clouds in batches:
@@ -1324,13 +1677,7 @@ def main():
         probs = engine.classify(clouds)
         call_ms.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches(wrappers)
-    expect = dict(PER_FORWARD, splat_max_bwd=0, slice_bwd=0,
-                  grid_conv3d_dw=0, top2=0, auction_window=0)
-    for name, per_fwd in expect.items():
-        if launches[name] != per_fwd * len(batches):
-            raise AssertionError(
-                f"{name}: {launches[name]} launches in {len(batches)} "
-                f"forwards, expected {per_fwd} per forward")
+    check_launches(launches, PER_FORWARD, len(batches), "forwards")
     if probs.shape != (B, 15) or not np.isfinite(probs).all() or \
             not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
         raise AssertionError(f"bad class probabilities {probs}")
@@ -1350,31 +1697,9 @@ def main():
 
     profiled = {}
     if args.profile:
-        # device busy time and host wall time of the same window; the
-        # profiler's own host cost makes this idle share an upper bound
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for clouds in batches[:PROFILE_CALLS]:
-                engine.classify(clouds)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        busy = device_ms(events)
-        profiled = {"profiled_calls": PROFILE_CALLS,
-                    "profiled_wall_ms_per_forward": wall_ms / PROFILE_CALLS,
-                    "profiled_device_ms_per_forward": busy / PROFILE_CALLS,
-                    "profiled_device_idle_share": 1 - busy / wall_ms}
         os.makedirs(args.profile, exist_ok=True)
-        table = events.table(sort_by="cuda_time_total", row_limit=40)
-        with open(os.path.join(args.profile, "profile_forward.txt"),
-                  "w") as fh:
-            fh.write(f"{smi}\n{json.dumps(profiled)}\n"
-                     f"device kernels, per forward:\n"
-                     f"{device_table(events, PROFILE_CALLS)}\n"
-                     f"(totals over {PROFILE_CALLS} classify calls)\n{table}")
-        log(json.dumps(profiled))
+        profiled = profile_serving(engine, batches, smi, os.path.join(
+            args.profile, "profile_forward.txt"))
 
     # 5. the same model and weights on the CPU, one cloud
     cloud = batches[0][:1]
@@ -1391,6 +1716,14 @@ def main():
     parity(card_mask[:1].cpu(), cpu_mask,
            f"point mask {list(cpu_mask.shape)}")
 
+    # 5b. the serving path under each set of the JAX package's switches
+    switched, all_launches = {}, {"serving": launches}
+    for name in SETS:
+        with switches(name):
+            switched[name], all_launches[f"serving_{name}"] = \
+                switched_serving(name, engine, cpu_engine, batches, wrappers,
+                                 smi, args.profile)
+
     # 6. the second path: training steps at full width
     del engine, cpu_engine
     torch.cuda.empty_cache()
@@ -1402,13 +1735,31 @@ def main():
 
     # 7. the same gradients on the card and on the CPU
     trained.update(gradient_parity())
+    all_launches["training"] = train_launches
+
+    # 7b. training, the sync-free step and gradient parity under each set
+    for name in SETS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with switches(name), tempfile.TemporaryDirectory() as exp_root:
+            result, all_launches[f"training_{name}"] = train_phase(
+                wrappers, smi, args.profile, exp_root, steps=SWITCHED_STEPS,
+                profile_name=f"profile_train_{name}.txt",
+                per_step=set_counts(name, PER_STEP["splat_max"],
+                                    PER_STEP["slice_gather"], True))
+            result.update(gradient_parity())
+        switched[name].update(result)
+        log(f"{name} training phase done in {time.perf_counter() - t0:.1f} s")
 
     # 8. the third path: completion training, checkpoint, evaluation
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as exp_root:
-        completed, completion_launches, eval_launches, widths_per_step = \
-            completion_phase(wrappers, smi, args.profile, exp_root)
+        (completed, completion_launches, eval_launches, widths_per_step,
+         completion_switched) = completion_phase(wrappers, smi, args.profile,
+                                                 exp_root)
+    for name, got in completion_switched.items():
+        all_launches[f"completion_{name}"] = got
     log(f"completion phase done in {time.perf_counter() - t0:.1f} s")
     for row in rows["top2"]:
         row["calls"] = widths_per_step.get((row["b"], row["w"]), 0.0)
@@ -1453,10 +1804,14 @@ def main():
         f"{100 * completed['completion_emd_share_of_step']:.1f}% of a step; "
         f"evaluation {completed['eval_seconds_per_cloud']:.3f} s/cloud")
     print(json.dumps(completed), flush=True)
-    print(json.dumps(kernel_line(rows, {
-        "serving": launches, "training": train_launches,
-        "completion": completion_launches, "evaluation": eval_launches,
-        "window": window_launches})), flush=True)
+    for name, res in switched.items():
+        log(f"{name}: {res['classify_ms_per_forward']:.3f} ms/forward "
+            f"(default {ms_fwd:.3f}), {res['train_ms_per_step']:.3f} ms/step "
+            f"(default {trained['train_ms_per_step']:.3f})")
+    print(json.dumps({"switched": switched}), flush=True)
+    all_launches.update(completion=completion_launches,
+                        evaluation=eval_launches, window=window_launches)
+    print(json.dumps(kernel_line(rows, all_launches)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -44,6 +44,18 @@
 //   run), d_w is the dot of the vertex's grid row with g over the features,
 //   with no atomics.
 //
+// * splat_max_winner (replaces pallas_splat(..., with_winner=True), which
+//   keeps a float point index beside the grid in VMEM and updates it with
+//   the max): the grid and the winner map in one scatter.  Each positive
+//   contribution c of point k goes in with a 64-bit atomicMax of
+//   (float_bits(c) << 32) | (INT_MAX - k) on a zero-filled [R, G, F] buffer:
+//   positive floats order like their bits, so the high word ends as the
+//   maximum (bit-equal to splat_max), and among equal maxima the largest low
+//   word, the lowest k, wins, whatever order the atomics land in.  A second
+//   pass unpacks the buffer into the grid and the int32 winner map, INT_MAX
+//   where nothing landed.  splat_route (replacing pallas_splat_bwd_routed) is
+//   then the backward's routing pass alone, launched on its own.
+//
 // In both, the features of a point sit on a group of 1 to 32 neighbouring
 // lanes of one warp (the next power of two >= min(F, 32)); a lane loops
 // over f with that stride, and the sums over f are shuffles inside the
@@ -57,6 +69,7 @@
 // in L2, and as many scattered reads in pass 2.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -165,6 +178,49 @@ __global__ void splat_winner_kernel(const int* __restrict__ x0,
     const int64_t i_hi = row + (int64_t)(base + lane_extent + offs[j]) * F;
     if (c_hi > 0.0f && c_hi == grid[i_hi]) atomicMin(winner + i_hi, k);
   }
+}
+
+__global__ void splat_max_winner_kernel(
+    const int* __restrict__ x0, const int* __restrict__ lane0,
+    const float* __restrict__ w_lo, const float* __restrict__ w_hi,
+    const float* __restrict__ values, unsigned long long* __restrict__ packed,
+    int64_t n_points_total, int K, int F, int G, int lane_extent, int off2,
+    int off3, int n_vert) {
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_points_total * F) return;
+  const int64_t p = t / F;  // r * K + k
+  const int f = (int)(t - p * F);
+  const int64_t r = p / K;
+  const int k = (int)(p - r * K);
+  const float v = values[t];
+  const int base = x0[p] * lane_extent + lane0[p];
+  const int offs[4] = {0, 1, off2, off3};
+  unsigned long long* row = packed + r * (int64_t)G * F + f;
+  // the lower the point index, the larger the low word
+  const unsigned long long tag = (unsigned long long)(INT_MAX - k);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j >= n_vert) break;
+    // one rounded multiply, as splat_max's
+    const float c_lo = __fmul_rn(w_lo[p * 4 + j], v);
+    if (c_lo > 0.0f)
+      atomicMax(row + (int64_t)(base + offs[j]) * F,
+                ((unsigned long long)__float_as_uint(c_lo) << 32) | tag);
+    const float c_hi = __fmul_rn(w_hi[p * 4 + j], v);
+    if (c_hi > 0.0f)
+      atomicMax(row + (int64_t)(base + lane_extent + offs[j]) * F,
+                ((unsigned long long)__float_as_uint(c_hi) << 32) | tag);
+  }
+}
+
+__global__ void splat_unpack_kernel(
+    const unsigned long long* __restrict__ packed, float* __restrict__ grid,
+    int* __restrict__ winner, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long v = packed[i];
+  grid[i] = __uint_as_float((unsigned int)(v >> 32));  // 0 -> +0.0f
+  winner[i] = v == 0ull ? INT_MAX : INT_MAX - (int)(v & 0xffffffffull);
 }
 
 __global__ void splat_route_kernel(const int* __restrict__ x0,
@@ -345,6 +401,49 @@ extern "C" int ct_splat_max_bwd(const int* x0, const int* lane0,
         off2, off3, n_vert);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
+    const int group = feature_group(F);
+    splat_route_kernel<<<n_blocks(n * group), kThreads, 0,
+                         (cudaStream_t)stream>>>(
+        x0, lane0, w_lo, w_hi, values, winner, g, d_w_lo, d_w_hi, d_values,
+        n, K, F, G, lane_extent, off2, off3, n_vert, group);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The grid and the winner map in two launches: the packed scatter into
+// ``packed`` (int64 [R, G, F], zero-filled by the caller), then the unpack.
+extern "C" int ct_splat_max_winner(const int* x0, const int* lane0,
+                                   const float* w_lo, const float* w_hi,
+                                   const float* values,
+                                   unsigned long long* packed, float* grid,
+                                   int* winner, int R, int K, int F, int G,
+                                   int lane_extent, int off2, int off3,
+                                   int n_vert, void* stream) {
+  const int64_t n = (int64_t)R * K;
+  const int64_t cells = (int64_t)R * G * F;
+  if (n * F > 0)
+    splat_max_winner_kernel<<<n_blocks(n * F), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+        x0, lane0, w_lo, w_hi, values, packed, n, K, F, G, lane_extent, off2,
+        off3, n_vert);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  if (cells > 0)
+    splat_unpack_kernel<<<n_blocks(cells), kThreads, 0,
+                          (cudaStream_t)stream>>>(packed, grid, winner, cells);
+  return (int)cudaGetLastError();
+}
+
+// The routing pass alone, from a winner map made by ct_splat_max_winner.
+extern "C" int ct_splat_route(const int* x0, const int* lane0,
+                              const float* w_lo, const float* w_hi,
+                              const float* values, const int* winner,
+                              const float* g, float* d_w_lo, float* d_w_hi,
+                              float* d_values, int R, int K, int F, int G,
+                              int lane_extent, int off2, int off3, int n_vert,
+                              void* stream) {
+  const int64_t n = (int64_t)R * K;
+  if (n * F > 0) {
     const int group = feature_group(F);
     splat_route_kernel<<<n_blocks(n * group), kThreads, 0,
                          (cudaStream_t)stream>>>(

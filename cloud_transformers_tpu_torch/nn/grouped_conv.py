@@ -1,60 +1,99 @@
-"""Grouped 3^dim 'same' conv of the MHCT grids.
+"""Grouped 3^dim 'same' conv of the MHCT grids, and the execution switches
+of the MHCT block.
 
-Counterpart of ``GridConvK`` in ``cloud_transformers_tpu/nn/grouped_conv.py``
-with the same dispatch as its ``_pallas_wins``: 3D grids with X >= 16
-(32^3 and 16^3 in the classifier) go to the hand-written kernel
-(``ops/pallas_grid_conv.py``); 2D grids and small 3D grids go to PyTorch's
-grouped ``F.conv2d``/``F.conv3d``, as the JAX package leaves them to XLA.
+Counterpart of ``GridConvK``, ``FusedSplatConvSlice`` and the two switches
+of ``cloud_transformers_tpu/nn/grouped_conv.py``, with the same names and
+defaults:
+
+- ``set_grid_conv_strategy`` / ``CT_GRID_CONV``: ``"pallas"`` sends every
+  grid to the hand-written kernels (``ops/pallas_grid_conv.py``), ``"xla"``
+  every grid to PyTorch's grouped ``F.conv2d``/``F.conv3d`` (the port's
+  counterpart of XLA's conv), ``"auto"`` (the default) 3D grids with
+  X >= 16 (32^3 and 16^3 in the classifier) to the kernels and the rest to
+  the library, as the JAX package's ``_pallas_wins``.
+- ``set_block_fusion`` / ``CT_BLOCK_FUSION``: ``"fused"`` runs the whole
+  splat -> conv -> slice block as one kernel (``GridConvK.fused``);
+  ``"ops"`` runs the three separately; ``"auto"`` (the default) is
+  ``"ops"``, the JAX package's measured choice.
+
+The switches are process-wide, as in the JAX package; ``None`` hands the
+choice back to the environment variable, then to ``"auto"``.
 
 The kernel branch is a ``torch.autograd.Function`` (the counterpart of
-``_grid_conv``'s ``custom_vjp``): the input gradient is the forward kernel
-on the cotangent with the transposed weights and a zero bias, the weight
-gradient is the ``grid_conv3d_dw`` kernel, and the bias gradient a plain sum
-of the cotangent, outside any kernel as in the JAX package.  The library
+``_grid_conv``'s ``custom_vjp``), for 2D and 3D alike: the input gradient is
+the forward kernel on the cotangent with the transposed weights and a zero
+bias, the weight gradient is the weight-gradient kernel, and the bias
+gradient a plain sum of the cotangent (``grid_conv_vjp``).  The library
 branch's backward is PyTorch's own.
 """
+
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cloud_transformers_tpu_torch.core.splat_slice import fused_block_mk
 from cloud_transformers_tpu_torch.ops.pallas_grid_conv import (
-    grid_conv3d,
-    grid_conv3d_dw,
-    transpose_weight,
+    grid_conv,
+    grid_conv_vjp,
 )
+
+_GRID_CONV_STRATEGY = None
+_BLOCK_FUSION = None
+
+
+def set_grid_conv_strategy(name):
+    """Force GridConvK's execution ('pallas'/'xla'/'auto'/None)."""
+    global _GRID_CONV_STRATEGY
+    _GRID_CONV_STRATEGY = name
+
+
+def _grid_conv_strategy():
+    return (_GRID_CONV_STRATEGY
+            or os.environ.get("CT_GRID_CONV", None) or "auto")
+
+
+def set_block_fusion(name):
+    """Force the MHCT block execution ('fused'/'ops'/'auto'/None)."""
+    global _BLOCK_FUSION
+    _BLOCK_FUSION = name
+
+
+def block_fusion_strategy(sizes):
+    """'fused' or 'ops' for a block on grids of ``sizes``; 'auto' is 'ops'
+    for every size, as in the JAX package."""
+    mode = _BLOCK_FUSION or os.environ.get("CT_BLOCK_FUSION", None) or "auto"
+    return "ops" if mode == "auto" else mode
 
 
 def kernel_wins(sizes):
-    """Grids that go to the CUDA kernel (the JAX package's dispatch)."""
+    """Grids that ``"auto"`` sends to the kernels (the JAX package's
+    dispatch)."""
     return len(sizes) == 3 and sizes[0] >= 16
 
 
-class _GridConv3d(torch.autograd.Function):
+class _GridConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, gk, weight, bias, sizes, heads):
         ctx.save_for_backward(gk, weight)
         ctx.sizes, ctx.heads = sizes, heads
-        return grid_conv3d(gk, weight, bias, sizes, heads)
+        return grid_conv(gk, weight, bias, sizes, heads)
 
     @staticmethod
     def backward(ctx, g):
         gk, weight = ctx.saved_tensors
-        sizes, heads = ctx.sizes, ctx.heads
-        g = g.contiguous()
-        d_gk = grid_conv3d(g, transpose_weight(weight, heads),
-                           weight.new_zeros(weight.shape[0]), sizes, heads)
-        d_weight = grid_conv3d_dw(gk, g, sizes, heads)
-        f = gk.shape[-1]
-        d_bias = g.reshape(-1, heads, g.shape[1], f).sum((0, 2)).reshape(-1)
-        return d_gk, d_weight, d_bias, None, None
+        return grid_conv_vjp(gk, weight, g, ctx.sizes, ctx.heads) + (
+            None, None)
 
 
 class GridConvK(nn.Module):
     """Grouped 'same' conv + bias on flat grids [R = B*H, G, F].
 
     ``weight`` [H*F, F, 3, 3(, 3)] (PyTorch's grouped layout, groups = H),
-    ``bias`` [H*F]; row r of the grid belongs to head r % H."""
+    ``bias`` [H*F]; row r of the grid belongs to head r % H.  ``fused``
+    runs the same parameters in the fused block, so the ``state_dict`` is
+    the same under either block strategy."""
 
     def __init__(self, feat, heads, sizes):
         super().__init__()
@@ -65,9 +104,14 @@ class GridConvK(nn.Module):
         self.bias = nn.Parameter(torch.zeros(heads * feat))
 
     def forward(self, gk):
-        if kernel_wins(self.sizes):
-            return _GridConv3d.apply(gk, self.weight, self.bias, self.sizes,
-                                     self.heads)
+        strategy = _grid_conv_strategy()
+        if strategy == "auto":
+            strategy = "pallas" if kernel_wins(self.sizes) else "xla"
+        if strategy == "pallas":
+            return _GridConv.apply(gk, self.weight, self.bias, self.sizes,
+                                   self.heads)
+        if strategy != "xla":
+            raise ValueError(f"unknown grid conv strategy {strategy!r}")
         h, f, dim = self.heads, self.feat, len(self.sizes)
         b = gk.shape[0] // h
         x = gk.reshape((b, h) + self.sizes + (f,))
@@ -76,3 +120,11 @@ class GridConvK(nn.Module):
         out = conv(x, self.weight, self.bias, padding=1, groups=h)
         out = out.reshape((b, h, f) + self.sizes).movedim(2, -1)
         return out.reshape(b * h, -1, f)
+
+    def fused(self, mapping, values, pts_mask=None):
+        """The counterpart of the JAX package's ``FusedSplatConvSlice``:
+        splat -> this conv -> slice as one kernel.  values [B, P, H*F] ->
+        (out [B, P, H*F], the splatted grid [B*H, G, F] for the stats)."""
+        return fused_block_mk(mapping, values, self.weight, self.bias,
+                              self.sizes, self.feat, self.heads,
+                              pts_mask=pts_mask)

@@ -1,10 +1,12 @@
 """Multi-Headed Cloud Transform blocks.
 
 Counterpart of ``cloud_transformers_tpu/nn/multihead.py`` (``GridKeysValues``,
-``head_stats``, ``MultiHead``, ``MultiHeadUnion``, ``MultiHeadPool``) on the
-``"ops"`` strategy: splat, grouped conv and slice as three kernels, each
-with its backward kernel.  Points
-are channel-last ``[B, P, C]``; grids are flat ``[B*H, G, F]``.
+``head_stats``, ``MultiHead``, ``MultiHeadUnion``, ``MultiHeadPool``).  On
+the ``"ops"`` block strategy (the default) splat, grouped conv and slice run
+as three kernels, each with its backward kernel; on ``"fused"``
+(``nn/grouped_conv.set_block_fusion``) as one kernel, with the same
+parameters.  Points are channel-last ``[B, P, C]``; grids are flat
+``[B*H, G, F]``.
 
 Per head group: a 1x1 projection predicts per-head key offsets and values;
 keys go through a zero-init-scale BatchNorm, a learned per-head frame and
@@ -27,7 +29,10 @@ from cloud_transformers_tpu_torch.core.splat_slice import (
     slice_grid_mapping_k,
     splat_max_mapping_k,
 )
-from cloud_transformers_tpu_torch.nn.grouped_conv import GridConvK
+from cloud_transformers_tpu_torch.nn.grouped_conv import (
+    GridConvK,
+    block_fusion_strategy,
+)
 from cloud_transformers_tpu_torch.nn.norm import BatchNorm
 from cloud_transformers_tpu_torch.nn.transforms import (
     PlaneTransformer,
@@ -88,12 +93,16 @@ class MultiHead(nn.Module):
     def forward(self, x, orig_pcd, pts_mask=None):
         lattice, keys, values = self.kv(x, orig_pcd)
         mapping = grid_mapping(lattice, self.sizes, len(self.sizes))
-        gk = splat_max_mapping_k(mapping, values, self.sizes,
-                                 pts_mask=pts_mask)
-        stats = head_stats(gk, keys, self.feat, self.heads)
-        gk2 = self.conv(gk)
-        out = slice_grid_mapping_k(mapping, gk2, self.sizes, self.feat,
-                                   pts_mask=pts_mask)
+        if block_fusion_strategy(self.sizes) == "fused":
+            out, gk = self.conv.fused(mapping, values, pts_mask=pts_mask)
+            stats = head_stats(gk, keys, self.feat, self.heads)
+        else:
+            gk = splat_max_mapping_k(mapping, values, self.sizes,
+                                     pts_mask=pts_mask)
+            stats = head_stats(gk, keys, self.feat, self.heads)
+            gk2 = self.conv(gk)
+            out = slice_grid_mapping_k(mapping, gk2, self.sizes, self.feat,
+                                       pts_mask=pts_mask)
         return F.relu(self.after_bn(out)), stats
 
 

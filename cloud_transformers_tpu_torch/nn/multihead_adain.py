@@ -1,13 +1,14 @@
 """AdaIN-conditioned cloud transform blocks (the generative decoder's).
 
 Counterpart of ``cloud_transformers_tpu/nn/multihead_adain.py``
-(``MultiHeadAdaIn``, ``MultiHeadUnionAdaIn``) on the ``"ops"`` strategy:
-splat, grouped conv and slice as three kernels, each with its backward
-kernel.  The structure of ``nn/multihead.py``, with every normalization an
-adaptive instance norm driven by a latent ``z`` and the key offsets
-multiplied by a learned scalar ``scale`` that starts at 0, so the decoder's
-keys start at exactly the input geometry.  ``train/optim.py`` gives the
-parameters named ``scale`` a learning rate of their own (``scale_lr``).
+(``MultiHeadAdaIn``, ``MultiHeadUnionAdaIn``), with the block strategies of
+``nn/multihead.py`` (``"ops"``: splat, grouped conv and slice as three
+kernels; ``"fused"``: one kernel).  The structure of ``nn/multihead.py``,
+with every normalization an adaptive instance norm driven by a latent ``z``
+and the key offsets multiplied by a learned scalar ``scale`` that starts at
+0, so the decoder's keys start at exactly the input geometry.
+``train/optim.py`` gives the parameters named ``scale`` a learning rate of
+their own (``scale_lr``).
 """
 
 from typing import Sequence
@@ -24,7 +25,10 @@ from cloud_transformers_tpu_torch.core.splat_slice import (
     slice_grid_mapping_k,
     splat_max_mapping_k,
 )
-from cloud_transformers_tpu_torch.nn.grouped_conv import GridConvK
+from cloud_transformers_tpu_torch.nn.grouped_conv import (
+    GridConvK,
+    block_fusion_strategy,
+)
 from cloud_transformers_tpu_torch.nn.multihead import head_stats
 from cloud_transformers_tpu_torch.nn.norm import AdaIn1d
 from cloud_transformers_tpu_torch.nn.transforms import (
@@ -61,10 +65,14 @@ class MultiHeadAdaIn(nn.Module):
                  + self.scale * keys_res.reshape(b, p, h, 3))
         keys = self.transform(keys3)
         mapping = grid_mapping(torch.tanh(keys), self.sizes, len(self.sizes))
-        gk = splat_max_mapping_k(mapping, values, self.sizes)
-        stats = head_stats(gk, keys, self.feat, h)
-        gk2 = self.conv(gk)
-        out = slice_grid_mapping_k(mapping, gk2, self.sizes, self.feat)
+        if block_fusion_strategy(self.sizes) == "fused":
+            out, gk = self.conv.fused(mapping, values)
+            stats = head_stats(gk, keys, self.feat, h)
+        else:
+            gk = splat_max_mapping_k(mapping, values, self.sizes)
+            stats = head_stats(gk, keys, self.feat, h)
+            gk2 = self.conv(gk)
+            out = slice_grid_mapping_k(mapping, gk2, self.sizes, self.feat)
         return F.relu(self.after_adain(out, z)), stats
 
 

@@ -35,10 +35,17 @@ SIGNATURES = {
         "ct_slice": [_P] * 6 + [_I] * 8 + [_P],
         "ct_splat_max_bwd": [_P] * 11 + [_I] * 8 + [_P],
         "ct_slice_bwd": [_P] * 9 + [_I] * 8 + [_P],
+        "ct_splat_max_winner": [_P] * 8 + [_I] * 8 + [_P],
+        "ct_splat_route": [_P] * 10 + [_I] * 8 + [_P],
     },
     "grid_conv": {
         "ct_grid_conv3d": [_P] * 4 + [_I] * 6 + [_P],
+        "ct_grid_conv2d": [_P] * 4 + [_I] * 5 + [_P],
         "ct_grid_conv3d_dw": [_P] * 4 + [_I] * 7 + [_P],
+        "ct_grid_conv2d_dw": [_P] * 4 + [_I] * 6 + [_P],
+    },
+    "fused_block": {
+        "ct_fused_block": [_P] * 10 + [_I] * 9 + [_P],
     },
     "emd": {
         "ct_emd_top2": [_P] * 6 + [_I] * 4 + [_P],

@@ -1,41 +1,73 @@
-"""Grouped 'same' 3x3x3 grid convolution on flat grids and its weight
-gradient, with their kernels.
+"""Grouped 'same' 3x3x3 and 3x3 grid convolutions on flat grids and their
+weight gradients, with their kernels.
 
 Counterpart of ``cloud_transformers_tpu/ops/pallas_grid_conv.py``
-(``pallas_grid_conv`` and ``pallas_grid_conv_dw``, 3D, and
-``pack_w_transposed``).  Grids are flat ``[R = B*H, G, F]`` with cells in
-row-major (x, y, z) order; row r belongs to head ``r % H``.  The weight is
-the grouped conv weight in PyTorch's layout ``[H*F (out), F (in), 3, 3, 3]``
-(the JAX param ``[3, 3, 3, F, H*F]`` after ``convert.py``), the bias
-``[H*F]``.
+(``pallas_grid_conv`` and ``pallas_grid_conv_dw``, 3D; ``pallas_grid_conv2d``
+and ``pallas_grid_conv2d_dm``, 2D; ``pack_w_transposed`` and
+``pack_m2d_transposed``).  Grids are flat ``[R = B*H, G, F]`` with cells in
+row-major (x, y[, z]) order; row r belongs to head ``r % H``.  The weight is
+the grouped conv weight in PyTorch's layout ``[H*F (out), F (in), 3, 3(, 3)]``
+(the JAX param ``[3, 3(, 3), F, H*F]`` after ``convert.py``), the bias
+``[H*F]``.  The TPU kernels' banded matrices (``pack_m2d``) and packed
+im2col weights (``pack_w``) exist for its matrix unit and are not copied.
 
-``grid_conv3d`` and ``grid_conv3d_dw`` run their CUDA kernels
-(``csrc/grid_conv.cu``) on a CUDA tensor and their plain PyTorch versions on
-a CPU tensor; nothing falls back.  Launches are counted in
-``<wrapper>.launches``.  The conv's input gradient is ``grid_conv3d`` itself
-on the cotangent with ``transpose_weight``'s weights and a zero bias; the
-autograd Function that joins the three is in ``nn/grouped_conv.py``.
+``grid_conv3d``/``grid_conv2d`` and ``grid_conv3d_dw``/``grid_conv2d_dw`` run
+their CUDA kernels (``csrc/grid_conv.cu``) on a CUDA tensor and their plain
+PyTorch versions on a CPU tensor; nothing falls back.  Launches are counted
+in ``<wrapper>.launches``.  The conv's input gradient is the forward kernel
+itself on the cotangent with ``transpose_weight``'s weights and a zero bias
+(``grid_conv_vjp``); the autograd Function around it is in
+``nn/grouped_conv.py``.
 """
+
+import itertools
 
 import torch
 import torch.nn.functional as F
 
 from cloud_transformers_tpu_torch.ops import cuda_build
 
-# shared memory the kernel stages its head's weights in without opting in
-_MAX_STATIC_SMEM = 48 * 1024
+# shared memory one block of an H100 may opt in to (227 KB)
+MAX_SMEM = 232448
+# the widest head the kernels take: F * F threads of the weight gradient's
+# first pass, at most 1024 a block
+MAX_FEAT = 32
+
+
+def kernel_config(feat, dim):
+    """Launch shape of the kernels for heads of ``feat`` features on
+    ``dim``-D grids: {"conv_smem": bytes of the forward's staged weights,
+    "dw_split": S, "dw_threads": F * F * S, "dw_smem": bytes}.  Raises for
+    an F the kernels do not take (F > 32)."""
+    if not 0 < feat <= MAX_FEAT:
+        raise ValueError(f"the grid conv kernels take 1 <= F <= {MAX_FEAT}, "
+                         f"got {feat}")
+    taps = 3 ** dim
+    # threads = F * F * S, each keeping ``taps`` sums that meet in shared
+    # memory: 256 threads up to F = 16, F * F above
+    split = max(1, 256 // (feat * feat))
+    threads = feat * feat * split
+    cfg = {"conv_smem": taps * feat * feat * 4, "dw_split": split,
+           "dw_threads": threads, "dw_smem": threads * taps * 4}
+    assert max(cfg["conv_smem"], cfg["dw_smem"]) <= MAX_SMEM
+    return cfg
 
 
 def _check(grid, sizes, heads, **others):
-    """Raise unless ``grid`` is float32 [R, X*Y*Z, F] with R a multiple of
-    ``heads`` and every other tensor (``weight``, ``bias``, or a cotangent
-    ``g`` of the grid's shape) is float32 of its shape on the same device."""
-    if len(sizes) != 3:
-        raise ValueError(f"the grid conv kernels take 3D sizes, got {sizes}")
+    """Raise unless ``grid`` is float32 [R, prod(sizes), F] for 2D or 3D
+    ``sizes``, with R a multiple of ``heads``, and every other tensor
+    (``weight``, ``bias``, or a cotangent ``g`` of the grid's shape) is
+    float32 of its shape on the same device."""
+    if len(sizes) not in (2, 3):
+        raise ValueError(f"the grid conv kernels take 2D or 3D sizes, got "
+                         f"{sizes}")
     r, _, f = grid.shape
-    x, y, z = sizes
-    shapes = {"grid": (r, x * y * z, f), "g": (r, x * y * z, f),
-              "weight": (heads * f, f, 3, 3, 3), "bias": (heads * f,)}
+    cells = 1
+    for s in sizes:
+        cells *= s
+    shapes = {"grid": (r, cells, f), "g": (r, cells, f),
+              "weight": (heads * f, f) + (3,) * len(sizes),
+              "bias": (heads * f,)}
     for name, t in dict(grid=grid, **others).items():
         if (t.dtype != torch.float32 or tuple(t.shape) != shapes[name]
                 or t.device != grid.device):
@@ -46,72 +78,131 @@ def _check(grid, sizes, heads, **others):
         raise ValueError(f"rows {r} not a multiple of heads {heads}")
 
 
-def grid_conv3d_plain(grid, weight, bias, sizes, heads):
-    """Plain version: the 27 taps as per-head [F, F] products over a
-    zero-padded copy of the grid."""
+def _taps(sizes):
+    """(tap index, offsets per axis) in the weight's tap order."""
+    return enumerate(itertools.product(range(3), repeat=len(sizes)))
+
+
+def _shifted(padded, offs, sizes):
+    """The window of a grid padded by one cell on each side that lines up
+    with the output cells for tap offsets ``offs``."""
+    return padded[(slice(None), slice(None))
+                  + tuple(slice(o, o + s) for o, s in zip(offs, sizes))]
+
+
+def _padded(grid, sizes, heads):
     r, _, f = grid.shape
-    x, y, z = sizes
-    b = r // heads
-    g = F.pad(grid.reshape(b, heads, x, y, z, f), (0, 0, 1, 1, 1, 1, 1, 1))
-    w = weight.reshape(heads, f, f, 27)                  # [h, fo, fi, tap]
-    out = bias.reshape(1, heads, 1, 1, 1, f).expand(b, heads, x, y, z, f)
-    acc = torch.zeros(b, heads, x, y, z, f, dtype=grid.dtype,
-                      device=grid.device)
-    for dx in range(3):
-        for dy in range(3):
-            for dz in range(3):
-                tap = (dx * 3 + dy) * 3 + dz
-                src = g[:, :, dx:dx + x, dy:dy + y, dz:dz + z, :]
-                acc += torch.einsum("bhxyzi,hoi->bhxyzo", src,
-                                    w[..., tap])
-    return (acc + out).reshape(r, x * y * z, f)
+    return F.pad(grid.reshape((r // heads, heads) + tuple(sizes) + (f,)),
+                 (0, 0) + (1, 1) * len(sizes))
 
 
-def grid_conv3d(grid, weight, bias, sizes, heads):
-    """Grouped 'same' 3x3x3 conv + bias: [R, G, F] -> [R, G, F] f32."""
+def grid_conv_plain(grid, weight, bias, sizes, heads):
+    """Plain version of both convs: the 3^dim taps as per-head [F, F]
+    products over a zero-padded copy of the grid."""
+    r, _, f = grid.shape
+    g = _padded(grid, sizes, heads)
+    w = weight.reshape(heads, f, f, -1)                  # [h, fo, fi, tap]
+    acc = torch.zeros((r // heads, heads) + tuple(sizes) + (f,),
+                      dtype=grid.dtype, device=grid.device)
+    for tap, offs in _taps(sizes):
+        acc += torch.einsum("bh...i,hoi->bh...o", _shifted(g, offs, sizes),
+                            w[..., tap])
+    out = acc + bias.reshape((1, heads) + (1,) * len(sizes) + (f,))
+    return out.reshape(r, -1, f)
+
+
+def _conv(wrapper, entry, grid, weight, bias, sizes, heads):
     _check(grid, sizes, heads, weight=weight, bias=bias)
     if not grid.is_cuda:
-        return grid_conv3d_plain(grid, weight, bias, sizes, heads)
+        return grid_conv_plain(grid, weight, bias, sizes, heads)
     r, _, f = grid.shape
-    if 27 * f * f * 4 > _MAX_STATIC_SMEM:
-        raise ValueError(f"grid_conv3d kernel takes F <= 21, got {f}")
+    kernel_config(f, len(sizes))
     args = [a.contiguous() for a in (grid, weight, bias)]
     out = torch.empty_like(args[0])
     lib = cuda_build.libraries()["grid_conv"]
     stream = torch.cuda.current_stream(grid.device).cuda_stream
-    err = lib.ct_grid_conv3d(*(a.data_ptr() for a in args), out.data_ptr(),
-                             r, heads, *sizes, f, stream)
-    cuda_build.check(err, "grid_conv3d")
-    grid_conv3d.launches += 1
+    err = getattr(lib, entry)(*(a.data_ptr() for a in args), out.data_ptr(),
+                              r, heads, *sizes, f, stream)
+    cuda_build.check(err, wrapper.__name__)
+    wrapper.launches += 1
     return out
 
 
+def _need_dim(sizes, dim, what):
+    if len(sizes) != dim:
+        raise ValueError(f"{what} takes {dim}D sizes, got {sizes}")
+
+
+def grid_conv3d(grid, weight, bias, sizes, heads):
+    """Grouped 'same' 3x3x3 conv + bias: [R, G, F] -> [R, G, F] f32."""
+    _need_dim(sizes, 3, "grid_conv3d")
+    return _conv(grid_conv3d, "ct_grid_conv3d", grid, weight, bias, sizes,
+                 heads)
+
+
+def grid_conv2d(grid, weight, bias, sizes, heads):
+    """Grouped 'same' 3x3 conv + bias: [R, G, F] -> [R, G, F] f32."""
+    _need_dim(sizes, 2, "grid_conv2d")
+    return _conv(grid_conv2d, "ct_grid_conv2d", grid, weight, bias, sizes,
+                 heads)
+
+
 grid_conv3d.launches = 0
+grid_conv2d.launches = 0
+
+
+def grid_conv(grid, weight, bias, sizes, heads):
+    """The conv kernel of the grid's dimension."""
+    return (grid_conv2d if len(sizes) == 2 else grid_conv3d)(
+        grid, weight, bias, sizes, heads)
 
 
 def transpose_weight(weight, heads):
     """Weights of the transposed conv, which maps the output's cotangent to
-    the input's: per head, (out, in) swapped and the three tap axes flipped.
-    [H*F, F, 3, 3, 3] -> [H*F, F, 3, 3, 3]."""
+    the input's: per head, (out, in) swapped and the tap axes flipped.
+    [H*F, F, 3, 3(, 3)] -> the same shape."""
     f = weight.shape[1]
-    w = weight.reshape(heads, f, f, 3, 3, 3).transpose(1, 2).flip(3, 4, 5)
-    return w.reshape(heads * f, f, 3, 3, 3).contiguous()
+    taps = tuple(weight.shape[2:])
+    w = weight.reshape((heads, f, f) + taps).transpose(1, 2)
+    w = w.flip(tuple(range(3, 3 + len(taps))))
+    return w.reshape(weight.shape).contiguous()
 
 
 # --- weight gradient --------------------------------------------------------
 
-def grid_conv3d_dw_plain(grid, g, sizes, heads):
-    """Plain version: per tap, the [F, F] product of the cotangent with the
-    shifted, zero-padded grid, summed over cells and batch members."""
+def grid_conv_dw_plain(grid, g, sizes, heads):
+    """Plain version of both weight gradients: per tap, the [F, F] product
+    of the cotangent with the shifted, zero-padded grid, summed over cells
+    and batch members."""
     r, _, f = grid.shape
-    x, y, z = sizes
-    b = r // heads
-    gp = F.pad(grid.reshape(b, heads, x, y, z, f), (0, 0, 1, 1, 1, 1, 1, 1))
-    g6 = g.reshape(b, heads, x, y, z, f)
-    taps = [torch.einsum("bhxyzi,bhxyzo->hoi",
-                         gp[:, :, dx:dx + x, dy:dy + y, dz:dz + z, :], g6)
-            for dx in range(3) for dy in range(3) for dz in range(3)]
-    return torch.stack(taps, -1).reshape(heads * f, f, 3, 3, 3)
+    gp = _padded(grid, sizes, heads)
+    gs = g.reshape((r // heads, heads) + tuple(sizes) + (f,))
+    taps = [torch.einsum("bh...i,bh...o->hoi", _shifted(gp, offs, sizes), gs)
+            for _, offs in _taps(sizes)]
+    return torch.stack(taps, -1).reshape((heads * f, f) + (3,) * len(sizes))
+
+
+def _dw(wrapper, entry, grid, g, sizes, heads):
+    _check(grid, sizes, heads, g=g)
+    if not grid.is_cuda:
+        return grid_conv_dw_plain(grid, g, sizes, heads)
+    r, _, f = grid.shape
+    split = kernel_config(f, len(sizes))["dw_split"]
+    args = [a.contiguous() for a in (grid, g)]
+    # one scratch row per block of the first pass: (batch member, x plane)
+    partial = torch.empty((r // heads) * sizes[0], heads, f, f,
+                          3 ** len(sizes), dtype=torch.float32,
+                          device=grid.device)
+    d_weight = torch.empty((heads * f, f) + (3,) * len(sizes),
+                           dtype=torch.float32, device=grid.device)
+    lib = cuda_build.libraries()["grid_conv"]
+    stream = torch.cuda.current_stream(grid.device).cuda_stream
+    err = getattr(lib, entry)(*(a.data_ptr() for a in args),
+                              partial.data_ptr(), d_weight.data_ptr(), r,
+                              heads, *sizes, f, split, stream)
+    cuda_build.check(err, wrapper.__name__)
+    wrapper.launches += 1
+    return d_weight
 
 
 def grid_conv3d_dw(grid, g, sizes, heads):
@@ -119,28 +210,32 @@ def grid_conv3d_dw(grid, g, sizes, heads):
     [R, G, F]: ``dW[h*F + fo, fi, dx, dy, dz] = sum over b and cells of
     grid[b*H + h, cell + tap, fi] * g[b*H + h, cell, fo]``, taps outside the
     grid adding nothing.  -> [H*F, F, 3, 3, 3] f32, the parameter layout."""
-    _check(grid, sizes, heads, g=g)
-    if not grid.is_cuda:
-        return grid_conv3d_dw_plain(grid, g, sizes, heads)
-    r, _, f = grid.shape
-    # threads = F * F * S; each keeps 27 sums that meet in shared memory
-    split = max(1, 256 // (f * f))
-    if f * f * split * 27 * 4 > _MAX_STATIC_SMEM:
-        raise ValueError(f"grid_conv3d_dw kernel takes F <= 21, got {f}")
-    args = [a.contiguous() for a in (grid, g)]
-    # one scratch row per block of the first pass: (batch member, x plane)
-    partial = torch.empty((r // heads) * sizes[0], heads, f, f, 27,
-                          dtype=torch.float32, device=grid.device)
-    d_weight = torch.empty(heads * f, f, 3, 3, 3, dtype=torch.float32,
-                           device=grid.device)
-    lib = cuda_build.libraries()["grid_conv"]
-    stream = torch.cuda.current_stream(grid.device).cuda_stream
-    err = lib.ct_grid_conv3d_dw(*(a.data_ptr() for a in args),
-                                partial.data_ptr(), d_weight.data_ptr(), r,
-                                heads, *sizes, f, split, stream)
-    cuda_build.check(err, "grid_conv3d_dw")
-    grid_conv3d_dw.launches += 1
-    return d_weight
+    _need_dim(sizes, 3, "grid_conv3d_dw")
+    return _dw(grid_conv3d_dw, "ct_grid_conv3d_dw", grid, g, sizes, heads)
+
+
+def grid_conv2d_dw(grid, g, sizes, heads):
+    """Weight gradient of ``grid_conv2d``, as ``grid_conv3d_dw`` with 9
+    taps.  -> [H*F, F, 3, 3] f32, the parameter layout."""
+    _need_dim(sizes, 2, "grid_conv2d_dw")
+    return _dw(grid_conv2d_dw, "ct_grid_conv2d_dw", grid, g, sizes, heads)
 
 
 grid_conv3d_dw.launches = 0
+grid_conv2d_dw.launches = 0
+
+
+def grid_conv_vjp(grid, weight, g, sizes, heads):
+    """Gradients of ``grid_conv`` for the output cotangent ``g``:
+    (d_grid, d_weight, d_bias).  d_grid is the forward kernel on ``g`` with
+    the transposed weights and a zero bias, d_weight the weight-gradient
+    kernel, d_bias a plain sum of ``g``, outside any kernel as in the JAX
+    package."""
+    f = grid.shape[-1]
+    g = g.contiguous()
+    d_grid = grid_conv(g, transpose_weight(weight, heads),
+                       weight.new_zeros(weight.shape[0]), sizes, heads)
+    d_weight = (grid_conv2d_dw if len(sizes) == 2 else grid_conv3d_dw)(
+        grid, g, sizes, heads)
+    d_bias = g.reshape(-1, heads, g.shape[1], f).sum((0, 2)).reshape(-1)
+    return d_grid, d_weight, d_bias

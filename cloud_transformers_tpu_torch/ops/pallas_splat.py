@@ -2,11 +2,13 @@
 with their kernels.
 
 Counterpart of ``cloud_transformers_tpu/ops/pallas_splat.py``
-(``pallas_splat`` op='max', ``pallas_slice``, ``pallas_splat_bwd`` in winner
-mode, ``pallas_slice_bwd``).  Grids are flat ``[R = B*H, G, F]`` with cells
-in row-major (x, y[, z]) order and F contiguous (the JAX package's
-``kernel_to_flat`` layout); the TPU's ``[R, X*F_pad, lanes]`` layout exists
-for its vector unit and is not copied.
+(``pallas_splat`` op='max', with and without ``with_winner``,
+``pallas_slice``, ``pallas_splat_bwd`` in winner mode,
+``pallas_splat_bwd_routed``, ``pallas_slice_bwd``).  Grids are flat
+``[R = B*H, G, F]`` with cells in row-major (x, y[, z]) order and F
+contiguous (the JAX package's ``kernel_to_flat`` layout); the TPU's
+``[R, X*F_pad, lanes]`` layout exists for its vector unit and is not
+copied.
 
 Point mappings are the JAX package's: ``x0``/``lane0`` ``[R, K]`` int32 base
 cell (lane = y, or y*Z + z), ``w_lo``/``w_hi`` ``[R, K, 4]`` f32 vertex
@@ -156,6 +158,47 @@ def splat_max(x0, lane0, w_lo, w_hi, values, sizes):
 splat_max.launches = 0
 
 
+def splat_max_winner_plain(x0, lane0, w_lo, w_hi, values, sizes):
+    """Plain version: ``splat_max_plain``, then ``splat_winner_plain`` on
+    its grid."""
+    grid = splat_max_plain(x0, lane0, w_lo, w_hi, values, sizes)
+    return grid, splat_winner_plain(x0, lane0, w_lo, w_hi, values, grid,
+                                    sizes)
+
+
+def splat_max_winner(x0, lane0, w_lo, w_hi, values, sizes):
+    """``splat_max`` that also records, for every (cell, feature), the
+    lowest point index whose contribution is the maximum (``NO_WINNER``
+    where no contribution is positive): the splat backward's winner map,
+    made in the forward so that the backward is ``splat_route`` alone.
+    -> (grid [R, G, F] f32, bit-equal to ``splat_max``'s; winner [R, G, F]
+    int32, equal to ``splat_winner_plain``'s)."""
+    r, k = x0.shape
+    _check_mapping(x0, lane0, w_lo, w_hi, sizes,
+                   ("values", values, (r, k, values.shape[-1])))
+    if not values.is_cuda:
+        return splat_max_winner_plain(x0, lane0, w_lo, w_hi, values, sizes)
+    f = values.shape[-1]
+    cells = kernel_grid_dims(sizes)[2]
+    dev = values.device
+    args = [a.contiguous() for a in (x0, lane0, w_lo, w_hi, values)]
+    # (contribution bits << 32 | INT_MAX - k), 0 where nothing landed
+    packed = torch.zeros(r, cells, f, dtype=torch.int64, device=dev)
+    grid = torch.empty(r, cells, f, dtype=torch.float32, device=dev)
+    winner = torch.empty(r, cells, f, dtype=torch.int32, device=dev)
+    lib = cuda_build.libraries()["splat_slice"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ct_splat_max_winner(
+        *(a.data_ptr() for a in args), packed.data_ptr(), grid.data_ptr(),
+        winner.data_ptr(), r, *_launch_args(sizes, k, f), stream)
+    cuda_build.check(err, "splat_max_winner")
+    splat_max_winner.launches += 1
+    return grid, winner
+
+
+splat_max_winner.launches = 0
+
+
 # --- slice ------------------------------------------------------------------
 
 def slice_plain(x0, lane0, w_lo, w_hi, grid, sizes):
@@ -231,6 +274,16 @@ def splat_winner_plain(x0, lane0, w_lo, w_hi, values, grid, sizes):
     return _winner(index, match, point, grid.shape).to(torch.int32)
 
 
+def _routed(index, w, values, win, g):
+    """``dcon = g`` for the contributions in ``win`` [R, K, 8, F] and 0 for
+    every other one; -> (d_w_lo, d_w_hi, d_values)."""
+    dcon = torch.where(win, torch.gather(g, 1, index).reshape(win.shape),
+                       0.0)
+    d_w = (dcon * values[:, :, None, :]).sum(-1)                 # [R, K, 8]
+    d_values = (dcon * w[..., None]).sum(2)                      # [R, K, F]
+    return (d_w[..., :4].contiguous(), d_w[..., 4:].contiguous(), d_values)
+
+
 def splat_max_bwd_plain(x0, lane0, w_lo, w_hi, values, grid, g, sizes):
     """Plain version: the winner map by a scatter-min of the point index,
     then ``dcon = g`` for the winning contribution of each (cell, feature)
@@ -242,11 +295,7 @@ def splat_max_bwd_plain(x0, lane0, w_lo, w_hi, values, grid, g, sizes):
     # real ones, and must not inherit their win
     win = match & (torch.gather(winner, 1, index).reshape(match.shape)
                    == point)
-    dcon = torch.where(win, torch.gather(g, 1, index).reshape(match.shape),
-                       0.0)
-    d_w = (dcon * values[:, :, None, :]).sum(-1)                 # [R, K, 8]
-    d_values = (dcon * w[..., None]).sum(2)                      # [R, K, F]
-    return (d_w[..., :4].contiguous(), d_w[..., 4:].contiguous(), d_values)
+    return _routed(index, w, values, win, g)
 
 
 def splat_max_bwd(x0, lane0, w_lo, w_hi, values, grid, g, sizes,
@@ -287,6 +336,58 @@ def splat_max_bwd(x0, lane0, w_lo, w_hi, values, grid, g, sizes,
 
 
 splat_max_bwd.launches = 0
+
+
+def splat_route_plain(x0, lane0, w_lo, w_hi, values, winner, g, sizes):
+    """Plain version: ``dcon = g`` where the winner map names the point,
+    on the mapping's real vertex slots (a 2D point's slots 2 and 3 carry
+    zero weight and alias slots 0 and 1)."""
+    r, k, f = values.shape
+    index, w = _expanded(x0, lane0, w_lo, w_hi, sizes, f)
+    point = torch.arange(k, device=values.device).reshape(1, k, 1, 1)
+    win = (torch.gather(winner.long(), 1, index).reshape(r, k, 8, f)
+           == point)
+    if len(sizes) == 2:
+        win = win & torch.tensor([1, 1, 0, 0, 1, 1, 0, 0], dtype=torch.bool,
+                                 device=win.device)[:, None]
+    return _routed(index, w, values, win, g)
+
+
+def splat_route(x0, lane0, w_lo, w_hi, values, winner, g, sizes):
+    """Backward of ``splat_max_winner``: the cotangent ``g`` [R, G, F] goes
+    to the point that ``winner`` (int32 [R, G, F]) names, in one read-only
+    pass.  -> (d_w_lo [R, K, 4], d_w_hi [R, K, 4], d_values [R, K, F]),
+    bit-equal to ``splat_max_bwd``'s for the same winners."""
+    r, k = x0.shape
+    f = values.shape[-1]
+    cells = kernel_grid_dims(sizes)[2]
+    _check_mapping(x0, lane0, w_lo, w_hi, sizes, ("values", values, (r, k, f)),
+                   ("g", g, (r, cells, f)))
+    if winner.dtype != torch.int32 or tuple(winner.shape) != (r, cells, f) \
+            or winner.device != values.device:
+        raise ValueError(f"winner: expected int32 {(r, cells, f)} on "
+                         f"{values.device}, got {winner.dtype} "
+                         f"{tuple(winner.shape)} on {winner.device}")
+    if not values.is_cuda:
+        return splat_route_plain(x0, lane0, w_lo, w_hi, values, winner, g,
+                                 sizes)
+    args = [a.contiguous()
+            for a in (x0, lane0, w_lo, w_hi, values, winner, g)]
+    dev = values.device
+    d_w_lo = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
+    d_w_hi = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
+    d_values = torch.empty(r, k, f, dtype=torch.float32, device=dev)
+    lib = cuda_build.libraries()["splat_slice"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ct_splat_route(
+        *(a.data_ptr() for a in args), d_w_lo.data_ptr(), d_w_hi.data_ptr(),
+        d_values.data_ptr(), r, *_launch_args(sizes, k, f), stream)
+    cuda_build.check(err, "splat_route")
+    splat_route.launches += 1
+    return d_w_lo, d_w_hi, d_values
+
+
+splat_route.launches = 0
 
 
 # --- slice backward ---------------------------------------------------------

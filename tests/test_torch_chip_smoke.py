@@ -1,6 +1,10 @@
 """``chip_smoke.py``'s library yardstick for the slice: one
 ``F.grid_sample`` call on the re-laid-out grid computes what the slice
-computes, here on the CPU at a small size."""
+computes, here on the CPU at a small size.  And the kernel launches it
+expects per forward and per training step, on the default path and under
+each set of execution switches, are the full-width classifier's."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -28,3 +32,59 @@ def test_grid_sample_matches_slice(sizes):
     want = ps.slice_plain(*mapping, grid, sizes)
     np.testing.assert_allclose(got.transpose(1, 2).numpy(), want.numpy(),
                                atol=chip_smoke.LIB_TOL)
+
+
+def _spy_launches(monkeypatch):
+    """{kernel: calls} of the kernel wrappers as the model calls them: on
+    the card each call is one launch; on the CPU the same calls reach the
+    plain versions."""
+    from cloud_transformers_tpu_torch.core import splat_slice as tss
+    from cloud_transformers_tpu_torch.ops import pallas_grid_conv as tgc
+    calls = {}
+
+    def counted(fn, name):
+        def wrapper(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapper
+    for name in ("splat_max", "splat_max_winner", "splat_route",
+                 "splat_max_bwd", "slice_gather", "slice_bwd",
+                 "fused_block"):
+        monkeypatch.setattr(tss, name, counted(getattr(tss, name), name))
+    # the conv Functions reach these through the module's globals
+    for name in ("grid_conv3d", "grid_conv2d", "grid_conv3d_dw",
+                 "grid_conv2d_dw"):
+        monkeypatch.setattr(tgc, name, counted(getattr(tgc, name), name))
+    return calls
+
+
+@pytest.mark.parametrize("name", (None,) + chip_smoke.SETS)
+def test_expected_launches_are_the_full_width_classifiers(monkeypatch, name):
+    """The launches ``chip_smoke.py`` expects per forward and per training
+    step, on the default path and under each set of switches, are the
+    kernel calls of the full-width classifier (the widths and grids of
+    ``DEFAULT_STAGE_PLAN``), counted here on the CPU with a few points."""
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.tasks import classification
+    model = get_model("scanobject_classifier")
+    rs = np.random.RandomState(0)
+    batch = {"pcd": torch.from_numpy(
+                 rs.uniform(-1, 1, (2, 32, 3)).astype(np.float32)),
+             "label": torch.tensor([1, 2]),
+             "mask": torch.ones(2, 32)}
+    runs = {}
+    with chip_smoke.switches(name) if name else contextlib.nullcontext():
+        calls = _spy_launches(monkeypatch)
+        with torch.no_grad():
+            model.eval()(batch["pcd"])
+        runs["forward"] = dict(calls)
+        calls.clear()
+        loss, _ = classification.make_loss_fn(0.5)(model.train(), batch)
+        loss.backward()
+        runs["step"] = dict(calls)
+    forward, step = chip_smoke.PER_FORWARD, chip_smoke.PER_STEP
+    if name:
+        forward, step = (chip_smoke.set_counts(
+            name, per["splat_max"], per["slice_gather"], training)
+            for per, training in ((forward, False), (step, True)))
+    assert runs == {"forward": forward, "step": step}

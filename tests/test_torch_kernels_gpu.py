@@ -14,13 +14,16 @@ import pytest
 import torch
 
 from cloud_transformers_tpu_torch.core.grid_mapping import grid_mapping
+from cloud_transformers_tpu_torch.core import splat_slice as tss
 from cloud_transformers_tpu_torch.core.splat_slice import (
     _flatten_mapping,
     _SliceGather,
 )
 from cloud_transformers_tpu_torch.losses import emd as temd
+from cloud_transformers_tpu_torch.nn import grouped_conv as tgcm
 from cloud_transformers_tpu_torch.nn.grouped_conv import GridConvK
 from cloud_transformers_tpu_torch.ops import pallas_emd as tpe
+from cloud_transformers_tpu_torch.ops import pallas_fused_block as tfb
 from cloud_transformers_tpu_torch.ops import pallas_grid_conv as tgc
 from cloud_transformers_tpu_torch.ops import pallas_splat as tps
 
@@ -64,7 +67,7 @@ def test_grid_conv3d_kernel_matches_plain(gen):
     n = tgc.grid_conv3d.launches
     out = tgc.grid_conv3d(grid, weight, bias, sizes, h)
     assert tgc.grid_conv3d.launches == n + 1
-    ref = tgc.grid_conv3d_plain(grid, weight, bias, sizes, h)
+    ref = tgc.grid_conv_plain(grid, weight, bias, sizes, h)
     assert float((out - ref).abs().max()) <= 1e-5 * max(
         1.0, float(ref.abs().max()))
 
@@ -130,7 +133,7 @@ def test_grid_conv3d_dw_kernel_matches_plain(gen, sizes, f):
     n = tgc.grid_conv3d_dw.launches
     out = tgc.grid_conv3d_dw(grid, g, sizes, h)
     assert tgc.grid_conv3d_dw.launches == n + 1
-    _close(out, tgc.grid_conv3d_dw_plain(grid, g, sizes, h), 1e-5)
+    _close(out, tgc.grid_conv_dw_plain(grid, g, sizes, h), 1e-5)
     assert torch.equal(out, tgc.grid_conv3d_dw(grid, g, sizes, h))
 
 
@@ -208,9 +211,9 @@ def test_backward_raises_on_the_card_instead_of_falling_back(gen):
     grid = torch.zeros(4, 64, 4, device="cuda")
     with pytest.raises(ValueError):
         tgc.grid_conv3d_dw(grid, grid.double(), (4, 4, 4), 2)
-    wide = torch.zeros(2, 8, 22, device="cuda")
+    wide = torch.zeros(2, 8, 33, device="cuda")
     with pytest.raises(ValueError):
-        tgc.grid_conv3d_dw(wide, wide, (2, 2, 2), 2)     # F > 21
+        tgc.grid_conv3d_dw(wide, wide, (2, 2, 2), 2)     # F > 32
 
 
 @pytest.mark.gpu
@@ -325,3 +328,229 @@ def test_emd_wrappers_raise_on_the_card(gen):
                            torch.zeros(1, 8, device="cuda"),
                            torch.zeros(1, 8, dtype=torch.int32,
                                        device="cuda"), 1, 0.01, 8)
+
+
+# --- the switched paths' kernels ------------------------------------------
+
+def _mapping(gen, sizes, b, h, k, f, ties=True):
+    lat = torch.tanh(torch.randn(b, k, h, len(sizes), generator=gen,
+                                 device="cuda"))
+    if ties:
+        lat[:, 1::2] = lat[:, 0::2]         # duplicated points
+    mapping = [a.contiguous() for a in
+               _flatten_mapping(grid_mapping(lat, sizes, len(sizes)))]
+    values = torch.randn(b * h, k, f, generator=gen, device="cuda")
+    if ties:
+        values[:, 1::2] = values[:, 0::2]   # exact ties
+    values[-1] = -values[-1].abs()          # all-negative row
+    return mapping, values
+
+
+def _weights(gen, sizes, f, h):
+    dim = len(sizes)
+    weight = torch.randn((h * f, f) + (3,) * dim, generator=gen,
+                         device="cuda") * (3 ** dim * f) ** -0.5
+    bias = torch.randn(h * f, generator=gen, device="cuda") * 0.1
+    return weight, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f", [((16, 16), 16), ((64, 64), 4),
+                                     ((6, 5), 3), ((8, 8, 8), 32)])
+def test_grid_conv_kernels_match_plain(gen, sizes, f):
+    """The 2D conv and its weight gradient, ragged sizes, and the 3D pair
+    at 8^3 x 32 (108 KiB of weights: opt-in shared memory): within 1e-5;
+    the weight gradient the same in every run."""
+    h, cells = 4, 1
+    for s in sizes:
+        cells *= s
+    fwd, dw = ((tgc.grid_conv2d, tgc.grid_conv2d_dw) if len(sizes) == 2
+               else (tgc.grid_conv3d, tgc.grid_conv3d_dw))
+    grid = torch.randn(2 * h, cells, f, generator=gen, device="cuda")
+    g = torch.randn(2 * h, cells, f, generator=gen, device="cuda")
+    weight, bias = _weights(gen, sizes, f, h)
+    n = (fwd.launches, dw.launches)
+    out = fwd(grid, weight, bias, sizes, h)
+    d_w = dw(grid, g, sizes, h)
+    assert (fwd.launches, dw.launches) == (n[0] + 1, n[1] + 1)
+    _close(out, tgc.grid_conv_plain(grid, weight, bias, sizes, h), 1e-5)
+    _close(d_w, tgc.grid_conv_dw_plain(grid, g, sizes, h), 1e-5)
+    assert torch.equal(d_w, dw(grid, g, sizes, h))
+
+
+@pytest.mark.gpu
+def test_grid_conv2d_function_matches_library_backward(gen):
+    """GridConvK under "pallas" on a 2D grid (forward kernel on the
+    transposed weights, 2D weight-gradient kernel, summed bias) against
+    autograd through conv2d."""
+    sizes, f, h, b = (16, 16), 16, 2, 2
+    mod = GridConvK(f, h, sizes).cuda()
+    with torch.no_grad():
+        mod.weight.copy_(_weights(gen, sizes, f, h)[0])
+        mod.bias.copy_(torch.randn(h * f, generator=gen, device="cuda"))
+    gk = torch.randn(b * h, 256, f, generator=gen,
+                     device="cuda").requires_grad_()
+    cot = torch.randn(b * h, 256, f, generator=gen, device="cuda")
+    before = (tgc.grid_conv2d.launches, tgc.grid_conv2d_dw.launches)
+    tgcm.set_grid_conv_strategy("pallas")
+    try:
+        mod(gk).backward(cot)
+    finally:
+        tgcm.set_grid_conv_strategy(None)
+    assert (tgc.grid_conv2d.launches - before[0],
+            tgc.grid_conv2d_dw.launches - before[1]) == (2, 1)
+
+    def cf(t):
+        return t.reshape(b, h, *sizes, f).movedim(-1, 2).reshape(
+            b, h * f, *sizes)
+    torch.backends.cudnn.allow_tf32 = False
+    x = gk.detach().clone().requires_grad_()
+    w = mod.weight.detach().clone().requires_grad_()
+    bias = mod.bias.detach().clone().requires_grad_()
+    (torch.nn.functional.conv2d(cf(x), w, bias, padding=1, groups=h)
+     * cf(cot)).sum().backward()
+    for a, ref in zip((gk.grad, mod.weight.grad, mod.bias.grad),
+                      (x.grad, w.grad, bias.grad)):
+        _close(a, ref, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f", [((16, 16), 8), ((16, 16, 16), 4),
+                                     ((8, 8, 8), 32), ((8, 8, 8), 5)])
+def test_winner_splat_and_routing_match_plain(gen, sizes, f):
+    """The winner-tracking splat: the grid bit-equal to splat_max's, the
+    map equal to the plain version's, exact-tie duplicates going to the
+    lower index; the routing pass alone bit-equal to the two-pass
+    backward's."""
+    mapping, values = _mapping(gen, sizes, 2, 4, 256, f)
+    n = tps.splat_max_winner.launches
+    grid, winner = tps.splat_max_winner(*mapping, values, sizes)
+    assert tps.splat_max_winner.launches == n + 1
+    assert torch.equal(grid, tps.splat_max(*mapping, values, sizes))
+    assert winner.dtype == torch.int32
+    assert torch.equal(winner, tps.splat_winner_plain(*mapping, values, grid,
+                                                      sizes))
+    assert (winner[grid == 0] == tps.NO_WINNER).all()
+    assert not (winner % 2 == 1)[winner != tps.NO_WINNER].any()
+    again = tps.splat_max_winner(*mapping, values, sizes)
+    assert torch.equal(again[0], grid) and torch.equal(again[1], winner)
+
+    g = torch.randn(grid.shape, generator=gen, device="cuda")
+    n = tps.splat_route.launches
+    routed = tps.splat_route(*mapping, values, winner, g, sizes)
+    assert tps.splat_route.launches == n + 1
+    two_pass = tps.splat_max_bwd(*mapping, values, grid, g, sizes)
+    plain = tps.splat_route_plain(*mapping, values, winner, g, sizes)
+    for a, b, p in zip(routed, two_pass, plain):
+        assert torch.equal(a, b)
+        _close(a, p, 1e-6)
+    assert not routed[2][:, 1::2].any() and routed[2][:, 0::2].any()
+
+
+@pytest.mark.gpu
+def test_fwd_winner_step_goes_through_the_routed_backward(gen, monkeypatch):
+    """FWD_WINNER on the card: a splat under a gradient launches the
+    winner splat and the routing pass, not the two-pass backward, and its
+    gradients equal the two-pass path's bit for bit (the grid's cotangent
+    is fixed: the slice backward's float atomics would vary it from run to
+    run); under no_grad it launches the plain splat."""
+    sizes, b, h, k, f = (16, 16, 16), 2, 4, 256, 4
+    keys = torch.tanh(torch.randn(b, k, h, 3, generator=gen, device="cuda"))
+    keys[:, 1::2] = keys[:, 0::2]
+    values = torch.randn(b, k, h * f, generator=gen, device="cuda")
+    cot = torch.randn(b * h, 16 ** 3, f, generator=gen, device="cuda")
+    grads = {}
+    for fw in (False, True):
+        monkeypatch.setattr(tss, "FWD_WINNER", fw)
+        kk, vv = keys.clone().requires_grad_(), values.clone().requires_grad_()
+        counts = [w.launches for w in (tps.splat_max, tps.splat_max_winner,
+                                       tps.splat_route, tps.splat_max_bwd)]
+        m = grid_mapping(kk, sizes, 3)
+        gk = tss.splat_max_mapping_k(m, vv, sizes)
+        (gk * cot).sum().backward()
+        used = [w.launches - c for w, c in zip(
+            (tps.splat_max, tps.splat_max_winner, tps.splat_route,
+             tps.splat_max_bwd), counts)]
+        assert used == ([0, 1, 1, 0] if fw else [1, 0, 0, 1])
+        grads[fw] = (kk.grad, vv.grad)
+        with torch.no_grad():
+            tss.splat_max_mapping_k(m, vv, sizes)
+        assert tps.splat_max_winner.launches == counts[1] + used[1]
+    for a, c in zip(grads[False], grads[True]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f", [((16, 16), 16), ((64, 64), 16),
+                                     ((128, 128), 4), ((8, 8, 8), 32),
+                                     ((16, 16, 16), 16), ((6, 5, 7), 3)])
+@pytest.mark.parametrize("want_gk2", [False, True])
+def test_fused_block_kernel_matches_plain(gen, sizes, f, want_gk2):
+    """The fused block in shared memory (16^2 x 16; gk of 8^3 x 32) and in
+    device memory (the rest): gk bit-equal to splat_max's, the points and
+    gk2 within 1e-5 of the plain composition."""
+    h = 4
+    mapping, values = _mapping(gen, sizes, 2, h, 512, f, ties=False)
+    weight, bias = _weights(gen, sizes, f, h)
+    n = tfb.fused_block.launches
+    got = tfb.fused_block(*mapping, values, weight, bias, sizes, h,
+                          want_gk2=want_gk2)
+    assert tfb.fused_block.launches == n + 1
+    ref = tfb.fused_block_plain(*mapping, values, weight, bias, sizes, h,
+                                want_gk2=True)
+    assert len(got) == (3 if want_gk2 else 2)
+    assert torch.equal(got[1], tps.splat_max(*mapping, values, sizes))
+    assert torch.equal(got[1], ref[1])
+    _close(got[0], ref[0], 1e-5)
+    if want_gk2:
+        _close(got[2], ref[2], 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tensor_size,dim", [(8, 3), (16, 2)])
+def test_fused_multihead_backward_matches_ops_on_the_card(gen, tensor_size,
+                                                          dim):
+    """MultiHead with the fused block against the "ops" path with the same
+    weights, forward and backward, on the card."""
+    from cloud_transformers_tpu_torch.nn.multihead import MultiHead
+    torch.manual_seed(0)
+    mod = MultiHead(32, 8, tensor_size, dim, 4).cuda().train()
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.normal_(0, 0.3, generator=gen)
+    x = torch.randn(2, 512, 32, generator=gen, device="cuda")
+    pcd = torch.rand(2, 512, 3, generator=gen, device="cuda") * 2 - 1
+    runs = {}
+    n = tfb.fused_block.launches
+    try:
+        for mode in ("ops", "fused"):
+            tgcm.set_block_fusion(mode)
+            mod.zero_grad()
+            out, _ = mod(x, pcd)
+            (out ** 2).sum().backward()
+            runs[mode] = (out.detach(), {name: p.grad.clone()
+                                        for name, p in mod.named_parameters()})
+    finally:
+        tgcm.set_block_fusion(None)
+    assert tfb.fused_block.launches == n + 1
+    _close(runs["fused"][0], runs["ops"][0], 1e-5)
+    scale = max(float(g.abs().max()) for g in runs["ops"][1].values())
+    for name, ref in runs["ops"][1].items():
+        err = float((runs["fused"][1][name] - ref).abs().max())
+        assert err <= 1e-4 * scale, (name, err, scale)
+
+
+@pytest.mark.gpu
+def test_switched_wrappers_validate_inputs(gen):
+    mapping, values = _mapping(gen, (4, 4), 1, 2, 8, 4, ties=False)
+    weight, bias = _weights(gen, (4, 4), 4, 2)
+    with pytest.raises(ValueError):
+        tfb.fused_block(*mapping, values, weight.cpu(), bias, (4, 4), 2)
+    with pytest.raises(ValueError):
+        tps.splat_route(*mapping, values,
+                        torch.zeros(2, 16, 4, device="cuda"),   # float map
+                        torch.zeros(2, 16, 4, device="cuda"), (4, 4))
+    wide = torch.zeros(2, 16, 33, device="cuda")
+    with pytest.raises(ValueError):
+        tgc.grid_conv2d(wide, torch.zeros(66, 33, 3, 3, device="cuda"),
+                        torch.zeros(66, device="cuda"), (4, 4), 2)
