@@ -90,7 +90,9 @@
    rounds and seconds per cloud, both tails), then the ``{"switched":
    ...}`` line (both sets' serving, training and parity numbers), then one
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
-   table's twelve rows, row 9 as its forward and its routed backward), then
+   table's twelve rows, row 9 as its forward and its routed backward; the
+   2D conv and its weight gradient also with ``bound_share``, bound_ms /
+   ms, per pass and per shape), then
    the ``{"ok": true, "device": ...}`` line last.
 
 In phase 3 the auction's two kernels are held too: ``top2`` against
@@ -218,6 +220,9 @@ PER_STEP_COMPLETION = {
 # where ``library_ms`` is not the time of one PyTorch call
 LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
                       "library calls, not one"}
+# kernels whose entries in the kernels line also give the share of the
+# bound reached (bound_ms / ms), per pass and per shape
+BOUND_SHARE = ("grid_conv2d", "grid_conv2d_dw")
 # the path whose run gives each kernel's ``launches``
 MAIN_PATH = {"splat_max": "serving", "slice_gather": "serving",
              "grid_conv3d": "serving", "splat_max_bwd": "training",
@@ -781,12 +786,16 @@ def kernel_line(rows, launches):
                else {}),
             **({"separate_kernels_ms": total("separate_kernels_ms")}
                if name == "fused_block" else {}),
+            **({"bound_share": t_bound / total("ms")}
+               if name in BOUND_SHARE else {}),
             "per_shape": [{
                 "shape": s["shape"], per: s["calls"],
                 "ms": s["ms"], "plain_ms": s["plain_ms"],
                 "bound_ms": s["bound"][0], "bound_by": s["bound"][1],
                 "library_ms": s["library_ms"],
                 "max_abs_err": s["max_abs_err"],
+                **({"bound_share": s["bound"][0] / s["ms"]}
+                   if name in BOUND_SHARE else {}),
                 **{k: s[k] for k in (
                     "library_err", "grid_rows_read", "grid_rows", "won",
                     "index_differs", "split", "used", "bids",
@@ -826,11 +835,11 @@ def device_ms(events):
 # device kernels by a part of their name, first match wins
 KERNEL_GROUPS = (
     ("top2_kernel", "top2"), ("auction_window_kernel", "auction_window"),
-    ("grid_conv_dw_partial_kernel<1", "grid_conv2d_dw"),
-    ("grid_conv_dw_partial_wide_kernel<1", "grid_conv2d_dw"),
-    ("grid_conv_dw_reduce_kernel<1", "grid_conv2d_dw"),
-    ("grid_conv_dw", "grid_conv3d_dw"),
-    ("grid_conv_kernel<1", "grid_conv2d"), ("grid_conv_kernel", "grid_conv3d"),
+    # the 2D kernels ahead of the 3D patterns
+    ("conv2d_dw_kernel", "grid_conv2d_dw"),
+    ("conv2d_dw_sum_kernel", "grid_conv2d_dw"),
+    ("conv2d_fwd_kernel", "grid_conv2d"),
+    ("grid_conv_dw", "grid_conv3d_dw"), ("grid_conv_kernel", "grid_conv3d"),
     ("fused_block", "fused_block"), ("splat_max_winner", "splat_max_winner"),
     ("splat_unpack", "splat_max_winner"),
     # the routing pass: splat_max_bwd's second pass, or splat_route alone

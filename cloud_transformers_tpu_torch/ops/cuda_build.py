@@ -40,9 +40,9 @@ SIGNATURES = {
     },
     "grid_conv": {
         "ct_grid_conv3d": [_P] * 4 + [_I] * 6 + [_P],
-        "ct_grid_conv2d": [_P] * 4 + [_I] * 5 + [_P],
+        "ct_grid_conv2d": [_P] * 4 + [_I] * 10 + [_P],
         "ct_grid_conv3d_dw": [_P] * 4 + [_I] * 7 + [_P],
-        "ct_grid_conv2d_dw": [_P] * 4 + [_I] * 6 + [_P],
+        "ct_grid_conv2d_dw": [_P] * 4 + [_I] * 10 + [_P],
     },
     "fused_block": {
         "ct_fused_block": [_P] * 10 + [_I] * 9 + [_P],

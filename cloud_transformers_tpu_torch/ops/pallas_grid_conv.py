@@ -14,12 +14,15 @@ im2col weights (``pack_w``) exist for its matrix unit and are not copied.
 ``grid_conv3d``/``grid_conv2d`` and ``grid_conv3d_dw``/``grid_conv2d_dw`` run
 their CUDA kernels (``csrc/grid_conv.cu``) on a CUDA tensor and their plain
 PyTorch versions on a CPU tensor; nothing falls back.  Launches are counted
-in ``<wrapper>.launches``.  The conv's input gradient is the forward kernel
-itself on the cotangent with ``transpose_weight``'s weights and a zero bias
-(``grid_conv_vjp``); the autograd Function around it is in
+in ``<wrapper>.launches``.  The 2D kernels' tiles, threads, shared memory
+and blocks come from ``conv2d_tiling``.  The conv's input gradient is the
+forward kernel itself on the cotangent with ``transpose_weight``'s weights
+and a zero bias (``grid_conv_vjp``); the autograd Function around it is in
 ``nn/grouped_conv.py``.
 """
 
+import collections
+import functools
 import itertools
 
 import torch
@@ -29,19 +32,123 @@ from cloud_transformers_tpu_torch.ops import cuda_build
 
 # shared memory one block of an H100 may opt in to (227 KB)
 MAX_SMEM = 232448
-# the widest head the kernels take: F * F threads of the weight gradient's
-# first pass, at most 1024 a block
+# the widest head the kernels take: F * F threads of the 3D weight
+# gradient's first pass, at most 1024 a block
 MAX_FEAT = 32
+# streaming multiprocessors of an H100 SXM: the 2D tilings aim at about two
+# forward blocks and three weight-gradient blocks per SM
+SMS = 132
+# the 2D kernels' compile-time widths (any other F runs the run-time
+# variant, its channels padded to a multiple of 4)
+STATIC_FEAT = (4, 8, 16, 32)
+# output cells a 2D forward thread keeps along x (csrc: kCX)
+CELLS_X = 4
+# sums a 2D weight-gradient thread keeps (4 fo x 4 fi x 3 dy) and the most
+# threads of its block (csrc: kDwSums, kDwThreads)
+DW_SUMS = 48
+DW_THREADS = 256
+
+
+def _check_feat(feat):
+    if not 0 < feat <= MAX_FEAT:
+        raise ValueError(f"the grid conv kernels take 1 <= F <= {MAX_FEAT}, "
+                         f"got {feat}")
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _bank_conflict(ys, tx, ty, threads):
+    """Worst bank conflict (distinct words in one bank) of a warp's input
+    loads in the 2D forward, halo row stride ``ys``: thread t of its fo
+    group reads word (t // ty) * CELLS_X * ys + t % ty."""
+    per_group = (tx // CELLS_X) * ty
+    worst = 0
+    for w0 in range(0, threads, 32):
+        words = {(t % per_group) // ty * CELLS_X * ys + (t % per_group) % ty
+                 for t in range(w0, min(w0 + 32, threads))}
+        worst = max(worst, max(collections.Counter(
+            word % 32 for word in words).values()))
+    return worst
+
+
+def _default_tile(feat):
+    """The 2D kernels' (TX, TY) before any cut: 32 x 32 at F <= 4, 32 x 16
+    at F <= 8, 16 x 16 above."""
+    return (32, 32) if feat <= 4 else (32, 16) if feat <= 8 else (16, 16)
+
+
+def conv2d_tiling(sizes, feat, rows, heads):
+    """Launch arithmetic of the 2D conv kernels (``csrc/grid_conv.cu``) for
+    ``rows`` = B * heads grids of ``sizes`` = (X, Y) with ``feat`` channels.
+
+    Forward: one block per (row, tile of ``tile`` = (TX, TY) output cells);
+    ``conv_threads`` = TX / CELLS_X * TY * ``groups`` (groups of ``fo``
+    output channels), ``conv_smem`` bytes (weights [9][F][F padded to 4] and
+    the halo [F][TX + 2][``ys``]), ``conv_blocks`` in all.  Weight gradient:
+    ``dw_blocks`` blocks per head over the (batch member, tile) units,
+    ``dw_threads`` = ``dw_quads`` * ``dw_split``, ``dw_smem`` bytes, and
+    ``partial_rows`` = ``dw_blocks`` scratch rows of H * F * F * 9 floats.
+    The default tile (``_default_tile``) is cut to the grid, then halved
+    until the forward has about two blocks per SM.  Cached per shape: the
+    wrappers call it at every launch."""
+    return dict(_conv2d_tiling(tuple(sizes), feat, rows, heads))
+
+
+@functools.lru_cache(maxsize=None)
+def _conv2d_tiling(sizes, feat, rows, heads):
+    _check_feat(feat)
+    x, y = sizes
+    padded = _ceil(feat, 4) * 4
+    fo = min(feat, 8) if feat in STATIC_FEAT else 4
+    groups = padded // fo
+    tx, ty = _default_tile(feat)
+    tx = min(tx, _ceil(x, CELLS_X) * CELLS_X)
+    ty = min(ty, y)
+
+    def n_tiles(tx, ty):
+        return _ceil(x, tx) * _ceil(y, ty)
+    while rows * n_tiles(tx, ty) < 2 * SMS and max(tx, ty) > 8:
+        if tx >= ty:
+            tx = _ceil(tx // 2, CELLS_X) * CELLS_X
+        else:
+            ty = _ceil(ty, 2)
+    threads = tx // CELLS_X * ty * groups
+    ys = min(range(ty + 2, ty + 34),
+             key=lambda ys: (_bank_conflict(ys, tx, ty, threads), ys))
+    quads = (padded // 4) ** 2 * 3
+    split = max(1, DW_THREADS // quads)
+    units = rows // heads * n_tiles(tx, ty)
+    per_block = _ceil(units, _ceil(3 * SMS, heads))
+    cfg = {
+        "tile": (tx, ty), "fo": fo, "groups": groups, "ys": ys,
+        "conv_threads": threads,
+        "conv_smem": 4 * (9 * feat * padded + feat * (tx + 2) * ys),
+        "conv_blocks": rows * n_tiles(tx, ty),
+        "dw_quads": quads, "dw_split": split, "dw_threads": quads * split,
+        "dw_smem": 4 * max((tx * ty + (tx + 2) * (ty + 2)) * padded,
+                           quads * split * DW_SUMS),
+        "dw_blocks": _ceil(units, per_block),
+    }
+    cfg["partial_rows"] = cfg["dw_blocks"]
+    assert threads <= 512 and cfg["dw_threads"] <= DW_THREADS
+    assert max(cfg["conv_smem"], cfg["dw_smem"]) <= MAX_SMEM
+    return cfg
 
 
 def kernel_config(feat, dim):
     """Launch shape of the kernels for heads of ``feat`` features on
-    ``dim``-D grids: {"conv_smem": bytes of the forward's staged weights,
-    "dw_split": S, "dw_threads": F * F * S, "dw_smem": bytes}.  Raises for
-    an F the kernels do not take (F > 32)."""
-    if not 0 < feat <= MAX_FEAT:
-        raise ValueError(f"the grid conv kernels take 1 <= F <= {MAX_FEAT}, "
-                         f"got {feat}")
+    ``dim``-D grids: {"conv_smem": bytes of the forward's shared memory,
+    "dw_split": S, "dw_threads": threads of the weight gradient's blocks,
+    "dw_smem": bytes}; in 2D those of ``conv2d_tiling``'s default tile (a
+    grid it need not cut).  Raises for an F the kernels do not take
+    (F > 32)."""
+    _check_feat(feat)
+    if dim == 2:
+        cfg = conv2d_tiling(_default_tile(feat), feat, 2 * SMS, 1)
+        return {k: cfg[k] for k in ("conv_smem", "dw_split", "dw_threads",
+                                    "dw_smem")}
     taps = 3 ** dim
     # threads = F * F * S, each keeping ``taps`` sums that meet in shared
     # memory: 256 threads up to F = 16, F * F above
@@ -116,13 +223,19 @@ def _conv(wrapper, entry, grid, weight, bias, sizes, heads):
     if not grid.is_cuda:
         return grid_conv_plain(grid, weight, bias, sizes, heads)
     r, _, f = grid.shape
-    kernel_config(f, len(sizes))
+    if len(sizes) == 2:
+        cfg = conv2d_tiling(sizes, f, r, heads)
+        launch = (*cfg["tile"], cfg["ys"], cfg["conv_threads"],
+                  cfg["conv_smem"])
+    else:
+        kernel_config(f, len(sizes))
+        launch = ()
     args = [a.contiguous() for a in (grid, weight, bias)]
     out = torch.empty_like(args[0])
     lib = cuda_build.libraries()["grid_conv"]
     stream = torch.cuda.current_stream(grid.device).cuda_stream
     err = getattr(lib, entry)(*(a.data_ptr() for a in args), out.data_ptr(),
-                              r, heads, *sizes, f, stream)
+                              r, heads, *sizes, f, *launch, stream)
     cuda_build.check(err, wrapper.__name__)
     wrapper.launches += 1
     return out
@@ -187,19 +300,26 @@ def _dw(wrapper, entry, grid, g, sizes, heads):
     if not grid.is_cuda:
         return grid_conv_dw_plain(grid, g, sizes, heads)
     r, _, f = grid.shape
-    split = kernel_config(f, len(sizes))["dw_split"]
+    if len(sizes) == 2:
+        # one scratch row per block of a head
+        cfg = conv2d_tiling(sizes, f, r, heads)
+        rows = cfg["partial_rows"]
+        launch = (*cfg["tile"], rows, cfg["dw_threads"], cfg["dw_smem"])
+    else:
+        # one scratch row per block of the first pass: (batch member, x
+        # plane)
+        rows = (r // heads) * sizes[0]
+        launch = (kernel_config(f, len(sizes))["dw_split"],)
     args = [a.contiguous() for a in (grid, g)]
-    # one scratch row per block of the first pass: (batch member, x plane)
-    partial = torch.empty((r // heads) * sizes[0], heads, f, f,
-                          3 ** len(sizes), dtype=torch.float32,
-                          device=grid.device)
+    partial = torch.empty(rows, heads, f, f, 3 ** len(sizes),
+                          dtype=torch.float32, device=grid.device)
     d_weight = torch.empty((heads * f, f) + (3,) * len(sizes),
                            dtype=torch.float32, device=grid.device)
     lib = cuda_build.libraries()["grid_conv"]
     stream = torch.cuda.current_stream(grid.device).cuda_stream
     err = getattr(lib, entry)(*(a.data_ptr() for a in args),
                               partial.data_ptr(), d_weight.data_ptr(), r,
-                              heads, *sizes, f, split, stream)
+                              heads, *sizes, f, *launch, stream)
     cuda_build.check(err, wrapper.__name__)
     wrapper.launches += 1
     return d_weight

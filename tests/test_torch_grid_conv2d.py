@@ -8,7 +8,8 @@ output and the input, weight and bias gradients agree within 1e-5 of their
 scale: sums of up to 9 * F terms, and of thousands for the weight, in
 another order.  Also: the switches read their environment variables as the
 JAX package's do, the transposed weights are the JAX package's, and the
-kernels' launch limits (F <= 32 with opt-in shared memory).
+kernels' launch limits (F <= 32 with opt-in shared memory) and the 2D
+kernels' tiling: every cell and every weight reached exactly once.
 """
 
 import jax
@@ -180,7 +181,7 @@ def test_transpose_weight_2d_is_pack_m2d_transposed():
 
 @pytest.mark.parametrize("feat,dim,conv_smem,threads,dw_smem", [
     (32, 3, 110592, 1024, 110592),     # 8^3 x 32 under "pallas"
-    (32, 2, 36864, 1024, 36864),
+    (32, 2, 82944, 192, 74240),        # conv2d_tiling's 16 x 16 tile
     (16, 3, 27648, 256, 27648),
     (4, 3, 1728, 256, 27648),          # 16 cells a pass per (fi, fo)
     (21, 3, 47628, 441, 47628),        # the old static limit
@@ -209,3 +210,86 @@ def test_grid_conv2d_validates_inputs():
                         (2, 2, 4), 2)               # 3D sizes
     with pytest.raises(ValueError):
         tgc.grid_conv2d_dw(grid, torch.zeros(4, 16, 3), (4, 4), 2)
+
+
+# (sizes, F, rows, heads): the classifier's 2D head groups at R = 128, then
+# ragged grids at every compile-time F and at run-time ones
+TILING_CASES = ([((128, 128), 4, 128, 16), ((64, 64), 16, 128, 16),
+                 ((16, 16), 16, 128, 16)]
+                + [(sizes, f, 8, 4) for sizes in ((6, 5), (1, 7), (65, 33))
+                   for f in (1, 3, 4, 8, 16, 32)])
+
+
+@pytest.mark.parametrize("sizes,feat,rows,heads", TILING_CASES)
+def test_conv2d_tiling_reaches_every_cell_once(sizes, feat, rows, heads):
+    """The index arithmetic of ``conv2d_fwd_kernel`` and
+    ``conv2d_dw_kernel`` on ``conv2d_tiling``'s numbers: each output cell
+    and channel is written by one thread; each (batch member, cell) is
+    summed by one (block, split) of its head; each (fo, fi, tap) of the
+    weight gradient is kept by one thread of a split; every block writes
+    its scratch row; threads and shared memory stay within a block's."""
+    cfg = tgc.conv2d_tiling(sizes, feat, rows, heads)
+    x, y = sizes
+    tx, ty = cfg["tile"]
+    cx = tgc.CELLS_X
+    assert cfg["conv_threads"] <= 1024 and cfg["dw_threads"] <= 1024
+    assert max(cfg["conv_smem"], cfg["dw_smem"]) <= tgc.MAX_SMEM
+    assert tx % cx == 0 and cfg["ys"] >= ty + 2
+    # forward: block (tile), thread (fo group, x run, y), cells along x
+    tiles_y = -(-y // ty)
+    n_tiles = -(-x // tx) * tiles_y
+    assert cfg["conv_blocks"] == rows * n_tiles
+    t = np.arange(cfg["conv_threads"])
+    per_group = tx // cx * ty
+    fo0 = t // per_group * cfg["fo"]
+    xr, ly = t % per_group // ty, t % per_group % ty
+    written = np.zeros((x, y, feat), int)
+    for tile in range(n_tiles):
+        x0, y0 = tile // tiles_y * tx, tile % tiles_y * ty
+        for j in range(cx):
+            for o in range(cfg["fo"]):
+                cx_, cy_, co = x0 + xr * cx + j, y0 + ly, fo0 + o
+                keep = (cx_ < x) & (cy_ < y) & (co < feat)
+                np.add.at(written, (cx_[keep], cy_[keep], co[keep]), 1)
+    assert (written == 1).all()
+    if (sizes, feat) in (((128, 128), 4), ((64, 64), 16), ((16, 16), 16)):
+        assert tgc._bank_conflict(cfg["ys"], tx, ty,
+                                  cfg["conv_threads"]) == 1
+    # weight gradient: units (batch member, tile) over NB blocks a head,
+    # cells over S splits, (fo, fi, tap) over the quads
+    nb, split = cfg["dw_blocks"], cfg["dw_split"]
+    units = rows // heads * n_tiles
+    assert cfg["partial_rows"] == nb and 1 <= nb <= units
+    taken = np.zeros(units, int)
+    for j in range(nb):
+        taken[j::nb] += 1
+    assert (taken == 1).all()
+    summed = np.zeros(tx * ty, int)
+    for s in range(split):
+        summed[s::split] += 1
+    assert (summed == 1).all()
+    padded = -(-feat // 4) * 4
+    na = padded // 4
+    assert cfg["dw_threads"] == cfg["dw_quads"] * split == 3 * na * na * split
+    kept = np.zeros((padded, padded, 9), int)
+    for q in range(cfg["dw_quads"]):
+        for e in range(tgc.DW_SUMS):
+            kept[4 * (q % na) + e // 4 % 4, 4 * (q // na % na) + e % 4,
+                 q // (na * na) * 3 + e // 16] += 1
+    assert (kept == 1).all()
+
+
+def test_conv2d_tiling_fills_the_card_and_caches():
+    """Small grids get smaller tiles (16^2 x 16 at R = 128: 8 x 8, four
+    blocks per SM), the classifier's large grids keep the default tile, and
+    the tiling is computed once per shape."""
+    small = tgc.conv2d_tiling((16, 16), 16, 128, 16)
+    assert small["tile"] == (8, 8) and small["conv_blocks"] >= 2 * tgc.SMS
+    assert tgc.conv2d_tiling((64, 64), 16, 128, 16)["tile"] == (16, 16)
+    assert tgc.conv2d_tiling([128, 128], 4, 128, 16)["tile"] == (32, 32)
+    hits = tgc._conv2d_tiling.cache_info().hits
+    tgc.conv2d_tiling((16, 16), 16, 128, 16)["tile"] = None   # a copy
+    assert tgc.conv2d_tiling((16, 16), 16, 128, 16)["tile"] == (8, 8)
+    assert tgc._conv2d_tiling.cache_info().hits == hits + 2
+    with pytest.raises(ValueError):
+        tgc.conv2d_tiling((16, 16), 33, 128, 16)

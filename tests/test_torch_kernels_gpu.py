@@ -355,19 +355,26 @@ def _weights(gen, sizes, f, h):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("sizes,f", [((16, 16), 16), ((64, 64), 4),
-                                     ((6, 5), 3), ((8, 8, 8), 32)])
-def test_grid_conv_kernels_match_plain(gen, sizes, f):
-    """The 2D conv and its weight gradient, ragged sizes, and the 3D pair
-    at 8^3 x 32 (108 KiB of weights: opt-in shared memory): within 1e-5;
-    the weight gradient the same in every run."""
-    h, cells = 4, 1
+@pytest.mark.parametrize("sizes,f,b,h", [
+    ((16, 16), 16, 2, 4), ((64, 64), 4, 2, 4), ((6, 5), 3, 2, 4),
+    ((8, 8, 8), 32, 2, 4),
+    # the 2D kernels' ragged tiles, each compile-time F and a run-time one
+    ((65, 33), 16, 2, 4), ((1, 7), 4, 2, 4), ((1, 7), 3, 2, 4),
+    ((65, 33), 8, 2, 4), ((16, 16), 32, 2, 4), ((9, 6), 5, 2, 4),
+    # the classifier's 2D shapes at R = 128
+    ((128, 128), 4, 8, 16), ((64, 64), 16, 8, 16), ((16, 16), 16, 8, 16)])
+def test_grid_conv_kernels_match_plain(gen, sizes, f, b, h):
+    """The 2D conv and its weight gradient at ragged sizes, every
+    compile-time F and a run-time F, the classifier's shapes, and the 3D
+    pair at 8^3 x 32 (108 KiB of weights: opt-in shared memory): within
+    1e-5; the weight gradient the same in every run."""
+    cells = 1
     for s in sizes:
         cells *= s
     fwd, dw = ((tgc.grid_conv2d, tgc.grid_conv2d_dw) if len(sizes) == 2
                else (tgc.grid_conv3d, tgc.grid_conv3d_dw))
-    grid = torch.randn(2 * h, cells, f, generator=gen, device="cuda")
-    g = torch.randn(2 * h, cells, f, generator=gen, device="cuda")
+    grid = torch.randn(b * h, cells, f, generator=gen, device="cuda")
+    g = torch.randn(b * h, cells, f, generator=gen, device="cuda")
     weight, bias = _weights(gen, sizes, f, h)
     n = (fwd.launches, dw.launches)
     out = fwd(grid, weight, bias, sizes, h)
@@ -376,6 +383,26 @@ def test_grid_conv_kernels_match_plain(gen, sizes, f):
     _close(out, tgc.grid_conv_plain(grid, weight, bias, sizes, h), 1e-5)
     _close(d_w, tgc.grid_conv_dw_plain(grid, g, sizes, h), 1e-5)
     assert torch.equal(d_w, dw(grid, g, sizes, h))
+
+
+@pytest.mark.gpu
+def test_grid_conv2d_launch_refuses_a_tiling_it_did_not_make(gen):
+    """The 2D entry point recomputes threads and shared memory from the
+    tiling and launches nothing when the caller's numbers disagree."""
+    sizes, f, h = (16, 16), 16, 4
+    grid = torch.randn(2 * h, 256, f, generator=gen, device="cuda")
+    weight, bias = _weights(gen, sizes, f, h)
+    out = torch.full_like(grid, 7.0)
+    cfg = tgc.conv2d_tiling(sizes, f, 2 * h, h)
+    lib = tgc.cuda_build.libraries()["grid_conv"]
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.ct_grid_conv2d(grid.data_ptr(), weight.data_ptr(),
+                             bias.data_ptr(), out.data_ptr(), 2 * h, h,
+                             *sizes, f, *cfg["tile"], cfg["ys"],
+                             cfg["conv_threads"] + 32, cfg["conv_smem"],
+                             stream)
+    torch.cuda.synchronize()
+    assert err != 0 and bool((out == 7.0).all())
 
 
 @pytest.mark.gpu
