@@ -91,8 +91,9 @@
    ...}`` line (both sets' serving, training and parity numbers), then one
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
-   2D conv and its weight gradient also with ``bound_share``, bound_ms /
-   ms, per pass and per shape), then
+   2D and 3D convs and their weight gradients also with ``bound_share``,
+   bound_ms / ms, per pass and per shape, and per shape whether the kernel
+   took less time than its library call in this run), then
    the ``{"ok": true, "device": ...}`` line last.
 
 In phase 3 the auction's two kernels are held too: ``top2`` against
@@ -222,7 +223,8 @@ LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
                       "library calls, not one"}
 # kernels whose entries in the kernels line also give the share of the
 # bound reached (bound_ms / ms), per pass and per shape
-BOUND_SHARE = ("grid_conv2d", "grid_conv2d_dw")
+BOUND_SHARE = ("grid_conv2d", "grid_conv2d_dw", "grid_conv3d",
+               "grid_conv3d_dw")
 # the path whose run gives each kernel's ``launches``
 MAIN_PATH = {"splat_max": "serving", "slice_gather": "serving",
              "grid_conv3d": "serving", "splat_max_bwd": "training",
@@ -794,7 +796,8 @@ def kernel_line(rows, launches):
                 "bound_ms": s["bound"][0], "bound_by": s["bound"][1],
                 "library_ms": s["library_ms"],
                 "max_abs_err": s["max_abs_err"],
-                **({"bound_share": s["bound"][0] / s["ms"]}
+                **({"bound_share": s["bound"][0] / s["ms"],
+                    "faster_than_library": s["ms"] < s["library_ms"]}
                    if name in BOUND_SHARE else {}),
                 **{k: s[k] for k in (
                     "library_err", "grid_rows_read", "grid_rows", "won",
@@ -839,7 +842,9 @@ KERNEL_GROUPS = (
     ("conv2d_dw_kernel", "grid_conv2d_dw"),
     ("conv2d_dw_sum_kernel", "grid_conv2d_dw"),
     ("conv2d_fwd_kernel", "grid_conv2d"),
-    ("grid_conv_dw", "grid_conv3d_dw"), ("grid_conv_kernel", "grid_conv3d"),
+    ("grid_conv3d_dw", "grid_conv3d_dw"),
+    # the forward and its weight packing pass
+    ("grid_conv3d_", "grid_conv3d"),
     ("fused_block", "fused_block"), ("splat_max_winner", "splat_max_winner"),
     ("splat_unpack", "splat_max_winner"),
     # the routing pass: splat_max_bwd's second pass, or splat_route alone

@@ -39,9 +39,9 @@ SIGNATURES = {
         "ct_splat_route": [_P] * 10 + [_I] * 8 + [_P],
     },
     "grid_conv": {
-        "ct_grid_conv3d": [_P] * 4 + [_I] * 6 + [_P],
+        "ct_grid_conv3d": [_P] * 5 + [_I] * 12 + [_P],
         "ct_grid_conv2d": [_P] * 4 + [_I] * 10 + [_P],
-        "ct_grid_conv3d_dw": [_P] * 4 + [_I] * 7 + [_P],
+        "ct_grid_conv3d_dw": [_P] * 4 + [_I] * 15 + [_P],
         "ct_grid_conv2d_dw": [_P] * 4 + [_I] * 10 + [_P],
     },
     "fused_block": {

@@ -14,8 +14,15 @@ im2col weights (``pack_w``) exist for its matrix unit and are not copied.
 ``grid_conv3d``/``grid_conv2d`` and ``grid_conv3d_dw``/``grid_conv2d_dw`` run
 their CUDA kernels (``csrc/grid_conv.cu``) on a CUDA tensor and their plain
 PyTorch versions on a CPU tensor; nothing falls back.  Launches are counted
-in ``<wrapper>.launches``.  The 2D kernels' tiles, threads, shared memory
-and blocks come from ``conv2d_tiling``.  The conv's input gradient is the
+in ``<wrapper>.launches``.  The kernels' tiles, threads, shared memory and
+blocks come from ``conv2d_tiling`` and ``conv3d_tiling`` (cached per
+shape): a halo tile of the grid in shared memory and register tiles of
+cells x output channels for the forwards; blocks over (batch member, tile)
+units, register tiles of 4 fo x 4 fi x 3 taps and a fixed-order second pass
+for the weight gradients (no atomics, bit-equal from run to run).  The 3D
+forward walks the input channels four at a time, double-buffered with
+``cp.async``, so that a block needs 39-69 KB at the classifier's shapes
+(the 110.6 KB of weights at F = 32 never sit in one block).  The conv's input gradient is the
 forward kernel itself on the cotangent with ``transpose_weight``'s weights
 and a zero bias (``grid_conv_vjp``); the autograd Function around it is in
 ``nn/grouped_conv.py``.
@@ -25,6 +32,7 @@ import collections
 import functools
 import itertools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,18 +40,18 @@ from cloud_transformers_tpu_torch.ops import cuda_build
 
 # shared memory one block of an H100 may opt in to (227 KB)
 MAX_SMEM = 232448
-# the widest head the kernels take: F * F threads of the 3D weight
-# gradient's first pass, at most 1024 a block
+# the widest head the kernels take (the fused block keeps 27 F^2 weights
+# in one block)
 MAX_FEAT = 32
-# streaming multiprocessors of an H100 SXM: the 2D tilings aim at about two
+# streaming multiprocessors of an H100 SXM: the tilings aim at about two
 # forward blocks and three weight-gradient blocks per SM
 SMS = 132
-# the 2D kernels' compile-time widths (any other F runs the run-time
+# the kernels' compile-time widths (any other F runs the run-time
 # variant, its channels padded to a multiple of 4)
 STATIC_FEAT = (4, 8, 16, 32)
-# output cells a 2D forward thread keeps along x (csrc: kCX)
+# output cells a forward thread keeps along x (csrc: kCX)
 CELLS_X = 4
-# sums a 2D weight-gradient thread keeps (4 fo x 4 fi x 3 dy) and the most
+# sums a weight-gradient thread keeps (4 fo x 4 fi x 3 taps) and the most
 # threads of its block (csrc: kDwSums, kDwThreads)
 DW_SUMS = 48
 DW_THREADS = 256
@@ -57,6 +65,12 @@ def _check_feat(feat):
 
 def _ceil(a, b):
     return -(-a // b)
+
+
+def _fo(feat):
+    """Output channels a forward thread keeps (csrc: Conv2dFO): 8, or F
+    below 8; 4 at a run-time F."""
+    return min(feat, 8) if feat in STATIC_FEAT else 4
 
 
 def _bank_conflict(ys, tx, ty, threads):
@@ -101,7 +115,7 @@ def _conv2d_tiling(sizes, feat, rows, heads):
     _check_feat(feat)
     x, y = sizes
     padded = _ceil(feat, 4) * 4
-    fo = min(feat, 8) if feat in STATIC_FEAT else 4
+    fo = _fo(feat)
     groups = padded // fo
     tx, ty = _default_tile(feat)
     tx = min(tx, _ceil(x, CELLS_X) * CELLS_X)
@@ -137,27 +151,182 @@ def _conv2d_tiling(sizes, feat, rows, heads):
     return cfg
 
 
+def _phase_conflict(addr):
+    """Worst bank conflict of float4 shared-memory loads: ``addr`` [..., 8]
+    holds the float4 index each lane of a quarter warp reads (a quarter
+    warp is served at once); -> the most distinct float4s that share one
+    group of four banks, over all quarter warps."""
+    addr = np.asarray(addr).reshape(-1, 8)
+    same = addr[:, :, None] == addr[:, None, :]
+    first = ~(same & np.tri(8, k=-1, dtype=bool)).any(-1)
+    banks = (addr % 8)[:, :, None] == np.arange(8)
+    return int((first[:, :, None] & banks).sum(1).max())
+
+
+def _quarters(lanes):
+    """[..., threads] -> [..., quarter warps, 8], the block padded with
+    idle lanes (copies of lane 0, which add no new float4) to whole warps."""
+    n = lanes.shape[-1]
+    pad = -n % 32
+    if pad:
+        lanes = np.concatenate(
+            [lanes, np.repeat(lanes[..., :1], pad, -1)], -1)
+    return lanes.reshape(lanes.shape[:-1] + (-1, 8))
+
+
+def _conv3d_fwd_conflict(zs, tile, threads):
+    """Worst bank conflict of the 3D forward's halo loads, z stride ``zs``
+    (in float4): thread t of its fo group reads float4
+    (xr * CELLS_X * (TY + 2) + ly) * zs + lz."""
+    tx, ty, tz = tile
+    tl = np.arange(threads) % (tx // CELLS_X * ty * tz)
+    lz, ly, xr = tl % tz, tl // tz % ty, tl // (tz * ty)
+    return _phase_conflict(_quarters((xr * CELLS_X * (ty + 2) + ly) * zs
+                                     + lz))
+
+
+def _dw_lanes(threads, quads, split):
+    """(q, s) of each thread of the 3D weight gradient: the split fastest
+    when a warp holds several splits (quads < 32), else the quad."""
+    t = np.arange(threads)
+    if quads < 32:
+        return t // split, t % split
+    return t % quads, t // quads
+
+
+def _conv3d_dw_conflict(tile, feat, slice_quads, split, zs=None, gz=None):
+    """Worst bank conflict of the 3D weight gradient's loads at one z of
+    every round of rows: the cotangent float4 (row * gz + z) * NA + a, or
+    (``zs`` given instead) the input float4 (((x + dx) * (TY + 2) + y + dy)
+    * zs + z) * NCS + c; a shift of z moves every lane alike."""
+    tx, ty, tz = tile
+    na = _ceil(feat, 4)
+    quads = 9 * na * slice_quads
+    q, s = _dw_lanes(quads * split, quads, split)
+    a, c, dxdy = q % na, q // na % slice_quads, q // (na * slice_quads)
+    rows = s + split * np.arange(_ceil(tx * ty, split))[:, None]
+    # a thread past the last row reads nothing: give it lane 0's address
+    live = rows < tx * ty
+    if gz is not None:
+        addr = rows * gz * na + a
+    else:
+        addr = ((((rows // ty + dxdy // 3) * (ty + 2) + rows % ty + dxdy % 3)
+                 * zs) * slice_quads + c)
+    return _phase_conflict(_quarters(np.where(live, addr, addr[:, :1])))
+
+
+def _default_tile3d(groups):
+    """The 3D forward's (TX, TY, TZ) before any cut, by fo groups: 256
+    threads (192 at 3 or 6 groups)."""
+    return ((4, 8, 32) if groups == 1 else (4, 8, 16) if groups == 2
+            else (4, 4, 16) if groups <= 4 else (4, 4, 8))
+
+
+def conv3d_tiling(sizes, feat, rows, heads):
+    """Launch arithmetic of the 3D conv kernels (``csrc/grid_conv.cu``) for
+    ``rows`` = B * heads grids of ``sizes`` = (X, Y, Z) with ``feat``
+    channels (FP = F rounded up to a multiple of 4).
+
+    Forward: one block per (row, tile of ``tile`` = (TX, TY, TZ) output
+    cells), ``conv_threads`` = TX / CELLS_X * TY * TZ * ``groups`` (groups
+    of ``fo`` output channels), ``conv_smem`` bytes (two buffers of a
+    chunk's weights [27][4][FP] and its halo [TX + 2][TY + 2][``zs``] of
+    float4), ``conv_blocks`` in all, ``chunks`` = FP / 4 passes, and
+    ``pack_floats`` of scratch for the packed weights.  Weight gradient:
+    blocks (j, h, slice) on ``dw_tile`` tiles with halo z stride ``dw_zs``
+    and cotangent z stride ``dw_gz`` (both in cells, padded against bank
+    conflicts): ``dw_blocks`` (NB) per head and slice of ``dw_slice_quads``
+    input-channel quads (``dw_slices`` slices), ``dw_threads`` =
+    ``dw_quads`` * ``dw_split``, ``dw_smem`` bytes, and ``partial_rows`` =
+    NB scratch rows of H * 27 * F * F floats.  The default tiles are cut to
+    the grid, the forward's then halved until it has about two blocks per
+    SM; NB gives about three weight-gradient blocks per SM.  Cached per
+    shape: the wrappers call it at every launch."""
+    return dict(_conv3d_tiling(tuple(sizes), feat, rows, heads))
+
+
+@functools.lru_cache(maxsize=None)
+def _conv3d_tiling(sizes, feat, rows, heads):
+    _check_feat(feat)
+    x, y, z = sizes
+    padded = _ceil(feat, 4) * 4
+    na = padded // 4
+    fo = _fo(feat)
+    groups = padded // fo
+    tx, ty, tz = _default_tile3d(groups)
+    tx = min(tx, _ceil(x, CELLS_X) * CELLS_X)
+    ty, tz = min(ty, y), min(tz, z)
+
+    def n_tiles(tile):
+        return int(np.prod([_ceil(n, t) for n, t in zip(sizes, tile)]))
+    while rows * n_tiles((tx, ty, tz)) < 2 * SMS and ty * tz > 16:
+        if tz >= ty:
+            tz = _ceil(tz, 2)
+        else:
+            ty = _ceil(ty, 2)
+    tile = (tx, ty, tz)
+    threads = tx // CELLS_X * ty * tz * groups
+    zs = min(range(tz + 2, tz + 10),
+             key=lambda zs: (_conv3d_fwd_conflict(zs, tile, threads), zs))
+    # weight gradient: the widest input-channel slice that keeps the
+    # block's quads (9 (dx, dy) x NA fo quads x slice quads) within
+    # DW_THREADS, and the split over the tile's (x, y) rows that wastes
+    # the fewest thread-rounds (a multiple of 8 where it runs fastest)
+    ncs = max(d for d in range(1, na + 1)
+              if na % d == 0 and 9 * na * d <= DW_THREADS)
+    quads = 9 * na * ncs
+    dw_tile = tuple(min(t, n) for t, n in zip(
+        (4, 8, 16) if padded <= 4 else (4, 4, 16) if padded <= 8
+        else (4, 4, 8), sizes))
+    dtx, dty, dtz = dw_tile
+    split = min((s for s in range(1, DW_THREADS // quads + 1)
+                 if quads >= 32 or s % 8 == 0),
+                key=lambda s: (_ceil(dtx * dty, s) * s, -s))
+    dw_zs = min(range(dtz + 2, dtz + 10), key=lambda zs: (
+        _conv3d_dw_conflict(dw_tile, feat, ncs, split, zs=zs), zs))
+    dw_gz = min(range(dtz, dtz + 8), key=lambda gz: (
+        _conv3d_dw_conflict(dw_tile, feat, ncs, split, gz=gz), gz))
+    units = rows // heads * n_tiles(dw_tile)
+    slices = na // ncs
+    per_block = _ceil(units, _ceil(3 * SMS, heads * slices))
+    stage = (dtx * dty * dw_gz * padded
+             + (dtx + 2) * (dty + 2) * dw_zs * 4 * ncs)
+    cfg = {
+        "tile": tile, "fo": fo, "groups": groups, "zs": zs,
+        "conv_threads": threads,
+        "conv_smem": 4 * 2 * (108 * padded
+                              + (tx + 2) * (ty + 2) * zs * 4),
+        "conv_blocks": rows * n_tiles(tile), "chunks": na,
+        "pack_floats": heads * 27 * padded * padded,
+        "dw_tile": dw_tile, "dw_zs": dw_zs, "dw_gz": dw_gz,
+        "dw_slice_quads": ncs,
+        "dw_slices": slices, "dw_quads": quads, "dw_split": split,
+        "dw_threads": quads * split,
+        "dw_smem": 4 * max(2 * stage, quads * split * DW_SUMS),
+        "dw_blocks": _ceil(units, per_block),
+    }
+    cfg["partial_rows"] = cfg["dw_blocks"]
+    assert threads <= 256 and cfg["dw_threads"] <= DW_THREADS
+    assert max(cfg["conv_smem"], cfg["dw_smem"]) <= MAX_SMEM
+    return cfg
+
+
 def kernel_config(feat, dim):
     """Launch shape of the kernels for heads of ``feat`` features on
     ``dim``-D grids: {"conv_smem": bytes of the forward's shared memory,
     "dw_split": S, "dw_threads": threads of the weight gradient's blocks,
-    "dw_smem": bytes}; in 2D those of ``conv2d_tiling``'s default tile (a
-    grid it need not cut).  Raises for an F the kernels do not take
-    (F > 32)."""
+    "dw_smem": bytes}, those of ``conv2d_tiling`` or ``conv3d_tiling`` for
+    a grid of the default forward tile, which they need not cut.  Raises
+    for an F the kernels do not take (F > 32); the fused block calls it for
+    that check."""
     _check_feat(feat)
     if dim == 2:
         cfg = conv2d_tiling(_default_tile(feat), feat, 2 * SMS, 1)
-        return {k: cfg[k] for k in ("conv_smem", "dw_split", "dw_threads",
-                                    "dw_smem")}
-    taps = 3 ** dim
-    # threads = F * F * S, each keeping ``taps`` sums that meet in shared
-    # memory: 256 threads up to F = 16, F * F above
-    split = max(1, 256 // (feat * feat))
-    threads = feat * feat * split
-    cfg = {"conv_smem": taps * feat * feat * 4, "dw_split": split,
-           "dw_threads": threads, "dw_smem": threads * taps * 4}
-    assert max(cfg["conv_smem"], cfg["dw_smem"]) <= MAX_SMEM
-    return cfg
+    else:
+        groups = _ceil(feat, 4) * 4 // _fo(feat)
+        cfg = conv3d_tiling(_default_tile3d(groups), feat, 2 * SMS, 1)
+    return {k: cfg[k] for k in ("conv_smem", "dw_split", "dw_threads",
+                                "dw_smem")}
 
 
 def _check(grid, sizes, heads, **others):
@@ -223,19 +392,25 @@ def _conv(wrapper, entry, grid, weight, bias, sizes, heads):
     if not grid.is_cuda:
         return grid_conv_plain(grid, weight, bias, sizes, heads)
     r, _, f = grid.shape
+    args = [a.contiguous() for a in (grid, weight, bias)]
+    out = torch.empty_like(args[0])
     if len(sizes) == 2:
         cfg = conv2d_tiling(sizes, f, r, heads)
+        scratch = ()
         launch = (*cfg["tile"], cfg["ys"], cfg["conv_threads"],
                   cfg["conv_smem"])
     else:
-        kernel_config(f, len(sizes))
-        launch = ()
-    args = [a.contiguous() for a in (grid, weight, bias)]
-    out = torch.empty_like(args[0])
+        # the weights packed by chunks of four input channels
+        cfg = conv3d_tiling(sizes, f, r, heads)
+        wpack = torch.empty(cfg["pack_floats"], dtype=torch.float32,
+                            device=grid.device)
+        scratch = (wpack.data_ptr(),)
+        launch = (*cfg["tile"], cfg["zs"], cfg["conv_threads"],
+                  cfg["conv_smem"])
     lib = cuda_build.libraries()["grid_conv"]
     stream = torch.cuda.current_stream(grid.device).cuda_stream
     err = getattr(lib, entry)(*(a.data_ptr() for a in args), out.data_ptr(),
-                              r, heads, *sizes, f, *launch, stream)
+                              *scratch, r, heads, *sizes, f, *launch, stream)
     cuda_build.check(err, wrapper.__name__)
     wrapper.launches += 1
     return out
@@ -300,16 +475,18 @@ def _dw(wrapper, entry, grid, g, sizes, heads):
     if not grid.is_cuda:
         return grid_conv_dw_plain(grid, g, sizes, heads)
     r, _, f = grid.shape
+    # one scratch row per block of a head (and input-channel slice in 3D,
+    # the slices writing disjoint parts of a row)
     if len(sizes) == 2:
-        # one scratch row per block of a head
         cfg = conv2d_tiling(sizes, f, r, heads)
-        rows = cfg["partial_rows"]
-        launch = (*cfg["tile"], rows, cfg["dw_threads"], cfg["dw_smem"])
+        launch = (*cfg["tile"], cfg["partial_rows"], cfg["dw_threads"],
+                  cfg["dw_smem"])
     else:
-        # one scratch row per block of the first pass: (batch member, x
-        # plane)
-        rows = (r // heads) * sizes[0]
-        launch = (kernel_config(f, len(sizes))["dw_split"],)
+        cfg = conv3d_tiling(sizes, f, r, heads)
+        launch = (*cfg["dw_tile"], cfg["dw_zs"], cfg["dw_gz"],
+                  cfg["dw_slice_quads"], cfg["partial_rows"],
+                  cfg["dw_threads"], cfg["dw_smem"])
+    rows = cfg["partial_rows"]
     args = [a.contiguous() for a in (grid, g)]
     partial = torch.empty(rows, heads, f, f, 3 ** len(sizes),
                           dtype=torch.float32, device=grid.device)

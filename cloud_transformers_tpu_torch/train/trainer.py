@@ -17,8 +17,14 @@ trainer's, PyTorch's global ones, and the task's ``generators``).  A new
 from it (unless ``train.auto_resume`` is false); the interrupted epoch
 starts again from its first batch.
 
-The best-metric checkpoints, TensorBoard/CSV logging, profiling hooks and
-the device mesh of the JAX trainer are not ported yet.
+At run start (not after an auto-resume, which already carries trained
+weights) ``cfg['restore']`` loads ``generator``'s parameters through
+``restore_params_only`` and, with ``new_lr``, rebuilds the optimizer at
+that learning rate, as the JAX trainer does.
+
+The best-metric checkpoints, TensorBoard/CSV logging, gradient statistics,
+profiling hooks, mesh summaries and the device mesh of the JAX trainer are
+not ported yet: a config that sets one of their keys gets a warning.
 """
 
 import logging
@@ -29,11 +35,18 @@ import torch
 
 from cloud_transformers_tpu_torch.nn.init import init_model_
 from cloud_transformers_tpu_torch.nn.precision import strict_f32
-from cloud_transformers_tpu_torch.train.checkpoint import CheckpointManager
+from cloud_transformers_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    restore_params_only,
+)
 from cloud_transformers_tpu_torch.train.config import experiment_dirs
 from cloud_transformers_tpu_torch.train.optim import make_optimizer
 
 logger = logging.getLogger("cloud_transformers_tpu_torch")
+
+# ``train:`` keys the JAX trainer reads and this one does not yet
+IGNORED_TRAIN_KEYS = ("best_metric", "best_metrics", "grad_stats",
+                      "profile_step", "profile_steps", "mesh_each")
 
 
 class Trainer:
@@ -58,12 +71,37 @@ class Trainer:
         self.epoch = 0
         self.generators = dict(generators or {})
         self.ckpt = CheckpointManager(self.exp_dir)
-        if (bool(cfg.get("train", {}).get("auto_resume", True))
-                and self.ckpt.exists("latest")):
+        for key in IGNORED_TRAIN_KEYS:
+            if key in cfg.get("train", {}):
+                logger.warning("train.%s is set but not ported: ignored",
+                               key)
+        resumed = (bool(cfg.get("train", {}).get("auto_resume", True))
+                   and self.ckpt.exists("latest"))
+        if resumed:
             self.load_checkpoint(self.ckpt.restore("latest"))
             logger.info("resumed from %s (step %d, epoch %d)",
                         self.ckpt.path("latest"), self.global_step,
                         self.epoch)
+        restore = cfg.get("restore") or {}
+        if restore.get("generator"):
+            if resumed:
+                logger.info("skipping cfg['restore'] (%s): the run resumed "
+                            "from ckpt_latest", restore["generator"])
+            else:
+                self.restore(restore["generator"], restore.get("new_lr"))
+
+    def restore(self, path, new_lr=None):
+        """Load the parameters at ``path`` (any file
+        ``restore_params_only`` reads) and, if ``new_lr`` is given, start a
+        fresh optimizer at that learning rate."""
+        restore_params_only(path, self.model)
+        logger.info("restored params from %s", path)
+        if new_lr is not None:
+            tcfg = self.cfg["train"]
+            self.optimizer = make_optimizer(
+                dict(tcfg, optimizer=dict(tcfg.get("optimizer", {}),
+                                          lr=float(new_lr))),
+                self.model.named_parameters())
 
     # --- checkpoints -----------------------------------------------------
     def checkpoint(self):

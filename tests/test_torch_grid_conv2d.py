@@ -180,11 +180,13 @@ def test_transpose_weight_2d_is_pack_m2d_transposed():
 
 
 @pytest.mark.parametrize("feat,dim,conv_smem,threads,dw_smem", [
-    (32, 3, 110592, 1024, 110592),     # 8^3 x 32 under "pallas"
+    # 3D: conv3d_tiling's default tiles; the forward stages four input
+    # channels at a time, double-buffered
+    (32, 3, 48384, 144, 55808),        # 8^3 x 32 under "pallas"
     (32, 2, 82944, 192, 74240),        # conv2d_tiling's 16 x 16 tile
-    (16, 3, 27648, 256, 27648),
-    (4, 3, 1728, 256, 27648),          # 16 cells a pass per (fi, fo)
-    (21, 3, 47628, 441, 47628),        # the old static limit
+    (16, 3, 48384, 144, 62464),
+    (4, 3, 68736, 144, 53888),         # 16 rows a pass per quad
+    (21, 3, 32256, 162, 59136),        # the old static limit
 ])
 def test_kernel_config_lifts_the_width_to_32(feat, dim, conv_smem, threads,
                                              dw_smem):

@@ -441,6 +441,112 @@ def test_grid_conv2d_function_matches_library_backward(gen):
         _close(a, ref, 1e-5)
 
 
+# the 3D kernels' ragged tiles at every compile-time F and two run-time
+# ones, then the classifier's 3D shapes at R = 128
+CONV3D_CASES = ([(sizes, f, 2, 4) for sizes in ((5, 7, 9), (1, 3, 17),
+                                                  (9, 1, 4))
+                 for f in (4, 8, 16, 32, 3, 21)]
+                + [((32, 32, 32), 4, 8, 16), ((16, 16, 16), 16, 8, 16),
+                   ((8, 8, 8), 32, 8, 16)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f,b,h", CONV3D_CASES)
+def test_grid_conv3d_kernels_match_plain(gen, sizes, f, b, h):
+    """The 3D conv and its weight gradient on ``conv3d_tiling``'s numbers:
+    within 1e-5 of the plain versions, one launch each, the weight
+    gradient bit-equal across two runs."""
+    cells = sizes[0] * sizes[1] * sizes[2]
+    grid = torch.randn(b * h, cells, f, generator=gen, device="cuda")
+    g = torch.randn(b * h, cells, f, generator=gen, device="cuda")
+    weight, bias = _weights(gen, sizes, f, h)
+    n = (tgc.grid_conv3d.launches, tgc.grid_conv3d_dw.launches)
+    out = tgc.grid_conv3d(grid, weight, bias, sizes, h)
+    d_w = tgc.grid_conv3d_dw(grid, g, sizes, h)
+    assert (tgc.grid_conv3d.launches, tgc.grid_conv3d_dw.launches) == (
+        n[0] + 1, n[1] + 1)
+    _close(out, tgc.grid_conv_plain(grid, weight, bias, sizes, h), 1e-5)
+    _close(d_w, tgc.grid_conv_dw_plain(grid, g, sizes, h), 1e-5)
+    assert torch.equal(d_w, tgc.grid_conv3d_dw(grid, g, sizes, h))
+
+
+@pytest.mark.gpu
+def test_grid_conv3d_launch_refuses_a_tiling_it_did_not_make(gen):
+    """The 3D entry points recompute threads and shared memory from the
+    tiling and launch nothing (not even the weight packing) when the
+    caller's numbers disagree."""
+    sizes, f, h = (8, 8, 8), 32, 4
+    grid = torch.randn(2 * h, 512, f, generator=gen, device="cuda")
+    weight, bias = _weights(gen, sizes, f, h)
+    cfg = tgc.conv3d_tiling(sizes, f, 2 * h, h)
+    out = torch.full_like(grid, 7.0)
+    wpack = torch.full((cfg["pack_floats"],), 7.0, device="cuda")
+    partial = torch.full((cfg["partial_rows"] * h * f * f * 27,), 7.0,
+                         device="cuda")
+    d_w = torch.full_like(weight, 7.0)
+    lib = tgc.cuda_build.libraries()["grid_conv"]
+    stream = torch.cuda.current_stream().cuda_stream
+    errs = [
+        lib.ct_grid_conv3d(grid.data_ptr(), weight.data_ptr(),
+                           bias.data_ptr(), out.data_ptr(), wpack.data_ptr(),
+                           2 * h, h, *sizes, f, *cfg["tile"], cfg["zs"],
+                           cfg["conv_threads"] + 32, cfg["conv_smem"],
+                           stream),
+        lib.ct_grid_conv3d(grid.data_ptr(), weight.data_ptr(),
+                           bias.data_ptr(), out.data_ptr(), wpack.data_ptr(),
+                           2 * h, h, *sizes, f, *cfg["tile"], cfg["zs"],
+                           cfg["conv_threads"], cfg["conv_smem"] + 4,
+                           stream),
+        lib.ct_grid_conv3d_dw(grid.data_ptr(), grid.data_ptr(),
+                              partial.data_ptr(), d_w.data_ptr(), 2 * h, h,
+                              *sizes, f, *cfg["dw_tile"], cfg["dw_zs"],
+                              cfg["dw_gz"], cfg["dw_slice_quads"],
+                              cfg["partial_rows"],
+                              cfg["dw_threads"] + 1, cfg["dw_smem"], stream)]
+    torch.cuda.synchronize()
+    assert all(err != 0 for err in errs)
+    for t in (out, wpack, partial, d_w):
+        assert bool((t == 7.0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f", [((8, 8, 8), 32), ((5, 7, 9), 3)])
+def test_grid_conv3d_function_matches_library_backward(gen, sizes, f):
+    """GridConvK under "pallas" on a 3D grid (forward kernel on the
+    transposed weights for the input gradient, 3D weight-gradient kernel,
+    summed bias) against autograd through conv3d."""
+    h, b = 2, 2
+    cells = sizes[0] * sizes[1] * sizes[2]
+    mod = GridConvK(f, h, sizes).cuda()
+    with torch.no_grad():
+        mod.weight.copy_(_weights(gen, sizes, f, h)[0])
+        mod.bias.copy_(torch.randn(h * f, generator=gen, device="cuda"))
+    gk = torch.randn(b * h, cells, f, generator=gen,
+                     device="cuda").requires_grad_()
+    cot = torch.randn(b * h, cells, f, generator=gen, device="cuda")
+    before = (tgc.grid_conv3d.launches, tgc.grid_conv3d_dw.launches)
+    tgcm.set_grid_conv_strategy("pallas")
+    try:
+        mod(gk).backward(cot)
+    finally:
+        tgcm.set_grid_conv_strategy(None)
+    assert (tgc.grid_conv3d.launches - before[0],
+            tgc.grid_conv3d_dw.launches - before[1]) == (2, 1)
+
+    def cf(t):
+        return t.reshape(b, h, *sizes, f).movedim(-1, 2).reshape(
+            b, h * f, *sizes)
+    torch.backends.cudnn.allow_tf32 = False
+    x = gk.detach().clone().requires_grad_()
+    w = mod.weight.detach().clone().requires_grad_()
+    bias = mod.bias.detach().clone().requires_grad_()
+    (torch.nn.functional.conv3d(cf(x), w, bias, padding=1, groups=h)
+     * cf(cot)).sum().backward()
+    for a, ref in zip((gk.grad, mod.weight.grad, mod.bias.grad),
+                      (x.grad, w.grad, bias.grad)):
+        _close(a, ref, 1e-5)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("sizes,f", [((16, 16), 8), ((16, 16, 16), 4),
                                      ((8, 8, 8), 32), ((8, 8, 8), 5)])
