@@ -91,23 +91,34 @@
    ...}`` line (both sets' serving, training and parity numbers), then one
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
-   2D and 3D convs and their weight gradients also with ``bound_share``,
-   bound_ms / ms, per pass and per shape, and per shape whether the kernel
-   took less time than its library call in this run), then
+   2D and 3D convs, their weight gradients, the slice and ``top2`` also
+   with ``bound_share``, bound_ms / ms, per pass and per shape, and per
+   shape whether the kernel took less time than its library call in this
+   run; the slice and ``top2`` also with their device times; ``top2`` also
+   per evaluated cloud, from the bid searches the evaluation ran at each
+   width), then
    the ``{"ok": true, "device": ...}`` line last.
 
 In phase 3 the auction's two kernels are held too: ``top2`` against
 ``top2_plain`` at every (B, W, M) the staged schedule gives it at N = 16384
 (B = 2 in training, 1 in evaluation; W = 16384, 2048, 1024, 512, 256), at a
-shape that is a multiple of nothing, with duplicated targets and with one
-target: values within 2e-5 (they are bit-equal), the index equal wherever
-the top two are more than 1e-5 apart; ``auction_window`` against
+shape that is a multiple of nothing, with duplicated targets, with one
+target and on a mid-auction state: values and indices bit for bit, with
+its square-root skip on and off; ``auction_window`` against
 ``auction_window_plain`` from a mid-auction state at B=2, W=512, M=16384,
 up to 64 rounds: owner map and rounds used equal, prices within 2e-5, two
 calls equal.  ``top2`` is timed beside ``torch.cdist`` + ``topk(2)`` (two
 library calls and an elementwise pass, not one); its bound is B * W * M
 values of 12 float32 operations, or their square roots at the
-special-function rate, whichever takes longer.
+special-function rate, whichever takes longer.  Every kernel's ``ms`` and
+``library_ms`` time a loop of 20 launches (``cuda_ms``), so they hold the
+wrapper's host cost wherever it exceeds the kernel's.  The slice, ``top2``
+and ``grid_sample`` take tens of microseconds, about what a wrapper takes
+on the host, so they are also timed by replaying a CUDA graph of 20 calls
+(``graph_ms``), which leaves the host out: ``device_ms`` and
+``library_device_ms``; ``host_ms`` and ``library_host_ms`` are the host
+time to launch one call; ``top2`` on the mid-auction state also with its
+square-root skip off.
 
 TF32 is off for matmuls and cuDNN convolutions, so everything is float32.
 Any failure raises and the exit code is non-zero; without CUDA the script
@@ -224,7 +235,12 @@ LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
 # kernels whose entries in the kernels line also give the share of the
 # bound reached (bound_ms / ms), per pass and per shape
 BOUND_SHARE = ("grid_conv2d", "grid_conv2d_dw", "grid_conv3d",
-               "grid_conv3d_dw")
+               "grid_conv3d_dw", "slice_gather", "top2")
+# kernels short enough that a loop of launches may time their wrappers on
+# the host: their entries also carry the device time of a CUDA graph
+# replay (``device_ms``, ``device_bound_share``; per shape, against the
+# library call's, ``faster_than_library_device``)
+DEVICE_TIMED = ("slice_gather", "top2")
 # the path whose run gives each kernel's ``launches``
 MAIN_PATH = {"splat_max": "serving", "slice_gather": "serving",
              "grid_conv3d": "serving", "splat_max_bwd": "training",
@@ -251,6 +267,51 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters=200):
+    """Host time to launch one ``fn()``: ``iters`` calls from a synchronised
+    start, timed on the host clock before the card catches up (its launch
+    queue takes them all).  Where it exceeds the device time, a loop of
+    launches (``cuda_ms``) reads this."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / iters
+
+
+def graph_ms(fn, iters=20, replays=5):
+    """Device time of one ``fn()``: ``iters`` calls captured in a CUDA
+    graph (after a warm-up on a side stream) and replayed ``replays``
+    times between CUDA events.  Beside ``cuda_ms`` for kernels that take
+    about as long as their wrappers do on the host: the replay leaves the
+    host out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # captured on the warm-up stream, whose top2 arrival counts exist
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound(n_bytes, n_ops):
@@ -463,10 +524,16 @@ def check_kernels(gen):
             shape=f"{'x'.join(map(str, sizes))} F={f}", calls=n_slice,
             max_abs_err=err, library_err=lib_err,
             grid_rows_read=touched, grid_rows=R * cells,
+            plan=ps.slice_plan(R, K, f, sizes)._asdict(),
             ms=cuda_ms(lambda: ps.slice_gather(*mapping, grid, sizes)),
+            device_ms=graph_ms(
+                lambda: ps.slice_gather(*mapping, grid, sizes)),
+            host_ms=host_ms(lambda: ps.slice_gather(*mapping, grid, sizes)),
             plain_ms=cuda_ms(lambda: ps.slice_plain(*mapping, grid, sizes),
                              iters=5),
             library_ms=cuda_ms(lambda: grid_sample_slice(inp, pts)),
+            library_device_ms=graph_ms(lambda: grid_sample_slice(inp, pts)),
+            library_host_ms=host_ms(lambda: grid_sample_slice(inp, pts)),
             bound=bound(map_bytes + touched * f * 4 + R * K * f * 4,
                         R * K * n_vert * f * 2)))
         del plain, out, inp, pts, lib, idx, w
@@ -612,19 +679,16 @@ def bound_top2(pairs, n_bytes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def held_top2(what, got, plain):
-    """Bid values within EMD_TOL; the index equal wherever the plain
-    version's best and second-best are more than 1e-5 apart.  -> (max abs
-    error, number of indices that differ at all)."""
-    err = max(held(f"{what} {n}", a, b, EMD_TOL)
-              for n, a, b in (("best", got[0], plain[0]),
-                              ("better", got[1], plain[1])))
-    differ = got[2] != plain[2]
-    clear = (plain[0] - plain[1]) > 1e-5
-    if bool((differ & clear).any()):
-        raise AssertionError(f"{what}: {int((differ & clear).sum())} argmax "
-                             "indices differ where the top two are apart")
-    return err, int(differ.sum())
+def equal_top2(what, got, plain):
+    """Values and indices bit for bit; raises otherwise.  -> 0.0, the
+    max abs error."""
+    for n, a, b in zip(("best", "better", "best_i"), got, plain):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{what} {n}: {int((a != b).sum())} elements differ from "
+                f"the plain version (max abs err "
+                f"{float((a.double() - b.double()).abs().max())})")
+    return 0.0
 
 
 def mid_auction_state(x1, x2, eps, until):
@@ -657,7 +721,10 @@ def check_emd_kernels(gen):
         price = torch.rand(b, m, generator=gen, device="cuda") * 0.1
         got = pe.top2(x1, x2, price)
         plain = pe.top2_plain(x1, x2, price)
-        err, n_differ = held_top2(f"top2 {(b, w, m)}", got, plain)
+        err = equal_top2(f"top2 {(b, w, m)}", got, plain)
+        for skip in (True, False):
+            equal_top2(f"top2 {(b, w, m)} skip={skip}",
+                       pe._launch_top2(x1, x2, price, skip), plain)
         if not bool(((got[2] >= 0) & (got[2] < m)).all()):
             raise AssertionError(f"top2 {(b, w, m)}: index out of range")
 
@@ -673,17 +740,19 @@ def check_emd_kernels(gen):
         del lib
         rows["top2"].append(dict(
             shape=f"B={b} W={w} M={m}", b=b, w=w, calls=0.0,
-            max_abs_err=err, index_differs=n_differ, library_err=lib_err,
-            split=pe.top2_split(b * w),
+            max_abs_err=err, library_err=lib_err,
+            plan=pe.top2_plan(b, w, m)._asdict(),
             ms=cuda_ms(lambda: pe.top2(x1, x2, price)),
+            device_ms=graph_ms(lambda: pe.top2(x1, x2, price)),
+            host_ms=host_ms(lambda: pe.top2(x1, x2, price)),
             plain_ms=cuda_ms(lambda: pe.top2_plain(x1, x2, price), iters=3,
                              warmup=1),
             library_ms=cuda_ms(library, iters=3, warmup=1),
             bound=bound_top2(b * w * m,
                              (b * w * 3 + b * m * 4 + b * w * 3) * 4)))
-        log(f"top2 B={b} W={w} M={m}: {rows['top2'][-1]['ms']:.4f} ms, "
-            f"plain {rows['top2'][-1]['plain_ms']:.3f} ms, "
-            f"{n_differ} indices differ")
+        log(f"top2 B={b} W={w} M={m}: {rows['top2'][-1]['ms']:.4f} ms "
+            f"({rows['top2'][-1]['device_ms']:.4f} on the device), "
+            f"plain {rows['top2'][-1]['plain_ms']:.3f} ms, bit-equal")
         del x1, x2, price, got, plain
 
     # exact duplicates: the second-best equals the best, the first
@@ -693,12 +762,13 @@ def check_emd_kernels(gen):
     x2 = torch.cat([half, half], 1)
     price = torch.zeros(2, 6000, device="cuda")
     got, plain = pe.top2(x1, x2, price), pe.top2_plain(x1, x2, price)
-    held_top2("top2 duplicated targets", got, plain)
-    if not (torch.equal(got[2], plain[2]) and bool((got[2] < 3000).all())
-            and torch.equal(got[0], got[1])):
+    equal_top2("top2 duplicated targets", got, plain)
+    if not (bool((got[2] < 3000).all()) and torch.equal(got[0], got[1])):
         raise AssertionError("top2 duplicated targets: not the first "
                              "occurrence, or the second-best is not the best")
     one = pe.top2(x1, x2[:, :1].contiguous(), price[:, :1].contiguous())
+    equal_top2("top2 one target", one, pe.top2_plain(
+        x1, x2[:, :1].contiguous(), price[:, :1].contiguous()))
     if not (bool((one[1] == -1e9).all()) and bool((one[2] == 0).all())):
         raise AssertionError("top2 with one target: second-best is not -1e9")
     log("top2: duplicated targets and the single target hold")
@@ -709,6 +779,20 @@ def check_emd_kernels(gen):
     x1 = torch.rand(b, m, 3, generator=gen, device="cuda") * 2 - 1
     x2 = torch.rand(b, m, 3, generator=gen, device="cuda") * 2 - 1
     state, rounds = mid_auction_state(x1, x2, eps, 2 * w)
+    # the bid search on the same state: every point bids at the prices the
+    # auction has reached (what the skip meets in the auction's rounds)
+    first = rows["top2"][0]
+    if (first["b"], first["w"]) != (b, m):
+        raise AssertionError("the first top2 shape is not B=2, W=M=16384")
+    equal_top2("top2 mid-auction", pe.top2(x1, x2, state[2]),
+               pe.top2_plain(x1, x2, state[2]))
+    first["auction_state_device_ms"] = graph_ms(
+        lambda: pe.top2(x1, x2, state[2]))
+    first["auction_state_device_ms_no_skip"] = graph_ms(
+        lambda: pe._launch_top2(x1, x2, state[2], False))
+    log(f"top2 on a mid-auction state: "
+        f"{first['auction_state_device_ms']:.4f} ms on the device, "
+        f"{first['auction_state_device_ms_no_skip']:.4f} without the skip")
     idx = emd._compact_unassigned(state[0][:, :m], w)
     x1w = torch.gather(x1, 1, idx.clamp(max=m - 1)[..., None]
                        .expand(-1, -1, 3)).contiguous()
@@ -788,8 +872,20 @@ def kernel_line(rows, launches):
                else {}),
             **({"separate_kernels_ms": total("separate_kernels_ms")}
                if name == "fused_block" else {}),
+            **({"ms_per_evaluated_cloud": sum(
+                    sh["ms"] * sh["calls_per_evaluated_cloud"]
+                    for sh in shapes),
+                "device_ms_per_evaluated_cloud": sum(
+                    sh["device_ms"] * sh["calls_per_evaluated_cloud"]
+                    for sh in shapes)}
+               if name == "top2" else {}),
             **({"bound_share": t_bound / total("ms")}
                if name in BOUND_SHARE else {}),
+            **({"device_ms": total("device_ms"),
+                "device_bound_share": t_bound / total("device_ms")}
+               if name in DEVICE_TIMED else {}),
+            **({"library_device_ms": total("library_device_ms")}
+               if "library_device_ms" in shapes[0] else {}),
             "per_shape": [{
                 "shape": s["shape"], per: s["calls"],
                 "ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -799,9 +895,20 @@ def kernel_line(rows, launches):
                 **({"bound_share": s["bound"][0] / s["ms"],
                     "faster_than_library": s["ms"] < s["library_ms"]}
                    if name in BOUND_SHARE else {}),
+                **({"device_ms": s["device_ms"],
+                    "device_bound_share": s["bound"][0] / s["device_ms"]}
+                   if name in DEVICE_TIMED else {}),
+                **({"library_device_ms": s["library_device_ms"],
+                    "faster_than_library_device":
+                        s["device_ms"] < s["library_device_ms"]}
+                   if "library_device_ms" in s else {}),
                 **{k: s[k] for k in (
                     "library_err", "grid_rows_read", "grid_rows", "won",
-                    "index_differs", "split", "used", "bids",
+                    "plan", "host_ms", "library_host_ms",
+                    "calls_per_evaluated_cloud",
+                    "auction_state_device_ms",
+                    "auction_state_device_ms_no_skip",
+                    "used", "bids",
                     "rounds_before", "unassigned_before", "calls_set_a",
                     "ms_with_gk2", "separate_kernels_ms") if k in s}}
                 for s in shapes],
@@ -1273,7 +1380,8 @@ def completion_phase(wrappers, smi, profile_dir, exp_root):
     COMPLETION_STEPS steps through the Trainer on synthetic ShapeNet pairs,
     a checkpoint round trip, and the evaluation protocol on EVAL_CLOUDS
     test clouds.  -> (result dict, launches in the timed steps, launches in
-    the evaluation, bid searches per step by (batch, width)).  An auction
+    the evaluation, bid searches per step and per evaluated cloud by
+    (batch, width), launches of the one step under each set).  An auction
     makes the host wait once per round (its exit test) and once more where
     a phase of the width schedule ends."""
     from cloud_transformers_tpu_torch import eval_inpainting
@@ -1493,7 +1601,8 @@ def completion_phase(wrappers, smi, profile_dir, exp_root):
         "eval_top2_launches_per_cloud": eval_launches["top2"] / EVAL_CLOUDS,
         "eval_bid_searches_by_width": {
             f"B={k[0]} W={k[1]}": v for k, v in rec.widths.items()}})
-    return result, launches, eval_launches, widths_per_step, \
+    eval_widths = {k: v / EVAL_CLOUDS for k, v in rec.widths.items()}
+    return result, launches, eval_launches, widths_per_step, eval_widths, \
         switched_launches
 
 
@@ -1770,17 +1879,23 @@ def main():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as exp_root:
         (completed, completion_launches, eval_launches, widths_per_step,
-         completion_switched) = completion_phase(wrappers, smi, args.profile,
-                                                 exp_root)
+         eval_widths, completion_switched) = completion_phase(
+             wrappers, smi, args.profile, exp_root)
     for name, got in completion_switched.items():
         all_launches[f"completion_{name}"] = got
     log(f"completion phase done in {time.perf_counter() - t0:.1f} s")
     for row in rows["top2"]:
         row["calls"] = widths_per_step.get((row["b"], row["w"]), 0.0)
+        row["calls_per_evaluated_cloud"] = eval_widths.get(
+            (row["b"], row["w"]), 0.0)
     if round(sum(r["calls"] for r in rows["top2"]) * COMPLETION_STEPS) \
             != completion_launches["top2"]:
         raise AssertionError("a bid search of the completion step ran at a "
                              f"width that was not checked: {widths_per_step}")
+    if round(sum(r["calls_per_evaluated_cloud"] for r in rows["top2"])
+             * EVAL_CLOUDS) != eval_launches["top2"]:
+        raise AssertionError("a bid search of the evaluation ran at a width "
+                             f"that was not checked: {eval_widths}")
 
     # 9. the window tail, a path of its own
     torch.cuda.empty_cache()

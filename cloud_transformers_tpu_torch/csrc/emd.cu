@@ -12,33 +12,67 @@
 // The second-best counts multiplicity (it equals the best when two targets
 // tie), and is -1e9 when there is one target only.
 //
-// Design: the N-body shape.  A block stages a tile of targets in shared
-// memory as (x, y, z, |x2|^2) and price; a bidder is served by SPLIT
-// neighbouring lanes of one warp (SPLIT = 1 .. 32, a power of two chosen by
-// the caller), lane s taking the targets s, s + SPLIT, ... of every tile in
-// rising order with a running (best, second-best, index) in registers.  At
-// the end the SPLIT partial results meet by warp shuffles: the higher value
-// wins, the lower index on equal values, and the second-best is
-// max(min(best_a, best_b), max(second_a, second_b)).  The TPU kernel walks
-// its target tiles one after another on one core; here a wide round takes a
-// small SPLIT (lanes of a warp then read the same target: a broadcast) and a
-// compacted round of 1024 to 4096 bidders takes SPLIT = 32, which is what
-// fills the 132 SMs.  The [.., 8] lane padding, the 1e6 dummy targets and
-// the tile-height rules of the TPU kernel are not carried over: the arrays
-// are flat and the ragged ends are bounds-checked.
+// Design: the N-body shape turned so that lanes share bidders, in one
+// launch.  A group of G lanes (G = 8, 16 or 32) holds the same 4 bidders
+// (coordinates, |a|^2, and per lane a running best, second-best and index,
+// in registers) and splits the targets: lane r takes r, r + G, ... of each
+// tile, in rising k, so the first occurrence of the best is kept by strict
+// comparison.  A block is 256 threads; its targets come in tiles of 256,
+// packed into one of two shared-memory buffers as (x, y, z, |t|^2) and the
+// skip's per-target terms: the next tile's coordinates and prices are
+// loaded into registers before the current tile is searched and packed
+// after it, one barrier a tile.  Each target a lane reads serves its four
+// bidders.  At the end the group's lanes meet by shuffles in the order-free
+// merge: best = max, the lower index on equal best, second-best =
+// max(min(best_1, best_2), max(second_1, second_2)); it is commutative and
+// associative, so the result does not depend on how the targets were cut.
+// Where B * W is small the targets are also cut into chunks across blocks;
+// each block writes its partial results, and the last block of a row of
+// chunks to arrive (an integer arrival count, no float atomics) merges
+// them.  The caller's cached top2_plan picks G and the chunks so that
+// every width of the staged schedule (W = 16384 down to 256, B = 2 in
+// training, 1 in evaluation) has about 256 blocks, two on each of the 132
+// SMs; the entry point recomputes the plan's arithmetic and refuses a
+// launch that disagrees.  The [.., 8] lane padding, the 1e6 dummy targets
+// and the tile-height rules of the TPU kernel are not carried over.
 //
-// Arithmetic: float32, every multiply, add and subtract through the
-// round-to-nearest intrinsics, so nothing contracts to an FMA, and the
-// square root is the IEEE one (no --use_fast_math).  The plain PyTorch
-// version does the same operations in the same order, each rounded, so on
-// the card the two agree bit for bit and the argmax with them; against the
-// JAX package (whose cross term comes from a matrix unit) values agree to
-// float32 rounding of numbers near 3, a few 1e-7.
+// Why lanes share bidders: the skip below leaves a warp on the exact path
+// whenever one of its lanes needs it.  With 32 different bidders in a warp
+// (a thread a bidder) that happened for about a sixth of the targets; with
+// G lanes on the same bidders and a threshold shared by the group it is a
+// few percent, and a group's sharing costs a few shuffles after tiles 0,
+// 1, 3, 7, 15, ...
+//
+// The square-root skip (where a lane has at least 32 targets of its
+// chunk): before the exact value, a lower bound of d^2 - (c - b)^2 is made
+// with four fused multiply-adds, where c = ((3 - price) + 2^-16 (8 +
+// |price|)) (1 + 2^-16) is the target's half of the threshold and b =
+// (v - 2^-16 |v|) (1 + 2^-16) the bidder's, from the highest second-best v
+// that the group or the lane holds; |a|^2 and |t|^2 enter 2^-17 low and
+// c^2 + b^2 2^-20 high.  If the bound is >= 0 the exact value is below v,
+// which two targets that stay in the group's result back, so the pair
+// would change nothing and is skipped; each margin is at least 5 times the
+// float32 rounding it covers, in the exact path and in the bound.  A
+// skipped pair costs 5 operations and a share of one branch, an evaluated
+// one about 30 (the IEEE square root is a special-function operation and a
+// correction sequence).
+//
+// Arithmetic: float32, every multiply, add and subtract of the value
+// through the round-to-nearest intrinsics, so nothing contracts to an FMA,
+// and the square root is the IEEE one (no --use_fast_math).  The plain
+// PyTorch version does the same operations in the same order, each
+// rounded, so on the card the two agree bit for bit and the argmax with
+// them; against the JAX package (whose cross term comes from a matrix
+// unit) values agree to float32 rounding of numbers near 3, a few 1e-7.
 //
 // Bound on the H100: operations.  B * W * M pairs of 12 float32 operations
 // and one square root, against 12 bytes per bidder and 16 per target read
 // once.  The square root goes through the special-function unit (16 a clock
 // on each SM against 128 float32 lanes), which makes it the tighter limit.
+// What holds the kernel above it: the unfused arithmetic takes 12
+// instruction slots a pair where the bound counts FMA-rate operations, and
+// the top-two update several more; the skip takes the square root and the
+// update off most pairs at the price of 5 slots each.
 //
 // auction_window replaces pallas_auction_window of the same file: up to
 // rounds_cap whole auction rounds {bid, resolve, assign with eviction} for a
@@ -76,8 +110,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // top2 block
-constexpr int kTile = 1024;         // targets staged per tile (20 KiB)
+constexpr int kTop2Threads = 256;   // top2 block (top2_plan's threads)
+constexpr int kTop2Bidders = 4;     // bidders a top2 lane group holds
+constexpr int kTop2Tile = 256;      // targets a staged tile (8 KiB)
+// the square-root skip's margins: 2^-16 of the values' scale, 2^-17 of
+// |a|^2 + |t|^2 and 2^-20 of the threshold's square, each several times
+// the float32 rounding it covers
+constexpr float kSkipRel = 1.52587890625e-05f;   // 2^-16
+constexpr float kSkipSq = 0.999992370605f;       // 1 - 2^-17
+constexpr float kSkipTh = 1.00000095367f;        // 1 + 2^-20
 constexpr int kWindowThreads = 1024;
 constexpr float kNeg = -1e9f;       // "no second-best", as in the JAX package
 constexpr unsigned kFull = 0xffffffffu;
@@ -126,62 +167,237 @@ __device__ __forceinline__ void top2_merge_lanes(Top2& s, int lanes) {
   }
 }
 
-template <int SPLIT>
-__global__ void __launch_bounds__(kThreads)
-top2_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
-            const float* __restrict__ price, float* __restrict__ best,
-            float* __restrict__ better, int* __restrict__ best_i, int W,
-            int M) {
-  constexpr int kBidders = kThreads / SPLIT;   // bidders per block
-  __shared__ float4 t_s[kTile];
-  __shared__ float p_s[kTile];
-  const int b = blockIdx.y;
-  const int j = blockIdx.x * kBidders + threadIdx.x / SPLIT;
-  const int slice = threadIdx.x % SPLIT;
-  const bool valid = j < W;
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  if (valid) {
-    const float* a = x1 + ((int64_t)b * W + j) * 3;
-    ax = a[0];
-    ay = a[1];
-    az = a[2];
-  }
-  const float asq = sq_norm(ax, ay, az);
-  const float* x2b = x2 + (int64_t)b * M * 3;
-  const float* pb = price + (int64_t)b * M;
-  Top2 s = {kNeg, kNeg, 0};
-  for (int m0 = 0; m0 < M; m0 += kTile) {
-    const int cnt = min(kTile, M - m0);
-    __syncthreads();   // the previous tile is no longer read
-    for (int t = threadIdx.x; t < cnt; t += kThreads) {
-      const float* c = x2b + (int64_t)(m0 + t) * 3;
-      const float x = c[0], y = c[1], z = c[2];
-      t_s[t] = make_float4(x, y, z, sq_norm(x, y, z));
-      p_s[t] = pb[m0 + t];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int t = slice; t < cnt; t += SPLIT)
-      top2_push(s, bid_value(ax, ay, az, asq, t_s[t], p_s[t]), m0 + t);
-  }
-  top2_merge_lanes(s, SPLIT);
-  if (valid && slice == 0) {
-    const int64_t o = (int64_t)b * W + j;
-    best[o] = s.best;
-    better[o] = s.better;
-    best_i[o] = s.idx;
-  }
+// The skip threshold's bidder half: (better - 2^-16 |better|) (1 + 2^-16).
+__device__ __forceinline__ float skip_bidder(float better) {
+  return (better - kSkipRel * fabsf(better)) * (1.0f + kSkipRel);
 }
 
-template <int SPLIT>
-int launch_top2(const float* x1, const float* x2, const float* price,
-                float* best, float* better, int* best_i, int B, int W, int M,
-                cudaStream_t stream) {
-  constexpr int kBidders = kThreads / SPLIT;
-  dim3 grid((unsigned int)((W + kBidders - 1) / kBidders), (unsigned int)B);
-  top2_kernel<SPLIT><<<grid, kThreads, 0, stream>>>(x1, x2, price, best,
-                                                    better, best_i, W, M);
-  return (int)cudaGetLastError();
+// A target as the search reads it from shared memory: p = (x, y, z,
+// |t|^2) and q = ((1 - 2^-17) |t|^2 - (1 + 2^-20) c^2, price, c, 0) with c
+// the skip threshold's target half, ((3 - price) + 2^-16 (8 + |price|))
+// (1 + 2^-16).
+__device__ __forceinline__ void pack_target(float x, float y, float z,
+                                            float p, float4* dp,
+                                            float4* dq) {
+  const float sq = sq_norm(x, y, z);
+  const float c = ((3.0f - p) + kSkipRel * (8.0f + fabsf(p)))
+                  * (1.0f + kSkipRel);
+  *dp = make_float4(x, y, z, sq);
+  *dq = make_float4(sq * kSkipSq - c * c * kSkipTh, p, c, 0.0f);
+}
+
+// Block (bx, chunk, b): a group of kG neighbouring lanes holds the 4
+// bidders (bx * (256 / kG) + g) * 4 + q of group g, the same in all its
+// lanes, against the targets [chunk * chunk_len, min(M, (chunk + 1) *
+// chunk_len)).  The targets come in tiles of kTop2Tile, packed into one of
+// two shared-memory buffers by the block's first kTop2Tile threads: the
+// next tile's coordinates and prices are loaded into registers before the
+// current tile is searched and packed after it, one barrier a tile.  Lane
+// r of a group takes the targets r, r + kG, ... of each tile, in rising
+// order, with a running top two per bidder; each target it reads serves
+// the four bidders.  A bidder's skip threshold is the group's second-best
+// (the order-free merge of its lanes' top twos, by shuffles after tiles 0,
+// 1, 3, 7, 15, ...) or the lane's own second-best, whichever is higher:
+// either is backed by two targets that stay in the group's result, so a
+// pair below it cannot change the bidder's top two.  The group's lanes
+// then meet by shuffles.  With one chunk the block writes the result; with
+// more it writes row chunk * B + b of the partial results [chunks, B, W],
+// and the last of the chunks' blocks of (bx, b) to arrive (an arrival
+// count in `arrived`, which it sets back to 0) merges them.
+template <bool kSkip, int kG>
+__global__ void __launch_bounds__(kTop2Threads)
+top2_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
+            const float* __restrict__ price, float* __restrict__ best,
+            float* __restrict__ better, int* __restrict__ best_i,
+            float* __restrict__ pb, float* __restrict__ ps,
+            int* __restrict__ pi, int* __restrict__ arrived, int B, int W,
+            int M, int chunk_len) {
+  static_assert(kG >= 8 && kG <= 32, "the merge takes kG / 4 lanes a bidder");
+  constexpr int kGroups = kTop2Threads / kG;
+  constexpr int kPerBlock = kGroups * kTop2Bidders;
+  __shared__ __align__(16) float4 s_p[2][kTop2Tile];
+  __shared__ __align__(16) float4 s_q[2][kTop2Tile];
+  __shared__ int s_last;
+  const int b = blockIdx.z;
+  const int chunk = blockIdx.y;
+  const int chunks = gridDim.y;
+  const int sub = threadIdx.x % kG;
+  const int j0 = (blockIdx.x * kGroups + threadIdx.x / kG) * kTop2Bidders;
+  const int k0 = chunk * chunk_len;
+  const int k1 = min(M, k0 + chunk_len);
+  float ax[kTop2Bidders], ay[kTop2Bidders], az[kTop2Bidders];
+  float asq[kTop2Bidders], nx[kTop2Bidders], ny[kTop2Bidders];
+  float nz[kTop2Bidders], asq_s[kTop2Bidders], shared_b[kTop2Bidders];
+  float b2[kTop2Bidders], bq[kTop2Bidders];
+  Top2 s[kTop2Bidders];
+  // the skip threshold's bidder half from the second-best it stands for:
+  // b = skip_bidder(value), kept as 2 b and (1 - 2^-17) |a|^2 - (1 +
+  // 2^-20) b^2
+  auto set_threshold = [&](int q, float value) {
+    const float bb = skip_bidder(value);
+    b2[q] = 2.0f * bb;
+    bq[q] = asq_s[q] - bb * bb * kSkipTh;
+  };
+#pragma unroll
+  for (int q = 0; q < kTop2Bidders; ++q) {
+    const int j = min(j0 + q, W - 1);   // a bidder past W computes, unread
+    const float* a = x1 + ((int64_t)b * W + j) * 3;
+    ax[q] = a[0];
+    ay[q] = a[1];
+    az[q] = a[2];
+    asq[q] = sq_norm(ax[q], ay[q], az[q]);
+    nx[q] = -2.0f * ax[q];
+    ny[q] = -2.0f * ay[q];
+    nz[q] = -2.0f * az[q];
+    asq_s[q] = asq[q] * kSkipSq;
+    s[q] = Top2{kNeg, kNeg, 0};
+    shared_b[q] = kNeg;
+    set_threshold(q, kNeg);
+  }
+  const bool busy = j0 < W;   // the same in the whole group
+  const float* gx = x2 + ((int64_t)b * M + k0) * 3;
+  const float* gpr = price + (int64_t)b * M + k0;
+  const int n = k1 - k0;
+  const int tiles = (n + kTop2Tile - 1) / kTop2Tile;
+  // the staging thread's target of the next tile, in registers
+  float tx = 0.f, ty = 0.f, tz = 0.f, tpr = 0.f;
+  auto fetch = [&](int tile) {
+    const int i = tile * kTop2Tile + threadIdx.x;
+    if (threadIdx.x < kTop2Tile && i < n) {
+      tx = gx[3 * i];
+      ty = gx[3 * i + 1];
+      tz = gx[3 * i + 2];
+      tpr = gpr[i];
+    }
+  };
+  auto pack = [&](int tile) {
+    if (threadIdx.x < kTop2Tile && tile * kTop2Tile + threadIdx.x < n)
+      pack_target(tx, ty, tz, tpr, &s_p[tile & 1][threadIdx.x],
+                  &s_q[tile & 1][threadIdx.x]);
+  };
+  fetch(0);
+  pack(0);
+  for (int tile = 0; tile < tiles; ++tile) {
+    // the tile is packed, and every thread is done with the buffer that
+    // the next tile goes to
+    __syncthreads();
+    if (tile + 1 < tiles) fetch(tile + 1);
+    const int base = tile * kTop2Tile;
+    const int cnt = busy ? min(kTop2Tile, n - base) : 0;
+    const float4* cp = s_p[tile & 1];
+    const float4* cq = s_q[tile & 1];
+#pragma unroll 2
+    for (int i = sub; i < cnt; i += kG) {
+      const float4 t = cp[i];
+      const float4 u = cq[i];
+      const int k = k0 + base + i;
+      if (kSkip) {
+        // per bidder a lower bound of d^2 less the threshold's square,
+        // (c - b)^2: where it is >= 0 the value is below a second-best the
+        // group holds and would change nothing; the four tests first, then
+        // one branch for the target
+        bool skip_all = true;
+        bool keep[kTop2Bidders];
+#pragma unroll
+        for (int q = 0; q < kTop2Bidders; ++q) {
+          float e = __fmaf_rn(b2[q], u.z, u.x + bq[q]);
+          e = __fmaf_rn(nx[q], t.x, e);
+          e = __fmaf_rn(ny[q], t.y, e);
+          e = __fmaf_rn(nz[q], t.z, e);
+          keep[q] = !(e >= 0.0f);
+          skip_all &= !keep[q];
+        }
+        if (skip_all) continue;
+#pragma unroll
+        for (int q = 0; q < kTop2Bidders; ++q) {
+          if (!keep[q]) continue;
+          top2_push(s[q], bid_value(ax[q], ay[q], az[q], asq[q], t, u.y),
+                    k);
+          set_threshold(q, fmaxf(shared_b[q], s[q].better));
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kTop2Bidders; ++q)
+          top2_push(s[q], bid_value(ax[q], ay[q], az[q], asq[q], t, u.y),
+                    k);
+      }
+    }
+    if (kSkip && kG > 1 && (tile & (tile + 1)) == 0) {
+#pragma unroll
+      for (int q = 0; q < kTop2Bidders; ++q) {
+        float v1 = s[q].best, v2 = s[q].better;
+#pragma unroll
+        for (int off = kG >> 1; off > 0; off >>= 1) {
+          const float o1 = __shfl_xor_sync(kFull, v1, off);
+          const float o2 = __shfl_xor_sync(kFull, v2, off);
+          v2 = fmaxf(fminf(v1, o1), fmaxf(v2, o2));
+          v1 = fmaxf(v1, o1);
+        }
+        shared_b[q] = fmaxf(shared_b[q], v2);
+        set_threshold(q, fmaxf(shared_b[q], s[q].better));
+      }
+    }
+    if (tile + 1 < tiles) pack(tile + 1);
+  }
+#pragma unroll
+  for (int q = 0; q < kTop2Bidders; ++q) {
+    top2_merge_lanes(s[q], kG);
+    if (sub == 0 && j0 + q < W) {
+      const int64_t o = (chunks == 1 ? 0 : (int64_t)chunk * B * W)
+                        + (int64_t)b * W + j0 + q;
+      (chunks == 1 ? best : pb)[o] = s[q].best;
+      (chunks == 1 ? better : ps)[o] = s[q].better;
+      (chunks == 1 ? best_i : pi)[o] = s[q].idx;
+    }
+  }
+  if (chunks == 1) return;
+  // the partial results of this block are written before it counts itself
+  if (sub == 0) __threadfence();
+  __syncthreads();
+  int* count = arrived + (int64_t)b * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0) s_last = atomicAdd(count, 1) == chunks - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last block: kTop2Threads / kPerBlock lanes a bidder take the
+  // chunks c = l, l + lanes, ... (read past L1: other blocks wrote them),
+  // then meet by shuffles
+  constexpr int kLanes = kTop2Threads / kPerBlock;
+  const int jm = blockIdx.x * kPerBlock + threadIdx.x / kLanes;
+  const int64_t row = (int64_t)b * W + min(jm, W - 1);
+  Top2 m = {kNeg, kNeg, 0};
+  for (int c = threadIdx.x % kLanes; c < chunks; c += kLanes) {
+    const int64_t o = (int64_t)c * B * W + row;
+    const float ob = __ldcg(pb + o), obt = __ldcg(ps + o);
+    const int oi = __ldcg(pi + o);
+    const float nbetter = fmaxf(fminf(m.best, ob), fmaxf(m.better, obt));
+    if (ob > m.best || (ob == m.best && oi < m.idx)) m.idx = oi;
+    m.best = fmaxf(m.best, ob);
+    m.better = nbetter;
+  }
+  top2_merge_lanes(m, kLanes);
+  if (threadIdx.x % kLanes == 0 && jm < W) {
+    best[row] = m.best;
+    better[row] = m.better;
+    best_i[row] = m.idx;
+  }
+  if (threadIdx.x == 0) *count = 0;   // ready for the next call
+}
+
+template <int kG>
+void launch_top2_search(dim3 grid, cudaStream_t s, int skip, const float* x1,
+                        const float* x2, const float* price, float* best,
+                        float* better, int* best_i, float* pb, float* ps,
+                        int* pi, int* arrived, int B, int W, int M,
+                        int chunk_len) {
+  if (skip)
+    top2_kernel<true, kG><<<grid, kTop2Threads, 0, s>>>(
+        x1, x2, price, best, better, best_i, pb, ps, pi, arrived, B, W, M,
+        chunk_len);
+  else
+    top2_kernel<false, kG><<<grid, kTop2Threads, 0, s>>>(
+        x1, x2, price, best, better, best_i, pb, ps, pi, arrived, B, W, M,
+        chunk_len);
 }
 
 // Dynamic shared memory: jr, la, bi [W] int, inc [W] float, win [W] int,
@@ -308,22 +524,54 @@ auction_window_kernel(const float* __restrict__ x1w,
 // Plain C entry points for ctypes: each launches on the given stream, does
 // not synchronise, and returns cudaGetLastError() (0 = launched).
 
-// split: lanes per bidder, a power of two from 1 to 32.
+// The bid search on the caller's plan (top2_plan), one launch.  Its
+// integers come as one host array p, cached per shape by the wrapper (one
+// ctypes argument instead of nine; ctypes converts every argument on every
+// call): B, W, M, then `threads` a block, `group` lanes (8, 16 or 32) to a
+// set of 4 bidders, `bidder_blocks` blocks of bidders per batch row, the
+// targets in `chunks` chunks of `chunk_len`, and `skip`, which turns the
+// exact square-root skip on.  With more than one chunk, `scratch` holds 3 *
+// chunks * B * W words of partial results and `arrived` B * bidder_blocks
+// ints that are 0 (the kernel leaves them 0 again; calls that may overlap
+// need counts of their own).  The entry point recomputes the plan's
+// arithmetic and launches nothing when it disagrees.
 extern "C" int ct_emd_top2(const float* x1, const float* x2,
                            const float* price, float* best, float* better,
-                           int* best_i, int B, int W, int M, int split,
-                           void* stream) {
+                           int* best_i, float* scratch, int* arrived,
+                           const int* p, void* stream) {
+  const int B = p[0], W = p[1], M = p[2], threads = p[3], group = p[4],
+            bidder_blocks = p[5], chunks = p[6], chunk_len = p[7],
+            skip = p[8];
   if (B <= 0 || W <= 0) return 0;
+  if (group != 8 && group != 16 && group != 32)
+    return (int)cudaErrorInvalidValue;
+  const int per_block = kTop2Threads / group * kTop2Bidders;
+  if (M <= 0 || threads != kTop2Threads ||
+      bidder_blocks != (W + per_block - 1) / per_block || chunks <= 0 ||
+      chunks > 65535 || B > 65535 || chunk_len <= 0 ||
+      (int64_t)chunk_len * chunks < M ||
+      (int64_t)chunk_len * (chunks - 1) >= M ||
+      (int64_t)B * M * 3 >= ((int64_t)1 << 31) ||
+      (chunks > 1 && (scratch == nullptr || arrived == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (split) {
-    case 1: return launch_top2<1>(x1, x2, price, best, better, best_i, B, W, M, s);
-    case 2: return launch_top2<2>(x1, x2, price, best, better, best_i, B, W, M, s);
-    case 4: return launch_top2<4>(x1, x2, price, best, better, best_i, B, W, M, s);
-    case 8: return launch_top2<8>(x1, x2, price, best, better, best_i, B, W, M, s);
-    case 16: return launch_top2<16>(x1, x2, price, best, better, best_i, B, W, M, s);
-    case 32: return launch_top2<32>(x1, x2, price, best, better, best_i, B, W, M, s);
+  float* pb = scratch;
+  float* ps = pb + (chunks > 1 ? (int64_t)chunks * B * W : 0);
+  int* pi = reinterpret_cast<int*>(ps + (chunks > 1 ? (int64_t)chunks * B * W
+                                                     : 0));
+  const dim3 grid((unsigned)bidder_blocks, (unsigned)chunks, (unsigned)B);
+  switch (group) {
+#define CT_TOP2(G)                                                         \
+  case G:                                                                  \
+    launch_top2_search<G>(grid, s, skip, x1, x2, price, best, better,      \
+                          best_i, pb, ps, pi, arrived, B, W, M, chunk_len); \
+    break
+    CT_TOP2(8);
+    CT_TOP2(16);
+    CT_TOP2(32);
+#undef CT_TOP2
   }
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 // Bytes of dynamic shared memory the window kernel asks for.

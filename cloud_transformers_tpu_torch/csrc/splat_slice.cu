@@ -15,14 +15,30 @@
 //   floats order like their bit patterns, and a contribution <= 0 (-0.0
 //   included) always loses to the zero fill, so the result is exact and the
 //   same in every run, whatever order the atomics land in.
-// * slice: one thread per (point, feature), no atomics: the weighted sum of
-//   the 2^dim vertex values, read with neighbouring threads on neighbouring
-//   features.
+// * slice: point-major.  A point is served by a group of 1, 2, 4 or 8 lanes
+//   (the next power of two >= ceil(F / 4), at most 8), each lane holding a
+//   quad of 4 features, and a thread serves 4 points in 2D and 2 in 3D
+//   (fewer when the launch would not fill the card), so that a thread has
+//   up to 16 row gathers in flight before its first sum.  The mapping is
+//   loaded once per point and lane: x0 and lane0 as words, w_lo and w_hi
+//   as one float4 each through the read-only path; the lanes of a group
+//   read the same addresses, which one request serves (a shuffle would
+//   cost more instructions than the broadcast load).
+//   Where F % 4 == 0 (every head group of the classifier and of the
+//   completion model) grid rows are read and outputs written as float4; a
+//   scalar path in the same kernel takes any other F.  Index arithmetic is
+//   32-bit: the wrapper and the entry point refuse R*K*F or R*G*F >= 2^31.
+//   The launch numbers (group, points a thread, blocks) come from the
+//   caller's cached slice_plan, and the entry point refuses a launch whose
+//   numbers it does not recompute.  The sum runs over the lo vertices, then
+//   the hi ones, each term one fused multiply-add from 0, in every run.
 //
 // Bound on the H100: bytes.  Each point reads 40 bytes of mapping and 4F of
 // features, and the grid is written (splat) or read (slice) once; the
 // arithmetic is a few operations per byte.  The splat's atomics are what
 // keeps it from that bound: 2^dim * F of them per point, resolved in L2.
+// The slice's grid rows are scattered: at F = 4 a row is 16 bytes of a
+// 32-byte sector, so up to half of what it moves is not used.
 // Shared-memory tiling of the grid by x slabs is later work.
 //
 // The backward kernels replace pallas_splat_bwd (winner mode) and
@@ -75,6 +91,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSliceThreads = 256;   // slice block (slice_plan's threads)
 
 __global__ void splat_max_kernel(const int* __restrict__ x0,
                                  const int* __restrict__ lane0,
@@ -107,35 +124,92 @@ __global__ void splat_max_kernel(const int* __restrict__ x0,
   }
 }
 
-__global__ void slice_kernel(const int* __restrict__ x0,
-                             const int* __restrict__ lane0,
-                             const float* __restrict__ w_lo,
-                             const float* __restrict__ w_hi,
-                             const float* __restrict__ grid,
-                             float* __restrict__ out,
-                             int64_t n_points_total, int K, int F, int G,
-                             int lane_extent, int off2, int off3,
-                             int n_vert) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_points_total * F) return;
-  const int64_t p = t / F;
-  const int f = (int)(t - p * F);
-  const int64_t r = p / K;
-  const int base = x0[p] * lane_extent + lane0[p];
+__device__ __forceinline__ void fma4(float4& acc, float w, float4 v) {
+  acc.x = __fmaf_rn(w, v.x, acc.x);
+  acc.y = __fmaf_rn(w, v.y, acc.y);
+  acc.z = __fmaf_rn(w, v.z, acc.z);
+  acc.w = __fmaf_rn(w, v.w, acc.w);
+}
+
+// slice: a group of kGroup lanes per point, each lane a quad of 4
+// features (more quads by a stride of kGroup where F > 4 * kGroup), and kP
+// points a thread.  Lane `sub` of group `g` in the block takes the points
+// block_start + i * (threads / kGroup) + g, i < kP, so that neighbouring
+// groups hold neighbouring points (coalesced mapping loads and stores).
+// The mapping is loaded once per point and lane: x0 and lane0 as two words,
+// w_lo and w_hi as one float4 each through the read-only path; the lanes of
+// one group read the same addresses, which one request serves.  kVec: F % 4
+// == 0 and every array 16-byte aligned, grid rows read and outputs written
+// as float4.  All the mapping and grid loads of the kP points are in
+// flight before the first sum.  The sum runs over the lo vertices, then the hi
+// ones, each term one rounded fused multiply-add, from 0.
+template <int kGroup, int kP, int kNV, bool kVec>
+__global__ void __launch_bounds__(kSliceThreads)
+slice_kernel(const int* __restrict__ x0, const int* __restrict__ lane0,
+             const float4* __restrict__ w_lo, const float4* __restrict__ w_hi,
+             const float* __restrict__ grid, float* __restrict__ out, int n,
+             int K, int F, int G, int lane_extent, int off2, int off3) {
+  constexpr int kGroups = kSliceThreads / kGroup;
+  const int g = threadIdx.x / kGroup;
+  const int sub = threadIdx.x % kGroup;
+  const int p0 = blockIdx.x * (kGroups * kP) + g;
+  const int quads = (F + 3) >> 2;
+  int row[kP], base[kP];
+  float wl[kP][4], wh[kP][4];
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const int p = min(p0 + i * kGroups, n - 1);   // clamped: no load past n
+    const float4 a = __ldg(w_lo + p), c = __ldg(w_hi + p);
+    wl[i][0] = a.x; wl[i][1] = a.y; wl[i][2] = a.z; wl[i][3] = a.w;
+    wh[i][0] = c.x; wh[i][1] = c.y; wh[i][2] = c.z; wh[i][3] = c.w;
+    base[i] = __ldg(x0 + p) * lane_extent + __ldg(lane0 + p);
+    row[i] = p / K;
+  }
   const int offs[4] = {0, 1, off2, off3};
-  const float* g = grid + r * (int64_t)G * F + f;
-  float acc = 0.0f;
+  for (int q = sub; q < quads; q += kGroup) {
+    const int f = q << 2;
+    if (kVec) {
+      float4 v[kP][2 * kNV];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (j >= n_vert) break;
-    acc += w_lo[p * 4 + j] * g[(int64_t)(base + offs[j]) * F];
-  }
+      for (int i = 0; i < kP; ++i) {
+        const float* gr = grid + (row[i] * G + base[i]) * F + f;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (j >= n_vert) break;
-    acc += w_hi[p * 4 + j] * g[(int64_t)(base + lane_extent + offs[j]) * F];
+        for (int j = 0; j < kNV; ++j) {
+          v[i][j] = __ldg(reinterpret_cast<const float4*>(gr + offs[j] * F));
+          v[i][kNV + j] = __ldg(reinterpret_cast<const float4*>(
+              gr + (lane_extent + offs[j]) * F));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kP; ++i) {
+        const int p = p0 + i * kGroups;
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < kNV; ++j) fma4(acc, wl[i][j], v[i][j]);
+#pragma unroll
+        for (int j = 0; j < kNV; ++j) fma4(acc, wh[i][j], v[i][kNV + j]);
+        if (p < n) *reinterpret_cast<float4*>(out + p * F + f) = acc;
+      }
+    } else {
+      const int nf = min(4, F - f);
+#pragma unroll
+      for (int i = 0; i < kP; ++i) {
+        const int p = p0 + i * kGroups;
+        const float* gr = grid + (row[i] * G + base[i]) * F + f;
+        for (int e = 0; e < nf; ++e) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kNV; ++j)
+            acc = __fmaf_rn(wl[i][j], __ldg(gr + offs[j] * F + e), acc);
+#pragma unroll
+          for (int j = 0; j < kNV; ++j)
+            acc = __fmaf_rn(wh[i][j],
+                            __ldg(gr + (lane_extent + offs[j]) * F + e), acc);
+          if (p < n) out[p * F + f + e] = acc;
+        }
+      }
+    }
   }
-  out[t] = acc;
 }
 
 // ---- backward kernels ------------------------------------------------------
@@ -353,6 +427,49 @@ unsigned int n_blocks(int64_t n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
 }
 
+// Lanes of a slice group: the next power of two >= the feature quads, at
+// most 8.
+int slice_group(int F) {
+  const int quads = (F + 3) / 4;
+  int group = 1;
+  while (group < quads && group < 8) group <<= 1;
+  return group;
+}
+
+template <int kGroup, int kP>
+int launch_slice(const int* x0, const int* lane0, const float* w_lo,
+                 const float* w_hi, const float* grid, float* out, int n,
+                 int K, int F, int G, int lane_extent, int off2, int off3,
+                 int n_vert, int vec, unsigned int blocks,
+                 cudaStream_t stream) {
+  const float4* wl = reinterpret_cast<const float4*>(w_lo);
+  const float4* wh = reinterpret_cast<const float4*>(w_hi);
+#define CT_SLICE(NV, VEC)                                                  \
+  slice_kernel<kGroup, kP, NV, VEC><<<blocks, kSliceThreads, 0, stream>>>( \
+      x0, lane0, wl, wh, grid, out, n, K, F, G, lane_extent, off2, off3)
+  if (n_vert == 2) {
+    if (vec) CT_SLICE(2, true); else CT_SLICE(2, false);
+  } else {
+    if (vec) CT_SLICE(4, true); else CT_SLICE(4, false);
+  }
+#undef CT_SLICE
+  return (int)cudaGetLastError();
+}
+
+template <int kGroup>
+int launch_slice_g(int P, const int* x0, const int* lane0, const float* w_lo,
+                   const float* w_hi, const float* grid, float* out, int n,
+                   int K, int F, int G, int lane_extent, int off2, int off3,
+                   int n_vert, int vec, unsigned int blocks,
+                   cudaStream_t stream) {
+  switch (P) {
+    case 1: return launch_slice<kGroup, 1>(x0, lane0, w_lo, w_hi, grid, out, n, K, F, G, lane_extent, off2, off3, n_vert, vec, blocks, stream);
+    case 2: return launch_slice<kGroup, 2>(x0, lane0, w_lo, w_hi, grid, out, n, K, F, G, lane_extent, off2, off3, n_vert, vec, blocks, stream);
+    case 4: return launch_slice<kGroup, 4>(x0, lane0, w_lo, w_hi, grid, out, n, K, F, G, lane_extent, off2, off3, n_vert, vec, blocks, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  Each launches on the given stream,
@@ -372,16 +489,51 @@ extern "C" int ct_splat_max(const int* x0, const int* lane0, const float* w_lo,
   return (int)cudaGetLastError();
 }
 
+// The slice on the caller's plan (slice_plan): `group` lanes a point,
+// `points` (1, 2 or 4) points a thread, `threads` a block, `blocks` blocks,
+// `vec` for float4 rows.  The entry point recomputes each of them and
+// launches nothing when one disagrees, when an index would reach 2^31, or
+// when `vec` is asked of arrays that are not 16-byte aligned.
+// The slice's integers come as one host array p (the wrapper caches one per
+// shape and hands over its address: ctypes converts every argument on every
+// call, and thirteen ints cost more host time than the kernel at small
+// shapes): R, K, F, G, lane_extent, off2, off3, n_vert, then the plan's
+// group, points a thread, threads, blocks and float4 flag.
 extern "C" int ct_slice(const int* x0, const int* lane0, const float* w_lo,
                         const float* w_hi, const float* grid, float* out,
-                        int R, int K, int F, int G, int lane_extent, int off2,
-                        int off3, int n_vert, void* stream) {
+                        const int* p, void* stream) {
+  const int R = p[0], K = p[1], F = p[2], G = p[3], lane_extent = p[4],
+            off2 = p[5], off3 = p[6], n_vert = p[7], group = p[8],
+            points = p[9], threads = p[10], blocks = p[11], vec = p[12];
   const int64_t n = (int64_t)R * K;
-  if (n * F > 0)
-    slice_kernel<<<n_blocks(n * F), kThreads, 0, (cudaStream_t)stream>>>(
-        x0, lane0, w_lo, w_hi, grid, out, n, K, F, G, lane_extent, off2,
-        off3, n_vert);
-  return (int)cudaGetLastError();
+  if (n * F <= 0) return 0;
+  const int64_t limit = (int64_t)1 << 31;
+  if (n * F >= limit || (int64_t)R * G * F >= limit)
+    return (int)cudaErrorInvalidValue;
+  const int64_t per_block = (int64_t)points * (kSliceThreads / group);
+  // the weights are read as float4 on either path, the rows with vec
+  const bool rows_aligned = ((uintptr_t)grid | (uintptr_t)out) % 16 == 0;
+  if (group != slice_group(F) || threads != kSliceThreads ||
+      (points != 1 && points != 2 && points != 4) ||
+      blocks != (n + per_block - 1) / per_block ||
+      vec != (F % 4 == 0 && rows_aligned) || (n_vert != 2 && n_vert != 4) ||
+      ((uintptr_t)w_lo | (uintptr_t)w_hi) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned int nb = (unsigned int)blocks;
+  switch (group) {
+#define CT_SLICE_G(GR)                                                        \
+  case GR:                                                                    \
+    return launch_slice_g<GR>(points, x0, lane0, w_lo, w_hi, grid, out,       \
+                              (int)n, K, F, G, lane_extent, off2, off3,       \
+                              n_vert, vec, nb, s)
+    CT_SLICE_G(1);
+    CT_SLICE_G(2);
+    CT_SLICE_G(4);
+    CT_SLICE_G(8);
+#undef CT_SLICE_G
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Two launches: the winner map (int32 [R, G, F], filled with INT_MAX by the

@@ -39,7 +39,9 @@ _NEG = -1e9
 # On a CUDA tensor, rounds of at least this many bidders go to the top2
 # kernel and narrower ones to the plain version.  On an NVIDIA H100 80GB
 # HBM3 (700 W limit) the kernel is the faster of the two at every width the
-# staged schedule has (see PERF.md, kernel #11), so every round takes it.
+# staged schedule has, B = 2 and B = 1, W = 16384 down to 256, both in a
+# loop of launches and in device time (PERF.md, kernel #11, from
+# chip_smoke.py), so every round takes it.
 _KERNEL_BID_MIN_WIDTH = 1
 
 # The fused window tail (ops/pallas_emd.py auction_window): once at most

@@ -20,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,7 +34,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "splat_slice": {
         "ct_splat_max": [_P] * 6 + [_I] * 8 + [_P],
-        "ct_slice": [_P] * 6 + [_I] * 8 + [_P],
+        "ct_slice": [_P] * 8,
         "ct_splat_max_bwd": [_P] * 11 + [_I] * 8 + [_P],
         "ct_slice_bwd": [_P] * 9 + [_I] * 8 + [_P],
         "ct_splat_max_winner": [_P] * 8 + [_I] * 8 + [_P],
@@ -48,7 +50,7 @@ SIGNATURES = {
         "ct_fused_block": [_P] * 10 + [_I] * 9 + [_P],
     },
     "emd": {
-        "ct_emd_top2": [_P] * 6 + [_I] * 4 + [_P],
+        "ct_emd_top2": [_P] * 10,
         "ct_emd_auction_window": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
     },
 }
@@ -119,6 +121,22 @@ def libraries():
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[stem] = lib
     return _loaded
+
+
+def int_params(*values):
+    """(C int array of ``values``, its address) for an entry point that
+    takes its integers by address.  Cache it per shape and keep the array:
+    ctypes converts every argument on every call, which for a dozen ints
+    costs more host time than a small kernel takes on the card."""
+    arr = (ctypes.c_int * len(values))(*values)
+    return arr, ctypes.addressof(arr)
+
+
+def current_stream(device):
+    """Raw handle of ``device``'s current CUDA stream: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object at every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err, what):

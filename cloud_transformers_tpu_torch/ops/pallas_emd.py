@@ -21,6 +21,9 @@ round every multiply, add and subtract on its own, in the kernels' order, so
 on one device the two agree bit for bit.
 """
 
+import collections
+import functools
+
 import torch
 
 from cloud_transformers_tpu_torch.ops import cuda_build
@@ -29,9 +32,24 @@ _NEG = -1e9          # "no second-best"; the same in losses/emd.py
 _BIG_J = 2 ** 30     # "no bidder" in a per-target lowest-id search
 # what one block may have of dynamic shared memory on an H100
 _SMEM_BYTES = 232448
-# threads the card should have in flight before a bidder stops being split
-# over more lanes: 132 SMs x 768
-_TOP2_FILL_THREADS = 132 * 768
+# the top2 kernel's block: threads, bidders a lane group, the fewest
+# targets a chunk takes (csrc: kTop2Threads, kTop2Bidders)
+TOP2_THREADS = 256
+TOP2_BIDDERS = 4
+TOP2_MIN_CHUNK = 64
+# streaming multiprocessors of an H100 SXM; a search should have about two
+# blocks of 8 warps on each (256 blocks), and its lane groups should have
+# TOP2_FILL_LANES lanes in all before the targets are cut into chunks
+SMS = 132
+TOP2_FILL_BLOCKS = 256
+TOP2_FILL_LANES = TOP2_FILL_BLOCKS * TOP2_THREADS
+# the search skips the square root of a pair that cannot enter its
+# bidder's top two (exact: bit-equal either way) where a lane has at least
+# TOP2_SKIP_MIN targets of a chunk, enough for the threshold to pay
+TOP2_SKIP_MIN = 32
+Top2Plan = collections.namedtuple("Top2Plan", (
+    "threads", "group", "bidders_per_block", "bidder_blocks", "chunks",
+    "chunk_len", "blocks", "merge", "skip", "scratch_floats"))
 
 
 def _sq_norm(x):
@@ -71,20 +89,70 @@ def top2_plain(x1, x2, price, chunk_size=2048):
     return best, better, best_i.to(torch.int32)
 
 
+def top2_merge(parts):
+    """Plain version of the kernel's merge of chunked partial results:
+    ``parts`` is a list of (best, better, best_i) over disjoint sets of
+    targets, in any order (best_i the global target index).  best = max,
+    the lower index on equal best, better = max(min(best_1, best_2),
+    max(better_1, better_2)); commutative and associative, so the result
+    does not depend on the order or the chunking."""
+    best, better, best_i = parts[0]
+    for ob, obt, oi in parts[1:]:
+        better = torch.maximum(torch.minimum(best, ob),
+                               torch.maximum(better, obt))
+        take = (ob > best) | ((ob == best) & (oi < best_i))
+        best_i = torch.where(take, oi, best_i)
+        best = torch.maximum(best, ob)
+    return best, better, best_i
+
+
 def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+    if t.dtype is not dtype or t.shape != shape or t.device != device:
         raise ValueError(f"{name}: expected {dtype} {shape} on {device}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def top2_split(bidders):
-    """Lanes per bidder for ``bidders`` = B * W bidders in one launch: the
-    smallest power of two up to 32 that puts ``_TOP2_FILL_THREADS`` threads
-    in flight."""
-    split = 1
-    while split < 32 and bidders * split < _TOP2_FILL_THREADS:
-        split *= 2
-    return split
+def top2_plan(b, w, m):
+    """Launch arithmetic of the bid search (``csrc/emd.cu``) for ``b`` rows
+    of ``w`` bidders against ``m`` targets.  A group of ``group``
+    neighbouring lanes holds ``TOP2_BIDDERS`` bidders in all its lanes and
+    its lanes split the targets, so a block of ``threads`` holds
+    ``bidders_per_block`` = threads / group * TOP2_BIDDERS consecutive
+    bidders; ``bidder_blocks`` blocks cover a row's bidders.  ``group`` is
+    the smallest power of two from 8 to 32 that gives the bidder groups
+    ``TOP2_FILL_LANES`` lanes; where that is not enough the targets are cut
+    into ``chunks`` chunks of ``chunk_len`` (the last one ragged), one
+    block each, until there are ``TOP2_FILL_BLOCKS`` blocks (fewer where a
+    chunk would hold fewer than ``TOP2_MIN_CHUNK`` targets).  With more
+    than one chunk the last block of a row of blocks to finish merges the
+    chunks' partial results.  ``skip``: whether the search skips the
+    square root of pairs that cannot enter a top two (where a lane has
+    ``TOP2_SKIP_MIN`` targets of a chunk or more).  ``scratch_floats``: the
+    partial results.
+    Cached per shape, as are the entry point's integers built from it."""
+    return _top2_plan(b, w, m)
+
+
+@functools.lru_cache(maxsize=None)
+def _top2_plan(b, w, m):
+    if b < 1 or w < 1 or m < 1:
+        raise ValueError(f"top2 needs B, W, M >= 1, got {(b, w, m)}")
+    sets = b * -(-w // TOP2_BIDDERS)
+    group = 8
+    while group < 32 and sets * group < TOP2_FILL_LANES:
+        group *= 2
+    per_block = TOP2_THREADS // group * TOP2_BIDDERS
+    bidder_blocks = -(-w // per_block)
+    rows = b * bidder_blocks
+    want = min(-(-TOP2_FILL_BLOCKS // rows), max(1, m // TOP2_MIN_CHUNK))
+    chunk_len = -(-m // want)
+    chunks = -(-m // chunk_len)
+    partial = 3 * chunks * b * w if chunks > 1 else 0
+    return Top2Plan(
+        threads=TOP2_THREADS, group=group, bidders_per_block=per_block,
+        bidder_blocks=bidder_blocks, chunks=chunks, chunk_len=chunk_len,
+        blocks=rows * chunks, merge=chunks > 1,
+        skip=chunk_len >= TOP2_SKIP_MIN * group, scratch_floats=partial)
 
 
 def top2(x1, x2, price):
@@ -100,18 +168,74 @@ def top2(x1, x2, price):
         raise ValueError("top2 needs at least one target")
     if not x1.is_cuda:
         return top2_plain(x1, x2, price)
-    x1, x2, price = x1.contiguous(), x2.contiguous(), price.contiguous()
-    best = torch.empty(b, w, dtype=torch.float32, device=dev)
-    better = torch.empty(b, w, dtype=torch.float32, device=dev)
-    best_i = torch.empty(b, w, dtype=torch.int32, device=dev)
-    lib = cuda_build.libraries()["emd"]
-    err = lib.ct_emd_top2(x1.data_ptr(), x2.data_ptr(), price.data_ptr(),
-                          best.data_ptr(), better.data_ptr(),
-                          best_i.data_ptr(), b, w, m, top2_split(b * w),
-                          torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "top2")
+    out = _launch_top2(x1, x2, price)
     top2.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _top2_params(b, w, m, skip):
+    """(plan, ``ct_emd_top2``'s integers for one shape as
+    ``cuda_build.int_params``); ``skip`` None takes the plan's.  The cache
+    keeps the array alive."""
+    plan = _top2_plan(b, w, m)
+    return plan, cuda_build.int_params(
+        b, w, m, plan.threads, plan.group, plan.bidder_blocks, plan.chunks,
+        plan.chunk_len, int(plan.skip if skip is None else skip))
+
+
+def _launch_top2(x1, x2, price, skip=None):
+    """The kernel behind ``top2`` on checked CUDA inputs, with the square-
+    root skip as the plan has it (``skip=None``) or forced on or off (the
+    card tests hold both to the plain version); counts nothing."""
+    b, w, _ = x1.shape
+    m = x2.shape[1]
+    dev = x1.device
+    if w == 0:
+        return (x1.new_empty(b, 0), x1.new_empty(b, 0),
+                x1.new_empty(b, 0, dtype=torch.int32))
+    x1, x2, price = x1.contiguous(), x2.contiguous(), price.contiguous()
+    plan, (_, params) = _top2_params(b, w, m, skip)
+    best = torch.empty((b, w), dtype=torch.float32, device=dev)
+    better = torch.empty((b, w), dtype=torch.float32, device=dev)
+    best_i = torch.empty((b, w), dtype=torch.int32, device=dev)
+    stream = cuda_build.current_stream(dev)
+    scratch = arrived = None
+    if plan.merge:
+        scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                              device=dev)
+        arrived = _arrival_counts(dev, stream, b * plan.bidder_blocks)
+    err = cuda_build.libraries()["emd"].ct_emd_top2(
+        x1.data_ptr(), x2.data_ptr(), price.data_ptr(), best.data_ptr(),
+        better.data_ptr(), best_i.data_ptr(),
+        scratch.data_ptr() if plan.merge else None,
+        arrived.data_ptr() if plan.merge else None, params, stream)
+    cuda_build.check(err, "top2")
     return best, better, best_i
+
+
+# arrival counts by (device index, raw stream handle)
+_ARRIVED = {}
+
+
+def _arrival_counts(dev, stream, n):
+    """The search's arrival counts for launches on ``stream`` (a raw
+    handle) of ``dev``: at least ``n`` int32 zeros, kept between calls.
+    The kernel sets each count it uses back to 0, so the launches of one
+    stream, which run in order, share them; each stream has its own, so
+    that searches on two streams cannot meet in one count.  A CUDA graph
+    keeps the counts of the stream it was captured on, which must have
+    run a search before the capture (allocating them is not captured)."""
+    key = (dev.index, stream)
+    have = _ARRIVED.get(key)
+    if have is None or have.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "top2: this stream has no arrival counts to capture; run "
+                "top2 at this shape on the capture stream before capturing")
+        have = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=dev)
+        _ARRIVED[key] = have
+    return have
 
 
 top2.launches = 0

@@ -23,12 +23,29 @@ The autograd Functions that join forward and backward are in
 ``core/splat_slice.py``.
 """
 
+import collections
+import functools
+
 import torch
 
 from cloud_transformers_tpu_torch.ops import cuda_build
 
 # the winner map's "no point won this cell": larger than any point index
 NO_WINNER = 2 ** 31 - 1
+# threads of a slice block (csrc: kSliceThreads)
+SLICE_THREADS = 256
+# threads a slice launch should have in flight (132 SMs x 16 warps) before a
+# thread takes more points
+SLICE_FILL_THREADS = 132 * 512
+# the slice kernel's index arithmetic is 32-bit
+INDEX_LIMIT = 2 ** 31
+# the integers ct_slice takes by address, in order
+SLICE_PARAMS = ("rows", "points", "feat", "cells", "lane_extent", "off2",
+                "off3", "n_vert", "group", "points_per_thread", "threads",
+                "blocks", "vec")
+SlicePlan = collections.namedtuple("SlicePlan", (
+    "group", "quads", "points_per_thread", "threads", "blocks",
+    "points_per_block", "vec"))
 
 
 def vertex_decomposition(keys_scaled, sizes):
@@ -101,13 +118,15 @@ def _check_mapping(x0, lane0, w_lo, w_hi, sizes, *data):
         raise ValueError(f"sizes must be 2D or 3D, got {sizes}")
     r, k = x0.shape
     dev = x0.device
-    for n, t, dtype, shape in (
-            ("x0", x0, torch.int32, (r, k)),
-            ("lane0", lane0, torch.int32, (r, k)),
-            ("w_lo", w_lo, torch.float32, (r, k, 4)),
-            ("w_hi", w_hi, torch.float32, (r, k, 4)),
-            *((name, t, torch.float32, shape) for name, t, shape in data)):
-        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
+    i32, f32 = torch.int32, torch.float32
+    for n, t, dtype, shape in (("x0", x0, i32, (r, k)),
+                               ("lane0", lane0, i32, (r, k)),
+                               ("w_lo", w_lo, f32, (r, k, 4)),
+                               ("w_hi", w_hi, f32, (r, k, 4)),
+                               *((name, t, f32, shape)
+                                 for name, t, shape in data)):
+        # dtypes are singletons; a torch.Size compares with a tuple
+        if t.dtype is not dtype or t.shape != shape or t.device != dev:
             raise ValueError(f"{n}: expected {dtype} {shape} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
@@ -211,6 +230,63 @@ def slice_plain(x0, lane0, w_lo, w_hi, grid, sizes):
     return (gathered * w[..., None]).sum(2)
 
 
+def slice_plan(rows, points, feat, sizes):
+    """Launch arithmetic of the slice kernel (``csrc/splat_slice.cu``) for
+    ``rows`` grids of ``sizes`` with ``feat`` features and ``points`` points
+    a row.  A point takes ``group`` lanes (the next power of two >=
+    ``quads`` = ceil(feat / 4), at most 8), each lane a quad of features
+    (quads q = lane, lane + group, ...); a thread takes
+    ``points_per_thread`` points (4 in 2D, 2 in 3D, halved while the launch
+    would have fewer than ``SLICE_FILL_THREADS`` threads), ``threads`` a
+    block, ``blocks`` blocks; ``vec`` where rows are read as float4.  Thread
+    t of block b serves the points b * per_block + i * (threads / group) +
+    t // group for i < points_per_thread.  Raises where an index of the
+    output or of the grid reaches 2^31.  Cached per shape, as are the
+    entry point's integers built from it (``_slice_params``)."""
+    return _slice_plan(rows, points, feat, tuple(sizes))
+
+
+@functools.lru_cache(maxsize=None)
+def _slice_plan(rows, points, feat, sizes):
+    cells = kernel_grid_dims(sizes)[2]
+    n = rows * points
+    if n * feat >= INDEX_LIMIT or rows * cells * feat >= INDEX_LIMIT:
+        raise ValueError(
+            f"slice_gather: {rows} x {points} points or {rows} x {cells} "
+            f"cells of {feat} features reach the 2^31 index limit")
+    quads = -(-feat // 4)
+    group = 1
+    while group < quads and group < 8:
+        group *= 2
+    per_thread = 4 if len(sizes) == 2 else 2
+    while per_thread > 1 and n * group < SLICE_FILL_THREADS * per_thread:
+        per_thread //= 2
+    per_block = per_thread * (SLICE_THREADS // group)
+    return SlicePlan(group=group, quads=quads, points_per_thread=per_thread,
+                     threads=SLICE_THREADS, blocks=-(-n // per_block),
+                     points_per_block=per_block, vec=feat % 4 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _slice_params(rows, points, feat, sizes):
+    """``ct_slice``'s integers for one shape (``SLICE_PARAMS``), as
+    ``cuda_build.int_params``.  The cache keeps the array alive."""
+    plan = _slice_plan(rows, points, feat, sizes)
+    return cuda_build.int_params(
+        rows, *_launch_args(sizes, points, feat), plan.group,
+        plan.points_per_thread, plan.threads, plan.blocks, int(plan.vec))
+
+
+def _aligned_ptr(t):
+    """(``t`` itself where it starts on 16 bytes, else an aligned copy,
+    its address)."""
+    p = t.data_ptr()
+    if p % 16:
+        t = t.clone()
+        p = t.data_ptr()
+    return t, p
+
+
 def slice_gather(x0, lane0, w_lo, w_hi, grid, sizes):
     """out[r, k, f] = sum over v of w[r, k, v] * grid[r, idx(r, k, v), f].
     -> [R, K, F] f32."""
@@ -220,12 +296,18 @@ def slice_gather(x0, lane0, w_lo, w_hi, grid, sizes):
                    ("grid", grid, (r, kernel_grid_dims(sizes)[2], f)))
     if not grid.is_cuda:
         return slice_plain(x0, lane0, w_lo, w_hi, grid, sizes)
-    args = [a.contiguous() for a in (x0, lane0, w_lo, w_hi, grid)]
-    out = torch.empty(r, k, f, dtype=torch.float32, device=grid.device)
-    lib = cuda_build.libraries()["splat_slice"]
-    stream = torch.cuda.current_stream(grid.device).cuda_stream
-    err = lib.ct_slice(*(a.data_ptr() for a in args), out.data_ptr(),
-                       r, *_launch_args(sizes, k, f), stream)
+    # the wrapper's host cost is about the kernel's device time at the
+    # classifier's shapes, so it makes no call it can spare
+    params = _slice_params(r, k, f, tuple(sizes))[1]
+    x0, lane0 = x0.contiguous(), lane0.contiguous()
+    w_lo, p_lo = _aligned_ptr(w_lo.contiguous())
+    w_hi, p_hi = _aligned_ptr(w_hi.contiguous())
+    grid, p_grid = _aligned_ptr(grid.contiguous())
+    dev = grid.device
+    out = torch.empty((r, k, f), dtype=torch.float32, device=dev)
+    err = cuda_build.libraries()["splat_slice"].ct_slice(
+        x0.data_ptr(), lane0.data_ptr(), p_lo, p_hi, p_grid, out.data_ptr(),
+        params, cuda_build.current_stream(dev))
     cuda_build.check(err, "slice_gather")
     slice_gather.launches += 1
     return out

@@ -92,9 +92,14 @@ def test_top2_plain_chunks_and_single_target():
 
 
 def test_top2_split_fills_the_card():
-    assert tpe.top2_split(2 * 16384) == 4
-    assert tpe.top2_split(16384) == 8
-    assert tpe.top2_split(2048) == 32 and tpe.top2_split(1) == 32
+    """The bid search's split of the work over blocks (targets cut into
+    chunks across blocks) puts at least one block on every SM at the
+    staged widths, and one chunk where there are too few targets."""
+    for b, w in ((2, 16384), (1, 16384), (1, 2048), (1, 256)):
+        assert tpe.top2_plan(b, w, 16384).blocks >= tpe.SMS
+    assert tpe.top2_plan(1, 256, 16384).chunks > 1
+    assert tpe.top2_plan(1, 1, 1).chunks == 1
+    assert tpe.top2_plan(2, 33, 5).chunks == 1
 
 
 def test_wrappers_check_their_inputs():

@@ -330,6 +330,236 @@ def test_emd_wrappers_raise_on_the_card(gen):
                                        device="cuda"), 1, 0.01, 8)
 
 
+# --- the slice's and the bid search's plans on the card ---------------------
+
+# the classifier's six head-group shapes, and widths off the float4 path
+SLICE_SHAPES = [((128, 128), 4), ((32, 32, 32), 4), ((64, 64), 16),
+                ((16, 16, 16), 16), ((16, 16), 16), ((8, 8, 8), 32)]
+
+
+def _slice_inputs(gen, sizes, f, b, h, k):
+    lat = torch.tanh(torch.randn(b, k, h, len(sizes), generator=gen,
+                                 device="cuda"))
+    mapping = [a.contiguous() for a in
+               _flatten_mapping(grid_mapping(lat, sizes, len(sizes)))]
+    values = torch.randn(b * h, k, f, generator=gen, device="cuda")
+    return mapping, tps.splat_max(*mapping, values, sizes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f", SLICE_SHAPES)
+def test_slice_kernel_at_the_classifier_shapes(gen, sizes, f):
+    """R = 128 rows of K = 2048 points, as a forward gives them: within
+    1e-5 of the plain version, and two calls equal."""
+    mapping, grid = _slice_inputs(gen, sizes, f, 8, 16, 2048)
+    out = tps.slice_gather(*mapping, grid, sizes)
+    _close(out, tps.slice_plain(*mapping, grid, sizes), 1e-5)
+    assert torch.equal(out, tps.slice_gather(*mapping, grid, sizes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", [(16, 16), (9, 7), (8, 8, 8), (5, 6, 7)])
+@pytest.mark.parametrize("f", [1, 3, 4, 5, 16, 21, 32])
+def test_slice_kernel_at_ragged_shapes(gen, sizes, f):
+    """K a multiple of nothing, every group width and the scalar path."""
+    mapping, grid = _slice_inputs(gen, sizes, f, 2, 3, 333)
+    n = tps.slice_gather.launches
+    out = tps.slice_gather(*mapping, grid, sizes)
+    assert tps.slice_gather.launches == n + 1
+    _close(out, tps.slice_plain(*mapping, grid, sizes), 1e-5)
+    assert torch.equal(out, tps.slice_gather(*mapping, grid, sizes))
+    # a grid that starts off 16 bytes: the wrapper aligns it
+    shifted = torch.empty(grid.numel() + 1, device="cuda")[1:].view(
+        grid.shape)
+    shifted.copy_(grid)
+    assert torch.equal(out, tps.slice_gather(*mapping, shifted, sizes))
+
+
+@pytest.mark.gpu
+def test_slice_launch_refuses_a_plan_it_did_not_make(gen):
+    """The entry point recomputes the plan and launches nothing when the
+    caller's numbers disagree."""
+    sizes, f = (16, 16), 16
+    mapping, grid = _slice_inputs(gen, sizes, f, 2, 4, 300)
+    plan = tps.slice_plan(8, 300, f, sizes)
+    lib = tps.cuda_build.libraries()["splat_slice"]
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = [8, *tps._launch_args(sizes, 300, f), plan.group,
+              plan.points_per_thread, plan.threads, plan.blocks,
+              int(plan.vec)]
+    assert len(launch) == len(tps.SLICE_PARAMS)
+    assert list(tps._slice_params(8, 300, f, sizes)[0]) == launch
+    at = {n: i for i, n in enumerate(tps.SLICE_PARAMS)}
+    for name, wrong in (("group", plan.group * 2), ("points_per_thread", 3),
+                        ("threads", 128), ("blocks", plan.blocks + 1),
+                        ("vec", 0)):
+        out = torch.full((8, 300, f), 7.0, device="cuda")
+        bad = list(launch)
+        bad[at[name]] = wrong
+        params = tps.cuda_build.int_params(*bad)
+        err = lib.ct_slice(*(a.data_ptr() for a in mapping), grid.data_ptr(),
+                           out.data_ptr(), params[1], stream)
+        torch.cuda.synchronize()
+        assert err != 0 and bool((out == 7.0).all()), (name, wrong)
+
+
+def _top2_equal(x1, x2, price):
+    ref = tpe.top2_plain(x1, x2, price)
+    for skip in (True, False):
+        got = tpe._launch_top2(x1, x2, price, skip)
+        assert got[2].dtype == torch.int32
+        for a, r in zip(got, ref):
+            assert torch.equal(a, r), skip
+    return ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,w,m", [(b, w, 16384) for b in (2, 1)
+                                   for w in (16384, 2048, 1024, 512, 256)]
+                         + [(2, 777, 3001), (1, 300, 1), (2, 513, 65)])
+def test_top2_kernel_bit_equal_at_the_staged_widths(gen, b, w, m):
+    """Every width of the staged schedule, a shape that is a multiple of
+    nothing, one target, a chunk of the minimum length: values and indices
+    bit for bit, with the square-root skip on and off."""
+    x1 = torch.rand(b, w, 3, generator=gen, device="cuda") * 2 - 1
+    x2 = torch.rand(b, m, 3, generator=gen, device="cuda") * 2 - 1
+    price = torch.rand(b, m, generator=gen, device="cuda") * 0.1
+    n = tpe.top2.launches
+    tpe.top2(x1, x2, price)
+    assert tpe.top2.launches == n + 1
+    ref = _top2_equal(x1, x2, price)
+    if m == 1:
+        assert bool((ref[1] == -1e9).all()) and bool((ref[2] == 0).all())
+
+
+@pytest.mark.gpu
+def test_top2_kernel_bit_equal_with_duplicates_across_chunks(gen):
+    """The first chunk's targets repeated in every chunk (so each twin
+    lies across a chunk boundary): the second-best equals the best and
+    the first occurrence wins."""
+    b, w, m = 2, 1024, 16384
+    chunk = tpe.top2_plan(b, w, m).chunk_len
+    period = torch.arange(m, device="cuda") % chunk
+    x1 = torch.rand(b, w, 3, generator=gen, device="cuda")
+    x2 = torch.rand(b, chunk, 3, generator=gen, device="cuda")[:, period]
+    price = (torch.rand(b, chunk, generator=gen, device="cuda")
+             * 0.05)[:, period]
+    ref = _top2_equal(x1, x2.contiguous(), price.contiguous())
+    assert torch.equal(ref[0], ref[1]) and bool((ref[2] < chunk).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["most", "none", "auction"])
+def test_top2_kernel_bit_equal_where_the_skip_takes_most_pairs_or_none(
+        gen, case):
+    """"most": random prices, where almost every pair is beyond the
+    second-best; "none": every target on a sphere around the bidders (all
+    at one point) at price 0, so every value ties with the second-best up
+    to rounding and no pair may be skipped; "auction": the prices and
+    bidders of a mid-auction state."""
+    b, n = 2, 4096
+    if case == "auction":
+        x1 = torch.rand(b, n, 3, generator=gen, device="cuda")
+        x2 = torch.rand(b, n, 3, generator=gen, device="cuda")
+        state = temd._init_state(b, n, n, "cuda")
+        for _ in range(40):
+            state = temd._auction_round(x1, x2, 0.005, 2048, state,
+                                        last=False)
+        price = state[2]
+    elif case == "most":
+        x1 = torch.rand(b, n, 3, generator=gen, device="cuda")
+        x2 = torch.rand(b, n, 3, generator=gen, device="cuda")
+        price = torch.rand(b, n, generator=gen, device="cuda") * 0.2
+    else:
+        d = torch.randn(b, n, 3, generator=gen, device="cuda")
+        x2 = 0.5 + 0.25 * d / d.norm(dim=-1, keepdim=True)
+        x1 = torch.full((b, 256, 3), 0.5, device="cuda")
+        price = torch.zeros(b, n, device="cuda")
+    _top2_equal(x1, x2, price)
+
+
+@pytest.mark.gpu
+def test_top2_launch_refuses_a_plan_it_did_not_make(gen):
+    b, w, m = 2, 700, 5000
+    x1 = torch.rand(b, w, 3, generator=gen, device="cuda")
+    x2 = torch.rand(b, m, 3, generator=gen, device="cuda")
+    price = torch.zeros(b, m, device="cuda")
+    plan = tpe.top2_plan(b, w, m)
+    scratch = torch.empty(3 * (plan.chunks + 5) * b * w, device="cuda")
+    stream = tpe.cuda_build.current_stream(x1.device)
+    assert stream == torch.cuda.current_stream().cuda_stream
+    arrived = tpe._arrival_counts(x1.device, stream,
+                                  b * (plan.bidder_blocks + 1))
+    lib = tpe.cuda_build.libraries()["emd"]
+    launch = [b, w, m, plan.threads, plan.group, plan.bidder_blocks,
+              plan.chunks, plan.chunk_len, 1]
+    for i, wrong in ((3, 128), (4, 2), (5, plan.bidder_blocks + 1),
+                     (6, plan.chunks + 5), (7, plan.chunk_len // 2)):
+        best = torch.full((b, w), 7.0, device="cuda")
+        bad = list(launch)
+        bad[i] = wrong
+        params = tpe.cuda_build.int_params(*bad)
+        err = lib.ct_emd_top2(x1.data_ptr(), x2.data_ptr(), price.data_ptr(),
+                              best.data_ptr(), best.data_ptr(),
+                              best.data_ptr(), scratch.data_ptr(),
+                              arrived.data_ptr(), params[1], stream)
+        torch.cuda.synchronize()
+        assert err != 0 and bool((best == 7.0).all()), (i, wrong)
+
+
+@pytest.mark.gpu
+def test_top2_searches_on_two_streams_keep_their_counts_apart(gen):
+    """Merging searches (targets cut into chunks) on two streams at once:
+    each stream has its own arrival counts, and both stay bit-equal."""
+    b, w, m = 1, 256, 16384
+    assert tpe.top2_plan(b, w, m).merge
+    inputs = [(torch.rand(b, w, 3, generator=gen, device="cuda"),
+               torch.rand(b, m, 3, generator=gen, device="cuda"),
+               torch.rand(b, m, generator=gen, device="cuda") * 0.1)
+              for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(tpe.top2(*inputs[i]))
+    torch.cuda.synchronize()
+    dev = inputs[0][0].device.index
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    assert all((dev, s.cuda_stream) in tpe._ARRIVED for s in streams)
+    for i in range(2):
+        ref = tpe.top2_plain(*inputs[i])
+        for got in outs[i]:
+            for a, r in zip(got, ref):
+                assert torch.equal(a, r), i
+
+
+@pytest.mark.gpu
+def test_top2_in_a_cuda_graph_matches_plain(gen):
+    """A merging search captured in a CUDA graph on a stream that has run
+    it once, replayed twice: bit-equal both times."""
+    b, w, m = 2, 512, 16384
+    x1 = torch.rand(b, w, 3, generator=gen, device="cuda")
+    x2 = torch.rand(b, m, 3, generator=gen, device="cuda")
+    price = torch.rand(b, m, generator=gen, device="cuda") * 0.1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpe.top2(x1, x2, price)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = tpe.top2(x1, x2, price)
+    ref = tpe.top2_plain(x1, x2, price)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, r in zip(got, ref):
+            assert torch.equal(a, r)
+
+
 # --- the switched paths' kernels ------------------------------------------
 
 def _mapping(gen, sizes, b, h, k, f, ties=True):
