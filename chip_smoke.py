@@ -24,8 +24,11 @@
    equal to the plain version's and to splat_max's) and the routing pass
    alone (bit-equal to the two-pass backward) at every splat shape, and the
    fused block at every head group's shape, with and without gk2 (gk
-   exact, points and gk2 within 1e-5), timed beside the three separate
-   kernels;
+   exact, points and gk2 within 1e-5, two runs bit-equal), timed beside
+   the three separate kernels.  The fused block, the splat backward and
+   the routing pass also at the completion decoder's rows (B = 2 clouds x
+   16 heads, K = 16384 points) at every head group's shape, with the same
+   gates;
 4. serves 100 full-width ScanObjectNN classifier requests (random weights
    from a seed, clouds of 1024 to 3000 points) through
    ``InferenceEngine.classify`` in the B=8 x 2048 bucket, with the launch
@@ -91,12 +94,16 @@
    ...}`` line (both sets' serving, training and parity numbers), then one
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
-   2D and 3D convs, their weight gradients, the slice and ``top2`` also
-   with ``bound_share``, bound_ms / ms, per pass and per shape, and per
-   shape whether the kernel took less time than its library call in this
-   run; the slice and ``top2`` also with their device times; ``top2`` also
-   per evaluated cloud, from the bid searches the evaluation ran at each
-   width), then
+   2D and 3D convs, their weight gradients, the slice, ``top2``, the
+   fused block, the splat backward and the routing pass also with
+   ``bound_share``, bound_ms / ms, per pass and per shape, and per shape
+   whether the kernel took less time than its library call in this run;
+   the slice, ``top2``, the fused block, the splat backward and the routing
+   pass also with their device and host times, and per shape their launch
+   plan; the fused block also beside the three separate kernels, by the
+   loop and on the device; those three also per completion decoder step,
+   from the decoder's rows; ``top2`` also per evaluated cloud, from the bid
+   searches the evaluation ran at each width), then
    the ``{"ok": true, "device": ...}`` line last.
 
 In phase 3 the auction's two kernels are held too: ``top2`` against
@@ -112,10 +119,11 @@ library calls and an elementwise pass, not one); its bound is B * W * M
 values of 12 float32 operations, or their square roots at the
 special-function rate, whichever takes longer.  Every kernel's ``ms`` and
 ``library_ms`` time a loop of 20 launches (``cuda_ms``), so they hold the
-wrapper's host cost wherever it exceeds the kernel's.  The slice, ``top2``
-and ``grid_sample`` take tens of microseconds, about what a wrapper takes
-on the host, so they are also timed by replaying a CUDA graph of 20 calls
-(``graph_ms``), which leaves the host out: ``device_ms`` and
+wrapper's host cost wherever it exceeds the kernel's.  The slice, ``top2``,
+``grid_sample``, the fused block and the splat backward's passes take tens
+of microseconds at some shapes, about what a wrapper takes on the host, so
+they are also timed by replaying a CUDA graph of 20 calls (``graph_ms``),
+which leaves the host out: ``device_ms`` and
 ``library_device_ms``; ``host_ms`` and ``library_host_ms`` are the host
 time to launch one call; ``top2`` on the mid-auction state also with its
 square-root skip off.
@@ -162,6 +170,9 @@ CONV2D_SHAPES = [((128, 128), 4, 4), ((64, 64), 16, 4), ((16, 16), 16, 4)]
 # every head group's block: (sizes, F, fused launches per forward, set B)
 BLOCK_SHAPES = [((128, 128), 4, 4), ((32, 32, 32), 4, 4), ((64, 64), 16, 4),
                 ((16, 16, 16), 16, 4), ((16, 16), 16, 4), ((8, 8, 8), 32, 4)]
+# the completion decoder's rows: (clouds, points a cloud); each head group's
+# shape takes 4 fused blocks (set B) and 4 splat backwards per step
+COMPLETION_ROWS = (2, 16384)
 SWITCHED_STEPS = 20   # timed optimizer steps under each set, after a warm-up
 N_REQUESTS = 100   # classify calls in the counted, timed run
 PROFILE_CALLS = 10   # classify calls in the --profile window
@@ -235,12 +246,14 @@ LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
 # kernels whose entries in the kernels line also give the share of the
 # bound reached (bound_ms / ms), per pass and per shape
 BOUND_SHARE = ("grid_conv2d", "grid_conv2d_dw", "grid_conv3d",
-               "grid_conv3d_dw", "slice_gather", "top2")
+               "grid_conv3d_dw", "slice_gather", "top2", "fused_block",
+               "splat_max_bwd", "splat_route")
 # kernels short enough that a loop of launches may time their wrappers on
 # the host: their entries also carry the device time of a CUDA graph
 # replay (``device_ms``, ``device_bound_share``; per shape, against the
 # library call's, ``faster_than_library_device``)
-DEVICE_TIMED = ("slice_gather", "top2")
+DEVICE_TIMED = ("slice_gather", "top2", "fused_block", "splat_max_bwd",
+                "splat_route")
 # the path whose run gives each kernel's ``launches``
 MAIN_PATH = {"splat_max": "serving", "slice_gather": "serving",
              "grid_conv3d": "serving", "splat_max_bwd": "training",
@@ -320,18 +333,19 @@ def bound(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mapping_inputs(sizes, f, gen):
+def mapping_inputs(sizes, f, gen, b=B, k=K):
     """A kernel-input mapping as the forward makes it: tanh lattice ->
     grid_mapping, rows per (b, h); values like post-BN features.  Also
-    returns the keys per row, [R, K, dim], clipped as grid_mapping clips."""
+    returns the keys per row, [B * H, K, dim], clipped as grid_mapping
+    clips."""
     from cloud_transformers_tpu_torch.core.grid_mapping import grid_mapping
     from cloud_transformers_tpu_torch.core.splat_slice import (
         _flatten_mapping)
-    lat = torch.tanh(torch.randn(B, K, H, len(sizes), generator=gen,
+    lat = torch.tanh(torch.randn(b, k, H, len(sizes), generator=gen,
                                  device="cuda"))
     mapping = _flatten_mapping(grid_mapping(lat, sizes, len(sizes)))
-    values = torch.randn(R, K, f, generator=gen, device="cuda")
-    keys = lat.transpose(1, 2).reshape(R, K, len(sizes)).clamp(
+    values = torch.randn(b * H, k, f, generator=gen, device="cuda")
+    keys = lat.transpose(1, 2).reshape(b * H, k, len(sizes)).clamp(
         -1 + 1e-7, 1 - 1e-7)
     return [a.contiguous() for a in mapping], values, keys
 
@@ -362,14 +376,33 @@ def held(what, got, plain, tol):
     return err
 
 
-def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
-                          n_splat, n_slice, touched):
-    """The splat and slice backward kernels at one main-path shape.  The
-    splat's ``grid`` is the forward's own output, so winners exist."""
+def touched_rows(ps, mapping, sizes):
+    """The grid rows a mapping's points read: distinct (row, cell) with a
+    vertex weight > 0."""
+    r = mapping[0].shape[0]
+    cells = ps.kernel_grid_dims(sizes)[2]
+    idx, w = ps.vertex_index_weights(*mapping, sizes)
+    return int(torch.unique(
+        (torch.arange(r, device="cuda")[:, None, None] * cells
+         + idx)[w > 0]).numel())
+
+
+def check_splat_backward(ps, gen, mapping, values, grid, sizes, f, calls,
+                         touched):
+    """The splat backward's two passes and the routing pass alone at one
+    shape, on the forward's own grid (so that winners exist): the winner
+    map equal to the plain one, the same set of contributions routed, the
+    gradients within ROUTE_TOL, and ``splat_route`` on that map bit-equal
+    to the two-pass backward.  -> (splat_max_bwd's entry, splat_route's
+    entry), each timed by the loop, by graph replay and on the host."""
+    r, k = mapping[0].shape
     shape = f"{'x'.join(map(str, sizes))} F={f}"
+    if r != R:
+        shape += f" R={r} K={k}"
     cells = ps.kernel_grid_dims(sizes)[2]
     n_vert = 2 ** len(sizes)
-    map_bytes = R * K * 40
+    map_bytes = r * k * 40
+    plan = ps.splat_bwd_plan(r, k, f, sizes)._asdict()
     g = torch.randn(grid.shape, generator=gen, device="cuda")
     d_lo, d_hi, d_val, winner = ps.splat_max_bwd(
         *mapping, values, grid, g, sizes, return_winner=True)
@@ -385,20 +418,67 @@ def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
     err = max(held(f"splat_max_bwd {shape} {n}", a, b, ROUTE_TOL)
               for n, a, b in (("d_w_lo", d_lo, p_lo), ("d_w_hi", d_hi, p_hi),
                               ("d_values", d_val, p_val)))
-    rows["splat_max_bwd"].append(dict(
-        shape=shape, calls=n_splat, max_abs_err=err,
-        grid_rows_read=touched, grid_rows=R * cells,
+    again = ps.splat_max_bwd(*mapping, values, grid, g, sizes,
+                             return_winner=True)
+    if not all(torch.equal(a, b) for a, b in zip(again,
+                                                 (d_lo, d_hi, d_val, winner))):
+        raise AssertionError(f"splat_max_bwd {shape}: two runs differ")
+    del again, p_lo, p_hi, p_val
+
+    def bwd():
+        return ps.splat_max_bwd(*mapping, values, grid, g, sizes)
+    bwd_row = dict(
+        shape=shape, calls=calls, max_abs_err=err, plan=plan,
+        grid_rows_read=touched, grid_rows=r * cells,
         won=int((winner != ps.NO_WINNER).sum()),
-        ms=cuda_ms(lambda: ps.splat_max_bwd(*mapping, values, grid, g,
-                                            sizes)),
+        ms=cuda_ms(bwd), device_ms=graph_ms(bwd), host_ms=host_ms(bwd),
         plain_ms=cuda_ms(lambda: ps.splat_max_bwd_plain(
             *mapping, values, grid, g, sizes), iters=3, warmup=1),
         library_ms=None,
         # reads the mapping, the values and the touched rows of the grid
         # and of the cotangent; writes d_values and the two d_w
-        bound=bound(map_bytes + R * K * f * 4 + 2 * touched * f * 4
-                    + R * K * f * 4 + R * K * 32,
-                    R * K * n_vert * f * 5)))
+        bound=bound(map_bytes + r * k * f * 4 + 2 * touched * f * 4
+                    + r * k * f * 4 + r * k * 32,
+                    r * k * n_vert * f * 5))
+    routed = ps.splat_route(*mapping, values, winner, g, sizes)
+    if not all(torch.equal(a, b) for a, b in zip(routed, (d_lo, d_hi, d_val))):
+        raise AssertionError(f"splat_route {shape}: not bit-equal to the "
+                             "two-pass splat_max_bwd")
+    plain = ps.splat_route_plain(*mapping, values, winner, g, sizes)
+    err = max(held(f"splat_route {shape} {n}", a, b, ROUTE_TOL)
+              for n, a, b in zip(("d_w_lo", "d_w_hi", "d_values"), routed,
+                                 plain))
+    del routed, plain, d_lo, d_hi, d_val
+
+    def route():
+        return ps.splat_route(*mapping, values, winner, g, sizes)
+    route_row = dict(
+        shape=shape, calls=calls, max_abs_err=err, plan=plan,
+        grid_rows_read=touched, grid_rows=r * cells,
+        ms=cuda_ms(route), device_ms=graph_ms(route), host_ms=host_ms(route),
+        plain_ms=cuda_ms(lambda: ps.splat_route_plain(
+            *mapping, values, winner, g, sizes), iters=3, warmup=1),
+        library_ms=None,
+        # reads the mapping, the values and the touched rows of the winner
+        # map and of the cotangent; writes d_values and the two d_w
+        bound=bound(map_bytes + r * k * f * 4 + 2 * touched * f * 4
+                    + r * k * f * 4 + r * k * 32,
+                    r * k * n_vert * f * 4))
+    return bwd_row, route_row, winner
+
+
+def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
+                          n_splat, n_slice, touched):
+    """The splat and slice backward kernels at one main-path shape.  The
+    splat's ``grid`` is the forward's own output, so winners exist."""
+    shape = f"{'x'.join(map(str, sizes))} F={f}"
+    cells = ps.kernel_grid_dims(sizes)[2]
+    n_vert = 2 ** len(sizes)
+    map_bytes = R * K * 40
+    bwd_row, route_row, winner = check_splat_backward(
+        ps, gen, mapping, values, grid, sizes, f, n_splat, touched)
+    rows["splat_max_bwd"].append(bwd_row)
+    rows["splat_route"].append(route_row)
 
     # set A: the splat that records the winner map in the forward, then the
     # routing pass alone, bit-equal to the two-pass backward
@@ -420,29 +500,7 @@ def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
         # (the packed buffer between the two passes is scratch)
         bound=bound(map_bytes + R * K * f * 4 + 2 * R * cells * f * 4,
                     R * K * n_vert * f * 2)))
-    del w_grid, w_map, p_grid, p_map
-    routed = ps.splat_route(*mapping, values, winner, g, sizes)
-    if not all(torch.equal(a, b) for a, b in zip(routed, (d_lo, d_hi, d_val))):
-        raise AssertionError(f"splat_route {shape}: not bit-equal to the "
-                             "two-pass splat_max_bwd")
-    plain = ps.splat_route_plain(*mapping, values, winner, g, sizes)
-    err = max(held(f"splat_route {shape} {n}", a, b, ROUTE_TOL)
-              for n, a, b in zip(("d_w_lo", "d_w_hi", "d_values"), routed,
-                                 plain))
-    rows["splat_route"].append(dict(
-        shape=shape, calls=n_splat, max_abs_err=err,
-        grid_rows_read=touched, grid_rows=R * cells,
-        ms=cuda_ms(lambda: ps.splat_route(*mapping, values, winner, g,
-                                          sizes)),
-        plain_ms=cuda_ms(lambda: ps.splat_route_plain(
-            *mapping, values, winner, g, sizes), iters=3, warmup=1),
-        library_ms=None,
-        # reads the mapping, the values and the touched rows of the winner
-        # map and of the cotangent; writes d_values and the two d_w
-        bound=bound(map_bytes + R * K * f * 4 + 2 * touched * f * 4
-                    + R * K * f * 4 + R * K * 32,
-                    R * K * n_vert * f * 4)))
-    del g, d_lo, d_hi, d_val, winner, p_lo, p_hi, p_val, routed, plain
+    del w_grid, w_map, p_grid, p_map, winner
 
     g_pts = torch.randn(R, K, f, generator=gen, device="cuda")
     d_grid, d_lo, d_hi = ps.slice_bwd(*mapping, g_pts, grid, sizes)
@@ -505,7 +563,7 @@ def check_kernels(gen):
                                .scatter_reduce_(1, index, src, "amax")),
             bound=bound(map_bytes + R * K * f * 4 + R * cells * f * 4,
                         R * K * n_vert * f * 2)))
-        del index, src
+        del index, src, idx, w
         # slice reads a grid of the forward's kind: splat output
         out = ps.slice_gather(*mapping, grid, sizes)
         plain = ps.slice_plain(*mapping, grid, sizes)
@@ -514,12 +572,8 @@ def check_kernels(gen):
         # the timing; it must compute the same function
         inp, pts = grid_sample_inputs(grid, keys, sizes)
         lib = grid_sample_slice(inp, pts).reshape(R, f, K).transpose(1, 2)
-        idx, w = ps.vertex_index_weights(*mapping, sizes)
         lib_err = held(f"grid_sample {sizes} F={f}", lib, plain, LIB_TOL)
-        # the grid rows this data reads: distinct (r, cell) with weight > 0
-        touched = int(torch.unique(
-            (torch.arange(R, device="cuda")[:, None, None] * cells
-             + idx)[w > 0]).numel())
+        touched = touched_rows(ps, mapping, sizes)
         rows["slice_gather"].append(dict(
             shape=f"{'x'.join(map(str, sizes))} F={f}", calls=n_slice,
             max_abs_err=err, library_err=lib_err,
@@ -536,7 +590,7 @@ def check_kernels(gen):
             library_host_ms=host_ms(lambda: grid_sample_slice(inp, pts)),
             bound=bound(map_bytes + touched * f * 4 + R * K * f * 4,
                         R * K * n_vert * f * 2)))
-        del plain, out, inp, pts, lib, idx, w
+        del plain, out, inp, pts, lib
         # the backward kernels run 4 times per shape in a step (the pools'
         # fifth splat has no slice)
         check_point_backwards(ps, rows, gen, mapping, values, grid, sizes,
@@ -547,7 +601,7 @@ def check_kernels(gen):
     for sizes, f, n_set_a in CONV2D_SHAPES:
         check_conv(gc, rows, gen, sizes, f, n_set_a, n_set_a)
     for sizes, f, n_set_b in BLOCK_SHAPES:
-        check_fused_block(rows, gen, sizes, f, n_set_b)
+        rows["fused_block"].append(check_fused_block(gen, sizes, f, n_set_b))
     return rows
 
 
@@ -617,18 +671,22 @@ def check_conv(gc, rows, gen, sizes, f, calls, calls_set_a):
                     R * pairs * f * f * 2)))
 
 
-def check_fused_block(rows, gen, sizes, f, calls):
-    """Set B's fused block at one head group's shape, with and without
-    gk2: gk bit-equal to the plain composition's, the points and gk2
-    within TOL.  Timed beside the three separate kernels on the same
-    inputs; no single PyTorch call computes the block."""
+def check_fused_block(gen, sizes, f, calls, b=B, k=K):
+    """Set B's fused block at one head group's shape, ``b`` clouds of ``k``
+    points, with and without gk2: gk bit-equal to the plain composition's,
+    the points and gk2 within TOL, two runs bit-equal.  Timed beside the
+    three separate kernels on the same inputs (by the loop and by graph
+    replay); no single PyTorch call computes the block.  -> its entry."""
     from cloud_transformers_tpu_torch.ops import pallas_fused_block as fb
     from cloud_transformers_tpu_torch.ops import pallas_grid_conv as gc
     from cloud_transformers_tpu_torch.ops import pallas_splat as ps
     dim = len(sizes)
+    r = b * H
     shape = f"{'x'.join(map(str, sizes))} F={f}"
+    if r != R:
+        shape += f" R={r} K={k}"
     cells = int(np.prod(sizes))
-    mapping, values, _ = mapping_inputs(sizes, f, gen)
+    mapping, values, _ = mapping_inputs(sizes, f, gen, b, k)
     weight = torch.randn((H * f, f) + (3,) * dim, generator=gen,
                          device="cuda") * (3 ** dim * f) ** -0.5
     bias = torch.randn(H * f, generator=gen, device="cuda") * 0.1
@@ -645,6 +703,9 @@ def check_fused_block(rows, gen, sizes, f, calls):
         if want:
             err = max(err, held(f"fused_block {shape} gk2", got[2],
                                 plain[2], TOL))
+        if not all(torch.equal(x, y) for x, y in zip(
+                got, fb.fused_block(*args, want_gk2=want))):
+            raise AssertionError(f"fused_block {shape}: two runs differ")
     del got, plain
     conv = gc.grid_conv2d if dim == 2 else gc.grid_conv3d
 
@@ -652,22 +713,50 @@ def check_fused_block(rows, gen, sizes, f, calls):
         gk = ps.splat_max(*mapping, values, sizes)
         return ps.slice_gather(*mapping, conv(gk, weight, bias, sizes, H),
                                sizes)
+
+    def fused():
+        return fb.fused_block(*args)
     n_vert = 2 ** dim
     pairs = int(np.prod([3 * s - 2 for s in sizes]))
-    rows["fused_block"].append(dict(
+    return dict(
         shape=shape, calls=calls, max_abs_err=err,
-        ms=cuda_ms(lambda: fb.fused_block(*args)),
+        plan=fb.fused_block_plan(r, k, f, sizes)._asdict(),
+        ms=cuda_ms(fused), device_ms=graph_ms(fused), host_ms=host_ms(fused),
         ms_with_gk2=cuda_ms(lambda: fb.fused_block(*args, want_gk2=True)),
         separate_kernels_ms=cuda_ms(separate),
+        separate_kernels_device_ms=graph_ms(separate),
         plain_ms=cuda_ms(lambda: fb.fused_block_plain(*args), iters=3,
                          warmup=1),
         library_ms=None,
         # reads the mapping, the values and the weights; writes the points
         # and gk (serving: no gk2)
-        bound=bound(R * K * 40 + 2 * R * K * f * 4 + weight.numel() * 4
-                    + bias.numel() * 4 + R * cells * f * 4,
-                    R * K * n_vert * f * 4
-                    + R * (pairs * f * f * 2 + cells * f))))
+        bound=bound(r * k * 40 + 2 * r * k * f * 4 + weight.numel() * 4
+                    + bias.numel() * 4 + r * cells * f * 4,
+                    r * k * n_vert * f * 4
+                    + r * (pairs * f * f * 2 + cells * f)))
+
+
+def check_completion_rows(gen):
+    """The two kernels this slice redesigned at the completion decoder's
+    rows (B = 2 clouds x 16 heads, K = 16384 points) at each head group's
+    shape, with the gates of the classifier's shapes.  -> {kernel: [entry
+    per shape]}, ``calls`` per completion step (the decoder's part)."""
+    from cloud_transformers_tpu_torch.ops import pallas_splat as ps
+    b, k = COMPLETION_ROWS
+    out = {"fused_block": [], "splat_max_bwd": [], "splat_route": []}
+    for sizes, f, calls in BLOCK_SHAPES:
+        out["fused_block"].append(check_fused_block(gen, sizes, f, calls,
+                                                    b, k))
+        mapping, values, _ = mapping_inputs(sizes, f, gen, b, k)
+        grid = ps.splat_max(*mapping, values, sizes)
+        bwd_row, route_row, _ = check_splat_backward(
+            ps, gen, [a.contiguous() for a in mapping], values, grid, sizes,
+            f, calls, touched_rows(ps, mapping, sizes))
+        out["splat_max_bwd"].append(bwd_row)
+        out["splat_route"].append(route_row)
+        del mapping, values, grid
+        torch.cuda.empty_cache()
+    return out
 
 
 def bound_top2(pairs, n_bytes):
@@ -833,7 +922,43 @@ def check_emd_kernels(gen):
     return rows
 
 
-def kernel_line(rows, launches):
+def per_shape(name, s, per):
+    """One shape's entry of the kernels line."""
+    return {
+        "shape": s["shape"], per: s["calls"],
+        "ms": s["ms"], "plain_ms": s["plain_ms"],
+        "bound_ms": s["bound"][0], "bound_by": s["bound"][1],
+        "library_ms": s["library_ms"],
+        "max_abs_err": s["max_abs_err"],
+        **({"bound_share": s["bound"][0] / s["ms"]}
+           if name in BOUND_SHARE else {}),
+        **({"faster_than_library": s["ms"] < s["library_ms"]}
+           if name in BOUND_SHARE and s["library_ms"] is not None else {}),
+        **({"device_ms": s["device_ms"],
+            "device_bound_share": s["bound"][0] / s["device_ms"]}
+           if name in DEVICE_TIMED else {}),
+        **({"library_device_ms": s["library_device_ms"],
+            "faster_than_library_device":
+                s["device_ms"] < s["library_device_ms"]}
+           if "library_device_ms" in s else {}),
+        **({"faster_than_separate_kernels":
+                s["ms"] < s["separate_kernels_ms"],
+            "faster_than_separate_kernels_device":
+                s["device_ms"] < s["separate_kernels_device_ms"]}
+           if "separate_kernels_ms" in s else {}),
+        **{k: s[k] for k in (
+            "library_err", "grid_rows_read", "grid_rows", "won",
+            "plan", "host_ms", "library_host_ms",
+            "calls_per_evaluated_cloud",
+            "auction_state_device_ms",
+            "auction_state_device_ms_no_skip",
+            "used", "bids",
+            "rounds_before", "unassigned_before", "calls_set_a",
+            "ms_with_gk2", "separate_kernels_ms",
+            "separate_kernels_device_ms") if k in s}}
+
+
+def kernel_line(rows, launches, completion_rows):
     """Per kernel: times summed over the calls of one pass of its path
     (each shape times its calls): one forward for the three kernels of the
     serving path, one training step of the classifier for the three
@@ -870,7 +995,9 @@ def kernel_line(rows, launches):
             "library_ms": lib,
             **({"library_is": LIBRARY_IS[name]} if name in LIBRARY_IS
                else {}),
-            **({"separate_kernels_ms": total("separate_kernels_ms")}
+            **({"separate_kernels_ms": total("separate_kernels_ms"),
+                "separate_kernels_device_ms":
+                    total("separate_kernels_device_ms")}
                if name == "fused_block" else {}),
             **({"ms_per_evaluated_cloud": sum(
                     sh["ms"] * sh["calls_per_evaluated_cloud"]
@@ -886,32 +1013,17 @@ def kernel_line(rows, launches):
                if name in DEVICE_TIMED else {}),
             **({"library_device_ms": total("library_device_ms")}
                if "library_device_ms" in shapes[0] else {}),
-            "per_shape": [{
-                "shape": s["shape"], per: s["calls"],
-                "ms": s["ms"], "plain_ms": s["plain_ms"],
-                "bound_ms": s["bound"][0], "bound_by": s["bound"][1],
-                "library_ms": s["library_ms"],
-                "max_abs_err": s["max_abs_err"],
-                **({"bound_share": s["bound"][0] / s["ms"],
-                    "faster_than_library": s["ms"] < s["library_ms"]}
-                   if name in BOUND_SHARE else {}),
-                **({"device_ms": s["device_ms"],
-                    "device_bound_share": s["bound"][0] / s["device_ms"]}
-                   if name in DEVICE_TIMED else {}),
-                **({"library_device_ms": s["library_device_ms"],
-                    "faster_than_library_device":
-                        s["device_ms"] < s["library_device_ms"]}
-                   if "library_device_ms" in s else {}),
-                **{k: s[k] for k in (
-                    "library_err", "grid_rows_read", "grid_rows", "won",
-                    "plan", "host_ms", "library_host_ms",
-                    "calls_per_evaluated_cloud",
-                    "auction_state_device_ms",
-                    "auction_state_device_ms_no_skip",
-                    "used", "bids",
-                    "rounds_before", "unassigned_before", "calls_set_a",
-                    "ms_with_gk2", "separate_kernels_ms") if k in s}}
-                for s in shapes],
+            "per_shape": [per_shape(name, s, per) for s in shapes],
+            **({"per_completion_decoder_step": {
+                "ms": sum(c["ms"] * c["calls"] for c in done),
+                "device_ms": sum(c["device_ms"] * c["calls"] for c in done),
+                "bound_ms": sum(c["bound"][0] * c["calls"] for c in done),
+                **({"separate_kernels_ms": sum(
+                    c["separate_kernels_ms"] * c["calls"] for c in done)}
+                   if name == "fused_block" else {}),
+                "per_shape": [per_shape(name, c, "per_completion_step")
+                              for c in done]}}
+               if (done := completion_rows.get(name)) else {}),
         })
     return {"kernels": out}
 
@@ -952,7 +1064,8 @@ KERNEL_GROUPS = (
     ("grid_conv3d_dw", "grid_conv3d_dw"),
     # the forward and its weight packing pass
     ("grid_conv3d_", "grid_conv3d"),
-    ("fused_block", "fused_block"), ("splat_max_winner", "splat_max_winner"),
+    ("fused_block", "fused_block"), ("fused_cluster", "fused_block"),
+    ("splat_max_winner", "splat_max_winner"),
     ("splat_unpack", "splat_max_winner"),
     # the routing pass: splat_max_bwd's second pass, or splat_route alone
     ("splat_winner", "splat_max_bwd"),
@@ -1774,6 +1887,8 @@ def main():
     t0 = time.perf_counter()
     rows = check_kernels(gen)
     rows.update(check_emd_kernels(gen))
+    completion_rows = check_completion_rows(gen)
+    torch.cuda.empty_cache()
     log(f"kernel checks done in {time.perf_counter() - t0:.1f} s")
 
     # 4. the main path: serve full-width classifier requests
@@ -1940,7 +2055,8 @@ def main():
     print(json.dumps({"switched": switched}), flush=True)
     all_launches.update(completion=completion_launches,
                         evaluation=eval_launches, window=window_launches)
-    print(json.dumps(kernel_line(rows, all_launches)), flush=True)
+    print(json.dumps(kernel_line(rows, all_launches, completion_rows)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -35,10 +35,10 @@ SIGNATURES = {
     "splat_slice": {
         "ct_splat_max": [_P] * 6 + [_I] * 8 + [_P],
         "ct_slice": [_P] * 8,
-        "ct_splat_max_bwd": [_P] * 11 + [_I] * 8 + [_P],
+        "ct_splat_max_bwd": [_P] * 13,
         "ct_slice_bwd": [_P] * 9 + [_I] * 8 + [_P],
         "ct_splat_max_winner": [_P] * 8 + [_I] * 8 + [_P],
-        "ct_splat_route": [_P] * 10 + [_I] * 8 + [_P],
+        "ct_splat_route": [_P] * 12,
     },
     "grid_conv": {
         "ct_grid_conv3d": [_P] * 5 + [_I] * 12 + [_P],
@@ -47,7 +47,7 @@ SIGNATURES = {
         "ct_grid_conv2d_dw": [_P] * 4 + [_I] * 10 + [_P],
     },
     "fused_block": {
-        "ct_fused_block": [_P] * 10 + [_I] * 9 + [_P],
+        "ct_fused_block": [_P] * 12,
     },
     "emd": {
         "ct_emd_top2": [_P] * 10,

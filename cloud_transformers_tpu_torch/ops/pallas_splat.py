@@ -34,6 +34,8 @@ from cloud_transformers_tpu_torch.ops import cuda_build
 NO_WINNER = 2 ** 31 - 1
 # threads of a slice block (csrc: kSliceThreads)
 SLICE_THREADS = 256
+# threads of a splat backward block (csrc: kBwdThreads)
+BWD_THREADS = 256
 # threads a slice launch should have in flight (132 SMs x 16 warps) before a
 # thread takes more points
 SLICE_FILL_THREADS = 132 * 512
@@ -46,6 +48,16 @@ SLICE_PARAMS = ("rows", "points", "feat", "cells", "lane_extent", "off2",
 SlicePlan = collections.namedtuple("SlicePlan", (
     "group", "quads", "points_per_thread", "threads", "blocks",
     "points_per_block", "vec"))
+# the splat backward's: its routing pass's, and its winner pass's lanes a
+# point, blocks and layout; the entry points take SLICE_PARAMS and these
+BwdPlan = collections.namedtuple(
+    "BwdPlan", SlicePlan._fields + ("winner_group", "winner_blocks",
+                                    "winner_features"))
+BWD_PARAMS = SLICE_PARAMS + ("winner_group", "winner_blocks",
+                             "winner_features")
+# contributions a grid cell gets on average (points x 2^dim / cells) below
+# which the winner pass goes feature-major (csrc: bwd_plan_ok)
+WINNER_DENSE = 16
 
 
 def vertex_decomposition(keys_scaled, sizes):
@@ -248,22 +260,30 @@ def slice_plan(rows, points, feat, sizes):
 
 @functools.lru_cache(maxsize=None)
 def _slice_plan(rows, points, feat, sizes):
+    return _point_major_plan("slice_gather", rows, points, feat, sizes,
+                             4 if len(sizes) == 2 else 2, SLICE_THREADS)
+
+
+def _point_major_plan(what, rows, points, feat, sizes, per_thread, threads):
+    """The lane groups, points a thread and blocks of a point-major kernel
+    (``slice_kernel``, the splat backward's two passes): ``per_thread``
+    points a thread at most, halved while the launch would have fewer than
+    ``SLICE_FILL_THREADS`` threads."""
     cells = kernel_grid_dims(sizes)[2]
     n = rows * points
     if n * feat >= INDEX_LIMIT or rows * cells * feat >= INDEX_LIMIT:
         raise ValueError(
-            f"slice_gather: {rows} x {points} points or {rows} x {cells} "
+            f"{what}: {rows} x {points} points or {rows} x {cells} "
             f"cells of {feat} features reach the 2^31 index limit")
     quads = -(-feat // 4)
     group = 1
     while group < quads and group < 8:
         group *= 2
-    per_thread = 4 if len(sizes) == 2 else 2
     while per_thread > 1 and n * group < SLICE_FILL_THREADS * per_thread:
         per_thread //= 2
-    per_block = per_thread * (SLICE_THREADS // group)
+    per_block = per_thread * (threads // group)
     return SlicePlan(group=group, quads=quads, points_per_thread=per_thread,
-                     threads=SLICE_THREADS, blocks=-(-n // per_block),
+                     threads=threads, blocks=-(-n // per_block),
                      points_per_block=per_block, vec=feat % 4 == 0)
 
 
@@ -317,6 +337,67 @@ slice_gather.launches = 0
 
 
 # --- splat-max backward -----------------------------------------------------
+
+def splat_bwd_plan(rows, points, feat, sizes):
+    """Launch arithmetic of the splat backward's two passes
+    (``splat_winner_kernel`` and ``splat_route_kernel`` in
+    ``csrc/splat_slice.cu``), one point a lane group, ``BWD_THREADS`` a
+    block.  The routing pass: a point on ``group`` lanes of feature quads
+    as in ``slice_plan``, ``blocks`` blocks.  The winner pass, on a sparse
+    grid (fewer than ``WINNER_DENSE`` contributions a cell on average,
+    where nearly every contribution wins and the atomics are the cost): a
+    point on ``winner_group`` lanes of one feature each (the next power of
+    two >= min(F, 32)), so that a warp's atomics on a row are consecutive
+    words (``winner_features``); on a denser grid, where the loads are the
+    cost, as the routing pass.  ``winner_blocks`` blocks.  Raises where an index of the
+    points or of the grid reaches 2^31.  Cached per shape, as are the entry
+    points' integers built from it (``_splat_bwd_params``, in
+    ``BWD_PARAMS`` order)."""
+    return _splat_bwd_plan(rows, points, feat, tuple(sizes))
+
+
+@functools.lru_cache(maxsize=None)
+def _splat_bwd_plan(rows, points, feat, sizes):
+    route = _point_major_plan("splat_max_bwd", rows, points, feat, sizes, 1,
+                              BWD_THREADS)
+    sparse = points * 2 ** len(sizes) < WINNER_DENSE * kernel_grid_dims(
+        sizes)[2]
+    group = route.group
+    if sparse:
+        group = 1
+        while group < feat and group < 32:
+            group *= 2
+    return BwdPlan(*route, winner_group=group,
+                   winner_blocks=-(-rows * points // (BWD_THREADS // group)),
+                   winner_features=sparse)
+
+
+@functools.lru_cache(maxsize=None)
+def _splat_bwd_params(rows, points, feat, sizes):
+    """``ct_splat_max_bwd``'s and ``ct_splat_route``'s integers for one
+    shape (``BWD_PARAMS``), as ``cuda_build.int_params``; the cache keeps
+    the array alive."""
+    plan = _splat_bwd_plan(rows, points, feat, sizes)
+    return cuda_build.int_params(
+        rows, *_launch_args(sizes, points, feat), plan.group,
+        plan.points_per_thread, plan.threads, plan.blocks, int(plan.vec),
+        plan.winner_group, plan.winner_blocks, int(plan.winner_features))
+
+
+def _bwd_inputs(x0, lane0, w_lo, w_hi, *rows):
+    """The mapping, then ``rows`` (values, grids, maps, cotangents), as a
+    splat backward entry point takes them: contiguous, and 16-byte aligned
+    where they are read as float4 (copied where they are not).  ->
+    (tensors, their addresses); the caller keeps the tensors until it has
+    launched."""
+    kept = [x0.contiguous(), lane0.contiguous()]
+    ptrs = [t.data_ptr() for t in kept]
+    for t in (w_lo, w_hi, *rows):
+        t, p = _aligned_ptr(t.contiguous())
+        kept.append(t)
+        ptrs.append(p)
+    return kept, ptrs
+
 
 def _expanded(x0, lane0, w_lo, w_hi, sizes, f):
     """-> (scatter/gather index [R, K*8, F] int64, weights [R, K, 8])."""
@@ -398,19 +479,18 @@ def splat_max_bwd(x0, lane0, w_lo, w_hi, values, grid, g, sizes,
             out += (splat_winner_plain(x0, lane0, w_lo, w_hi, values, grid,
                                        sizes),)
         return out
-    args = [a.contiguous() for a in (x0, lane0, w_lo, w_hi, values, grid, g)]
+    params = _splat_bwd_params(r, k, f, tuple(sizes))[1]
+    kept, ptrs = _bwd_inputs(x0, lane0, w_lo, w_hi, values, grid, g)
     dev = values.device
     winner = torch.full((r, cells, f), NO_WINNER, dtype=torch.int32,
                         device=dev)
     d_w_lo = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
     d_w_hi = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
     d_values = torch.empty(r, k, f, dtype=torch.float32, device=dev)
-    lib = cuda_build.libraries()["splat_slice"]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ct_splat_max_bwd(
-        *(a.data_ptr() for a in args), winner.data_ptr(), d_w_lo.data_ptr(),
-        d_w_hi.data_ptr(), d_values.data_ptr(), r,
-        *_launch_args(sizes, k, f), stream)
+    err = cuda_build.libraries()["splat_slice"].ct_splat_max_bwd(
+        *ptrs, winner.data_ptr(), d_w_lo.data_ptr(), d_w_hi.data_ptr(),
+        d_values.data_ptr(), params, cuda_build.current_stream(dev))
+    del kept
     cuda_build.check(err, "splat_max_bwd")
     splat_max_bwd.launches += 1
     out = (d_w_lo, d_w_hi, d_values)
@@ -453,17 +533,16 @@ def splat_route(x0, lane0, w_lo, w_hi, values, winner, g, sizes):
     if not values.is_cuda:
         return splat_route_plain(x0, lane0, w_lo, w_hi, values, winner, g,
                                  sizes)
-    args = [a.contiguous()
-            for a in (x0, lane0, w_lo, w_hi, values, winner, g)]
+    params = _splat_bwd_params(r, k, f, tuple(sizes))[1]
+    kept, ptrs = _bwd_inputs(x0, lane0, w_lo, w_hi, values, winner, g)
     dev = values.device
     d_w_lo = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
     d_w_hi = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
     d_values = torch.empty(r, k, f, dtype=torch.float32, device=dev)
-    lib = cuda_build.libraries()["splat_slice"]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ct_splat_route(
-        *(a.data_ptr() for a in args), d_w_lo.data_ptr(), d_w_hi.data_ptr(),
-        d_values.data_ptr(), r, *_launch_args(sizes, k, f), stream)
+    err = cuda_build.libraries()["splat_slice"].ct_splat_route(
+        *ptrs, d_w_lo.data_ptr(), d_w_hi.data_ptr(), d_values.data_ptr(),
+        params, cuda_build.current_stream(dev))
+    del kept
     cuda_build.check(err, "splat_route")
     splat_route.launches += 1
     return d_w_lo, d_w_hi, d_values

@@ -849,9 +849,9 @@ def test_fwd_winner_step_goes_through_the_routed_backward(gen, monkeypatch):
                                      ((16, 16, 16), 16), ((6, 5, 7), 3)])
 @pytest.mark.parametrize("want_gk2", [False, True])
 def test_fused_block_kernel_matches_plain(gen, sizes, f, want_gk2):
-    """The fused block in shared memory (16^2 x 16; gk of 8^3 x 32) and in
-    device memory (the rest): gk bit-equal to splat_max's, the points and
-    gk2 within 1e-5 of the plain composition."""
+    """The fused block on its clusters at the head groups' sizes and a
+    ragged one: gk bit-equal to splat_max's, the points and gk2 within 1e-5
+    of the plain composition."""
     h = 4
     mapping, values = _mapping(gen, sizes, 2, h, 512, f, ties=False)
     weight, bias = _weights(gen, sizes, f, h)
@@ -917,3 +917,189 @@ def test_switched_wrappers_validate_inputs(gen):
     with pytest.raises(ValueError):
         tgc.grid_conv2d(wide, torch.zeros(66, 33, 3, 3, device="cuda"),
                         torch.zeros(66, device="cuda"), (4, 4), 2)
+
+
+# --- the fused block on clusters and the point-major splat backward -------
+
+RAGGED_SIZES = [(16, 16), (9, 7), (8, 8, 8), (5, 6, 7)]
+RAGGED_F = [1, 3, 4, 5, 8, 16, 21, 32]
+
+
+def _fused_check(gen, sizes, f, b, h, k, ties=False):
+    """One fused block with and without gk2 against the plain composition:
+    gk bit-equal to splat_max's, the points and gk2 within 1e-5, and a
+    second run bit-equal to the first."""
+    mapping, values = _mapping(gen, sizes, b, h, k, f, ties=ties)
+    weight, bias = _weights(gen, sizes, f, h)
+    ref = tfb.fused_block_plain(*mapping, values, weight, bias, sizes, h,
+                                want_gk2=True)
+    for want in (False, True):
+        n = tfb.fused_block.launches
+        got = tfb.fused_block(*mapping, values, weight, bias, sizes, h,
+                              want_gk2=want)
+        assert tfb.fused_block.launches == n + 1
+        assert torch.equal(got[1], ref[1])
+        assert torch.equal(got[1], tps.splat_max(*mapping, values, sizes))
+        _close(got[0], ref[0], 1e-5)
+        if want:
+            _close(got[2], ref[2], 1e-5)
+        again = tfb.fused_block(*mapping, values, weight, bias, sizes, h,
+                                want_gk2=want)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+    return tfb.fused_block_plan(b * h, k, f, sizes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", RAGGED_SIZES)
+@pytest.mark.parametrize("f", RAGGED_F)
+def test_fused_block_cluster_at_ragged_shapes(gen, sizes, f):
+    """Ragged slabs (X a multiple of nothing), every lane group, the scalar
+    path, duplicated points, and 2D mappings' zero-weight slots."""
+    plan = _fused_check(gen, sizes, f, 2, 3, 334, ties=True)
+    assert plan.path == "cluster"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f,b,h,k", [
+    ((32, 32, 32), 4, 1, 4, 2000),    # few rows: a 16-CTA cluster
+    ((64, 64), 16, 1, 2, 1500),
+    ((8, 8, 8), 32, 2, 16, 16384),    # the completion decoder's rows
+    ((128, 128), 32, 1, 2, 700)])     # no cluster fits: device memory
+def test_fused_block_cluster_sizes_and_the_device_memory_path(
+        gen, sizes, f, b, h, k):
+    plan = _fused_check(gen, sizes, f, b, h, k)
+    assert plan.path == ("device_memory" if f == 32 and sizes[0] == 128
+                         else "cluster")
+    if sizes == (32, 32, 32):
+        assert plan.cluster == 16
+
+
+@pytest.mark.gpu
+def test_fused_block_launch_refuses_a_plan_it_did_not_make(gen):
+    sizes, f, h = (16, 16, 16), 16, 4
+    mapping, values = _mapping(gen, sizes, 2, h, 300, f, ties=False)
+    weight, bias = _weights(gen, sizes, f, h)
+    good = list(tfb._fused_params(8, h, 300, f, sizes, True)[0])
+    assert len(good) == len(tfb.FUSED_PARAMS)
+    at = {n: i for i, n in enumerate(tfb.FUSED_PARAMS)}
+    lib = tfb.cuda_build.libraries()["fused_block"]
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, wrong in (("cluster", good[at["cluster"]] * 2),
+                        ("slab", good[at["slab"]] + 1), ("threads", 256),
+                        ("smem", good[at["smem"]] - 16),
+                        ("blocks", good[at["blocks"]] + 1), ("group", 8),
+                        ("feat", 33)):
+        outs = [torch.full((8, n, f), 7.0, device="cuda")
+                for n in (300, 16 ** 3, 16 ** 3)]
+        bad = list(good)
+        bad[at[name]] = wrong
+        params = tfb.cuda_build.int_params(*bad)
+        err = lib.ct_fused_block(
+            *(a.data_ptr() for a in (*mapping, values, weight, bias)),
+            *(o.data_ptr() for o in outs), params[1], stream)
+        torch.cuda.synchronize()
+        assert err != 0 and all(bool((o == 7.0).all()) for o in outs), name
+
+
+def _graph_replays(fn):
+    """``fn()``'s outputs from a CUDA graph of one call, replayed twice,
+    after a warm-up on the capture stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = fn()
+    runs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append([t.clone() for t in got])
+    return runs
+
+
+@pytest.mark.gpu
+def test_fused_block_and_splat_backward_in_a_cuda_graph(gen):
+    sizes, f, h = (16, 16, 16), 16, 4
+    mapping, values = _mapping(gen, sizes, 2, h, 512, f)
+    weight, bias = _weights(gen, sizes, f, h)
+    ref = tfb.fused_block(*mapping, values, weight, bias, sizes, h,
+                          want_gk2=True)
+    for run in _graph_replays(lambda: tfb.fused_block(
+            *mapping, values, weight, bias, sizes, h, want_gk2=True)):
+        assert all(torch.equal(a, b) for a, b in zip(run, ref))
+    grid = ref[1]
+    g = torch.randn(grid.shape, generator=gen, device="cuda")
+    ref = tps.splat_max_bwd(*mapping, values, grid, g, sizes,
+                            return_winner=True)
+    for run in _graph_replays(lambda: tps.splat_max_bwd(
+            *mapping, values, grid, g, sizes, return_winner=True)):
+        assert all(torch.equal(a, b) for a, b in zip(run, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", RAGGED_SIZES)
+@pytest.mark.parametrize("f", RAGGED_F)
+def test_splat_backward_at_ragged_shapes(gen, sizes, f):
+    """Both passes at every lane group and on the scalar path: the winner
+    map equal to the plain one, ties routed to the lower index, the
+    gradients within 1e-6, the routing pass alone bit-equal to the two-pass
+    backward, two runs bit-equal, 2D slots 2 and 3 at zero."""
+    mapping, values = _mapping(gen, sizes, 2, 3, 334, f)
+    grid = tps.splat_max(*mapping, values, sizes)
+    g = torch.randn(grid.shape, generator=gen, device="cuda")
+    n = tps.splat_max_bwd.launches
+    got = tps.splat_max_bwd(*mapping, values, grid, g, sizes,
+                            return_winner=True)
+    assert tps.splat_max_bwd.launches == n + 1
+    winner = got[3]
+    assert torch.equal(winner, tps.splat_winner_plain(*mapping, values, grid,
+                                                      sizes))
+    assert not (winner % 2 == 1)[winner != tps.NO_WINNER].any()
+    plain = tps.splat_max_bwd_plain(*mapping, values, grid, g, sizes)
+    assert torch.equal(got[2] != 0, plain[2] != 0)
+    for a, p in zip(got, plain):
+        _close(a, p, 1e-6)
+    again = tps.splat_max_bwd(*mapping, values, grid, g, sizes,
+                              return_winner=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    routed = tps.splat_route(*mapping, values, winner, g, sizes)
+    assert all(torch.equal(a, b) for a, b in zip(routed, got[:3]))
+    assert not got[2][:, 1::2].any()
+    if len(sizes) == 2:
+        assert not got[0][..., 2:].any() and not got[1][..., 2:].any()
+
+
+@pytest.mark.gpu
+def test_splat_backward_launch_refuses_a_plan_it_did_not_make(gen):
+    sizes, f = (16, 16), 16
+    mapping, values = _mapping(gen, sizes, 2, 4, 300, f)
+    grid = tps.splat_max(*mapping, values, sizes)
+    g = torch.randn(grid.shape, generator=gen, device="cuda")
+    good = list(tps._splat_bwd_params(8, 300, f, sizes)[0])
+    at = {n: i for i, n in enumerate(tps.BWD_PARAMS)}
+    lib = tps.cuda_build.libraries()["splat_slice"]
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, wrong in (("group", 8), ("points_per_thread", 2),
+                        ("threads", 128), ("blocks", good[at["blocks"]] + 1),
+                        ("vec", 0), ("winner_group", 8),
+                        ("winner_blocks", good[at["winner_blocks"]] - 1),
+                        ("winner_features", 1 - good[at["winner_features"]])):
+        bad = list(good)
+        bad[at[name]] = wrong
+        params = tps.cuda_build.int_params(*bad)
+        winner = torch.full(grid.shape, 7, dtype=torch.int32, device="cuda")
+        outs = [torch.full((8, 300, n), 7.0, device="cuda")
+                for n in (4, 4, f)]
+        err = lib.ct_splat_max_bwd(
+            *(a.data_ptr() for a in (*mapping, values, grid, g, winner)),
+            *(o.data_ptr() for o in outs), params[1], stream)
+        err2 = lib.ct_splat_route(
+            *(a.data_ptr() for a in (*mapping, values, winner, g)),
+            *(o.data_ptr() for o in outs), params[1], stream)
+        torch.cuda.synchronize()
+        assert err != 0 and err2 != 0, name
+        assert bool((winner == 7).all()), name
+        assert all(bool((o == 7.0).all()) for o in outs), name
