@@ -6,7 +6,8 @@
 2. prints the card's name and power limit (nvidia-smi);
 3. holds every kernel against its plain PyTorch version on the card at each
    shape the classifier gives it (R = B*H = 128, K = 2048): the splat
-   exactly, slice and grid conv within 1e-5 of the output scale; the splat
+   exactly (and bit-equal over two runs), slice and grid conv within 1e-5
+   of the output scale; the splat
    backward's winner map exactly and its gradients within 1e-6, the slice
    backward and the conv weight gradient within 1e-5; times the kernel, the
    plain version and, where one PyTorch call computes the same function,
@@ -20,15 +21,16 @@
    touches).  The kernels of the JAX package's execution switches too: the
    2D conv and its weight gradient at the three 2D head-group shapes and
    the 3D pair at 8^3 x 32 (against ``conv2d``/``conv3d`` and
-   ``convolution_backward``), the winner-tracking splat (grid and map
-   equal to the plain version's and to splat_max's) and the routing pass
-   alone (bit-equal to the two-pass backward) at every splat shape, and the
-   fused block at every head group's shape, with and without gk2 (gk
-   exact, points and gk2 within 1e-5, two runs bit-equal), timed beside
-   the three separate kernels.  The fused block, the splat backward and
-   the routing pass also at the completion decoder's rows (B = 2 clouds x
-   16 heads, K = 16384 points) at every head group's shape, with the same
-   gates;
+   ``convolution_backward``), the winner-tracking splat (grid equal to the
+   plain version's and to splat_max's, map equal to the plain version's
+   and to the two-pass backward's, two runs bit-equal) and the routing
+   pass alone (bit-equal to the two-pass backward) at every splat shape,
+   and the fused block at every head group's shape, with and without gk2
+   (gk exact, points and gk2 within 1e-5, two runs bit-equal), timed
+   beside the three separate kernels.  The fused block, the splat, the
+   splat backward, the winner-tracking splat and the routing pass also at
+   the completion decoder's rows (B = 2 clouds x 16 heads, K = 16384
+   points) at every head group's shape, with the same gates;
 4. serves 100 full-width ScanObjectNN classifier requests (random weights
    from a seed, clouds of 1024 to 3000 points) through
    ``InferenceEngine.classify`` in the B=8 x 2048 bucket, with the launch
@@ -95,14 +97,14 @@
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
    2D and 3D convs, their weight gradients, the slice, ``top2``, the
-   fused block, the splat backward and the routing pass also with
-   ``bound_share``, bound_ms / ms, per pass and per shape, and per shape
-   whether the kernel took less time than its library call in this run;
-   the slice, ``top2``, the fused block, the splat backward and the routing
-   pass also with their device and host times, and per shape their launch
-   plan; the fused block also beside the three separate kernels, by the
-   loop and on the device; those three also per completion decoder step,
-   from the decoder's rows; ``top2`` also per evaluated cloud, from the bid
+   fused block, the splat, the winner-tracking splat, the splat backward
+   and the routing pass also with ``bound_share``, bound_ms / ms, per pass
+   and per shape, and per shape whether the kernel took less time than its
+   library call in this run; the slice, ``top2`` and those five also with
+   their device and host times, and per shape their launch plan; the fused
+   block also beside the three separate kernels, by the loop and on the
+   device; those five also per completion decoder step, from the decoder's
+   rows; ``top2`` also per evaluated cloud, from the bid
    searches the evaluation ran at each width), then
    the ``{"ok": true, "device": ...}`` line last.
 
@@ -120,7 +122,7 @@ values of 12 float32 operations, or their square roots at the
 special-function rate, whichever takes longer.  Every kernel's ``ms`` and
 ``library_ms`` time a loop of 20 launches (``cuda_ms``), so they hold the
 wrapper's host cost wherever it exceeds the kernel's.  The slice, ``top2``,
-``grid_sample``, the fused block and the splat backward's passes take tens
+``grid_sample``, the fused block and the splat kernels take tens
 of microseconds at some shapes, about what a wrapper takes on the host, so
 they are also timed by replaying a CUDA graph of 20 calls (``graph_ms``),
 which leaves the host out: ``device_ms`` and
@@ -247,13 +249,14 @@ LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
 # bound reached (bound_ms / ms), per pass and per shape
 BOUND_SHARE = ("grid_conv2d", "grid_conv2d_dw", "grid_conv3d",
                "grid_conv3d_dw", "slice_gather", "top2", "fused_block",
-               "splat_max_bwd", "splat_route")
+               "splat_max_bwd", "splat_route", "splat_max",
+               "splat_max_winner")
 # kernels short enough that a loop of launches may time their wrappers on
 # the host: their entries also carry the device time of a CUDA graph
 # replay (``device_ms``, ``device_bound_share``; per shape, against the
 # library call's, ``faster_than_library_device``)
 DEVICE_TIMED = ("slice_gather", "top2", "fused_block", "splat_max_bwd",
-                "splat_route")
+                "splat_route", "splat_max", "splat_max_winner")
 # the path whose run gives each kernel's ``launches``
 MAIN_PATH = {"splat_max": "serving", "slice_gather": "serving",
              "grid_conv3d": "serving", "splat_max_bwd": "training",
@@ -387,6 +390,96 @@ def touched_rows(ps, mapping, sizes):
          + idx)[w > 0]).numel())
 
 
+def shape_name(sizes, f, r=R, k=K):
+    """A shape's name in the kernels line: its grid and F, and its rows
+    and points where they are not the classifier's."""
+    name = f"{'x'.join(map(str, sizes))} F={f}"
+    return name if r == R else f"{name} R={r} K={k}"
+
+
+def check_splat(ps, mapping, values, sizes, f, calls):
+    """``splat_max`` at one shape: bit-equal to the plain version and over
+    two runs; timed by the loop, by graph replay and on the host, beside
+    ``scatter_reduce_`` amax on products expanded outside the timing (held
+    to the plain version).  -> (its entry, the grid)."""
+    r, k = mapping[0].shape
+    shape = shape_name(sizes, f, r, k)
+    cells = ps.kernel_grid_dims(sizes)[2]
+    grid = ps.splat_max(*mapping, values, sizes)
+    plain = ps.splat_max_plain(*mapping, values, sizes)
+    n_diff = int((grid != plain).sum())
+    if n_diff:
+        raise AssertionError(f"splat_max {shape}: {n_diff} elements differ "
+                             "from the plain version")
+    if not torch.equal(grid, ps.splat_max(*mapping, values, sizes)):
+        raise AssertionError(f"splat_max {shape}: two runs differ")
+    idx, w = ps.vertex_index_weights(*mapping, sizes)
+    index = idx.reshape(r, k * 8, 1).expand(r, k * 8, f).contiguous()
+    src = (w[..., None] * values[:, :, None, :]).reshape(r, k * 8, f)
+
+    def library():
+        return torch.zeros(r, cells, f, device="cuda").scatter_reduce_(
+            1, index, src, "amax")
+    if not torch.equal(library(), plain):
+        raise AssertionError(f"scatter_reduce_ {shape}: not the plain splat")
+    del plain, idx, w
+
+    def splat():
+        return ps.splat_max(*mapping, values, sizes)
+    row = dict(
+        shape=shape, calls=calls, max_abs_err=0.0,
+        plan=ps.splat_plan(r, k, f, sizes)._asdict(),
+        ms=cuda_ms(splat), device_ms=graph_ms(splat), host_ms=host_ms(splat),
+        plain_ms=cuda_ms(lambda: ps.splat_max_plain(*mapping, values, sizes),
+                         iters=5),
+        library_ms=cuda_ms(library),
+        # reads the mapping and the values; writes the grid
+        bound=bound(r * k * 40 + r * k * f * 4 + r * cells * f * 4,
+                    r * k * 2 ** len(sizes) * f * 2))
+    return row, grid
+
+
+def check_winner_splat(ps, mapping, values, grid, winner, sizes, f, calls):
+    """``splat_max_winner`` at one shape: its grid bit-equal to the plain
+    version's and to ``splat_max``'s (``grid``), its map equal to the plain
+    map and to the two-pass backward's (``winner``), two runs bit-equal;
+    timed by the loop, by graph replay and on the host.  -> its entry."""
+    r, k = mapping[0].shape
+    shape = shape_name(sizes, f, r, k)
+    cells = ps.kernel_grid_dims(sizes)[2]
+    w_grid, w_map = ps.splat_max_winner(*mapping, values, sizes)
+    p_grid, p_map = ps.splat_max_winner_plain(*mapping, values, sizes)
+    if not (torch.equal(w_grid, p_grid) and torch.equal(w_map, p_map)
+            and torch.equal(w_grid, grid) and torch.equal(w_map, winner)):
+        raise AssertionError(f"splat_max_winner {shape}: the grid or the "
+                             "winner map differs from the plain version's")
+    if not all(torch.equal(a, b) for a, b in zip(
+            ps.splat_max_winner(*mapping, values, sizes), (w_grid, w_map))):
+        raise AssertionError(f"splat_max_winner {shape}: two runs differ")
+    splat_plan = ps.splat_plan(r, k, f, sizes)
+    bwd_plan = ps.splat_bwd_plan(r, k, f, sizes)
+
+    def winner_splat():
+        return ps.splat_max_winner(*mapping, values, sizes)
+    return dict(
+        shape=shape, calls=calls,
+        max_abs_err=float((w_grid - p_grid).abs().max()),
+        won=int((w_map != ps.NO_WINNER).sum()),
+        plan={"splat": splat_plan._asdict(),
+              "winners_in_splat": ps.winners_in_splat(splat_plan),
+              "winner_pass": None if ps.winners_in_splat(splat_plan) else {
+                  key: getattr(bwd_plan, key) for key in (
+                      "winner_group", "winner_blocks", "winner_features")}},
+        ms=cuda_ms(winner_splat), device_ms=graph_ms(winner_splat),
+        host_ms=host_ms(winner_splat),
+        plain_ms=cuda_ms(lambda: ps.splat_max_winner_plain(
+            *mapping, values, sizes), iters=3, warmup=1),
+        library_ms=None,
+        # reads the mapping and the values; writes the grid and the map
+        bound=bound(r * k * 40 + r * k * f * 4 + 2 * r * cells * f * 4,
+                    r * k * 2 ** len(sizes) * f * 2))
+
+
 def check_splat_backward(ps, gen, mapping, values, grid, sizes, f, calls,
                          touched):
     """The splat backward's two passes and the routing pass alone at one
@@ -396,9 +489,7 @@ def check_splat_backward(ps, gen, mapping, values, grid, sizes, f, calls,
     to the two-pass backward.  -> (splat_max_bwd's entry, splat_route's
     entry), each timed by the loop, by graph replay and on the host."""
     r, k = mapping[0].shape
-    shape = f"{'x'.join(map(str, sizes))} F={f}"
-    if r != R:
-        shape += f" R={r} K={k}"
+    shape = shape_name(sizes, f, r, k)
     cells = ps.kernel_grid_dims(sizes)[2]
     n_vert = 2 ** len(sizes)
     map_bytes = r * k * 40
@@ -471,7 +562,7 @@ def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
                           n_splat, n_slice, touched):
     """The splat and slice backward kernels at one main-path shape.  The
     splat's ``grid`` is the forward's own output, so winners exist."""
-    shape = f"{'x'.join(map(str, sizes))} F={f}"
+    shape = shape_name(sizes, f)
     cells = ps.kernel_grid_dims(sizes)[2]
     n_vert = 2 ** len(sizes)
     map_bytes = R * K * 40
@@ -482,25 +573,9 @@ def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
 
     # set A: the splat that records the winner map in the forward, then the
     # routing pass alone, bit-equal to the two-pass backward
-    w_grid, w_map = ps.splat_max_winner(*mapping, values, sizes)
-    p_grid, p_map = ps.splat_max_winner_plain(*mapping, values, sizes)
-    if not (torch.equal(w_grid, p_grid) and torch.equal(w_map, p_map)
-            and torch.equal(w_grid, grid) and torch.equal(w_map, winner)):
-        raise AssertionError(f"splat_max_winner {shape}: the grid or the "
-                             "winner map differs from the plain version's")
-    rows["splat_max_winner"].append(dict(
-        shape=shape, calls=n_splat,
-        max_abs_err=float((w_grid - p_grid).abs().max()),
-        won=int((w_map != ps.NO_WINNER).sum()),
-        ms=cuda_ms(lambda: ps.splat_max_winner(*mapping, values, sizes)),
-        plain_ms=cuda_ms(lambda: ps.splat_max_winner_plain(
-            *mapping, values, sizes), iters=3, warmup=1),
-        library_ms=None,
-        # reads the mapping and the values; writes the grid and the map
-        # (the packed buffer between the two passes is scratch)
-        bound=bound(map_bytes + R * K * f * 4 + 2 * R * cells * f * 4,
-                    R * K * n_vert * f * 2)))
-    del w_grid, w_map, p_grid, p_map, winner
+    rows["splat_max_winner"].append(check_winner_splat(
+        ps, mapping, values, grid, winner, sizes, f, n_splat))
+    del winner
 
     g_pts = torch.randn(R, K, f, generator=gen, device="cuda")
     d_grid, d_lo, d_hi = ps.slice_bwd(*mapping, g_pts, grid, sizes)
@@ -542,28 +617,8 @@ def check_kernels(gen):
         cells = ps.kernel_grid_dims(sizes)[2]
         n_vert = 2 ** len(sizes)
         map_bytes = R * K * 40
-        grid = ps.splat_max(*mapping, values, sizes)
-        plain = ps.splat_max_plain(*mapping, values, sizes)
-        n_diff = int((grid != plain).sum())
-        if n_diff:
-            raise AssertionError(f"splat_max {sizes} F={f}: {n_diff} "
-                                 "elements differ from the plain version")
-        err = float((grid - plain).abs().max())
-        idx, w = ps.vertex_index_weights(*mapping, sizes)
-        index = idx.reshape(R, K * 8, 1).expand(R, K * 8, f).contiguous()
-        src = (w[..., None] * values[:, :, None, :]).reshape(R, K * 8, f)
-        rows["splat_max"].append(dict(
-            shape=f"{'x'.join(map(str, sizes))} F={f}", calls=n_splat,
-            max_abs_err=err,
-            ms=cuda_ms(lambda: ps.splat_max(*mapping, values, sizes)),
-            plain_ms=cuda_ms(lambda: ps.splat_max_plain(*mapping, values,
-                                                        sizes), iters=5),
-            library_ms=cuda_ms(lambda: torch.zeros(R, cells, f,
-                                                   device="cuda")
-                               .scatter_reduce_(1, index, src, "amax")),
-            bound=bound(map_bytes + R * K * f * 4 + R * cells * f * 4,
-                        R * K * n_vert * f * 2)))
-        del index, src, idx, w
+        splat_row, grid = check_splat(ps, mapping, values, sizes, f, n_splat)
+        rows["splat_max"].append(splat_row)
         # slice reads a grid of the forward's kind: splat output
         out = ps.slice_gather(*mapping, grid, sizes)
         plain = ps.slice_plain(*mapping, grid, sizes)
@@ -575,7 +630,7 @@ def check_kernels(gen):
         lib_err = held(f"grid_sample {sizes} F={f}", lib, plain, LIB_TOL)
         touched = touched_rows(ps, mapping, sizes)
         rows["slice_gather"].append(dict(
-            shape=f"{'x'.join(map(str, sizes))} F={f}", calls=n_slice,
+            shape=shape_name(sizes, f), calls=n_slice,
             max_abs_err=err, library_err=lib_err,
             grid_rows_read=touched, grid_rows=R * cells,
             plan=ps.slice_plan(R, K, f, sizes)._asdict(),
@@ -614,7 +669,7 @@ def check_conv(gc, rows, gen, sizes, f, calls, calls_set_a):
         "grid_conv3d", "grid_conv3d_dw")
     conv = torch.nn.functional.conv2d if dim == 2 else \
         torch.nn.functional.conv3d
-    shape = f"{'x'.join(map(str, sizes))} F={f}"
+    shape = shape_name(sizes, f)
     cells = int(np.prod(sizes))
     grid = torch.randn(R, cells, f, generator=gen, device="cuda").relu()
     weight = torch.randn((H * f, f) + (3,) * dim, generator=gen,
@@ -682,9 +737,7 @@ def check_fused_block(gen, sizes, f, calls, b=B, k=K):
     from cloud_transformers_tpu_torch.ops import pallas_splat as ps
     dim = len(sizes)
     r = b * H
-    shape = f"{'x'.join(map(str, sizes))} F={f}"
-    if r != R:
-        shape += f" R={r} K={k}"
+    shape = shape_name(sizes, f, r, k)
     cells = int(np.prod(sizes))
     mapping, values, _ = mapping_inputs(sizes, f, gen, b, k)
     weight = torch.randn((H * f, f) + (3,) * dim, generator=gen,
@@ -737,24 +790,29 @@ def check_fused_block(gen, sizes, f, calls, b=B, k=K):
 
 
 def check_completion_rows(gen):
-    """The two kernels this slice redesigned at the completion decoder's
-    rows (B = 2 clouds x 16 heads, K = 16384 points) at each head group's
-    shape, with the gates of the classifier's shapes.  -> {kernel: [entry
-    per shape]}, ``calls`` per completion step (the decoder's part)."""
+    """The fused block, the splat, the splat backward, the winner-tracking
+    splat and the routing pass at the completion decoder's rows (B = 2
+    clouds x 16 heads, K = 16384 points) at each head group's shape, with
+    the gates of the classifier's shapes.  -> {kernel: [entry per shape]},
+    ``calls`` per completion step (the decoder's part)."""
     from cloud_transformers_tpu_torch.ops import pallas_splat as ps
     b, k = COMPLETION_ROWS
-    out = {"fused_block": [], "splat_max_bwd": [], "splat_route": []}
+    out = {"fused_block": [], "splat_max": [], "splat_max_bwd": [],
+           "splat_max_winner": [], "splat_route": []}
     for sizes, f, calls in BLOCK_SHAPES:
         out["fused_block"].append(check_fused_block(gen, sizes, f, calls,
                                                     b, k))
         mapping, values, _ = mapping_inputs(sizes, f, gen, b, k)
-        grid = ps.splat_max(*mapping, values, sizes)
-        bwd_row, route_row, _ = check_splat_backward(
-            ps, gen, [a.contiguous() for a in mapping], values, grid, sizes,
-            f, calls, touched_rows(ps, mapping, sizes))
+        splat_row, grid = check_splat(ps, mapping, values, sizes, f, calls)
+        out["splat_max"].append(splat_row)
+        bwd_row, route_row, winner = check_splat_backward(
+            ps, gen, mapping, values, grid, sizes, f, calls,
+            touched_rows(ps, mapping, sizes))
         out["splat_max_bwd"].append(bwd_row)
         out["splat_route"].append(route_row)
-        del mapping, values, grid
+        out["splat_max_winner"].append(check_winner_splat(
+            ps, mapping, values, grid, winner, sizes, f, calls))
+        del mapping, values, grid, winner
         torch.cuda.empty_cache()
     return out
 
@@ -1065,12 +1123,13 @@ KERNEL_GROUPS = (
     # the forward and its weight packing pass
     ("grid_conv3d_", "grid_conv3d"),
     ("fused_block", "fused_block"), ("fused_cluster", "fused_block"),
+    # the winner-tracking splat's two launches: splat_max's kernel and
+    # splat_max_bwd's winner pass, tagged use::splat_max_winner
     ("splat_max_winner", "splat_max_winner"),
-    ("splat_unpack", "splat_max_winner"),
-    # the routing pass: splat_max_bwd's second pass, or splat_route alone
     ("splat_winner", "splat_max_bwd"),
+    # the routing pass: splat_max_bwd's second pass, or splat_route alone
     ("splat_route", "splat routing pass (splat_max_bwd, splat_route)"),
-    ("splat_max_kernel", "splat_max"), ("slice_bwd", "slice_bwd"),
+    ("splat_slab", "splat_max"), ("slice_bwd", "slice_bwd"),
     ("slice_kernel", "slice_gather"),
     ("cudnn", "cuDNN convolutions and their layout kernels"),
     ("implicit_gemm", "cuDNN convolutions and their layout kernels"),

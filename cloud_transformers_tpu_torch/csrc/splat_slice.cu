@@ -3,18 +3,49 @@
 // y * Z + z (3D), and F contiguous.
 //
 // Replaces cloud_transformers_tpu/ops/pallas_splat.py: pallas_splat
-// (op='max') and pallas_slice.  The TPU kernels keep one whole grid in VMEM
-// per program and loop over the points in order.  On the H100 most of the
-// classifier's per-(b, h) grids (128^2 x 4, 64^2 x 16, 16^3 x 16, 32^3 x 4
-// f32: 256-512 KiB) exceed the 227 KB of shared memory a block can have, so
-// these first kernels work on device memory directly:
+// (op='max', with and without with_winner) and pallas_slice.  The TPU
+// kernels keep one whole grid in VMEM per program and loop over the points
+// in order.  On the H100 most of the classifier's per-(b, h) grids (128^2 x
+// 4, 64^2 x 16, 16^3 x 16, 32^3 x 4 f32: 256-512 KiB) exceed the 227 KB of
+// shared memory a block can have:
 //
-// * splat_max: one thread per (point, feature).  The grid is zero-filled by
-//   the wrapper; each of the point's 2^dim contributions w * v that is > 0
-//   goes in with atomicMax on its int32 bit pattern.  Non-negative IEEE
-//   floats order like their bit patterns, and a contribution <= 0 (-0.0
-//   included) always loses to the zero fill, so the result is exact and the
-//   same in every run, whatever order the atomics land in.
+// * splat_max keeps the TPU kernel's idea, the grid on chip, a slab at a
+//   time: one launch on the caller's cached plan (splat_plan), one block
+//   for each (row, slab, chunk).  A slab is an even share, at most 40 KiB,
+//   of the row's G * F words; a chunk is a share of the row's points, as
+//   many chunks as it takes to give the card 396 blocks.  A block zeroes
+//   its slab in shared memory, scans its chunk's points 2048 at a time
+//   (x0 and lane0 only), lists those whose vertex cells reach into the
+//   slab, and deposits the listed points' contributions c = w * v (one
+//   rounded multiply) by shared-memory atomicMax on their int32 bit
+//   patterns: a point on a group of 1-8 lanes of feature quads, as the
+//   slice, its values read as float4 where F % 4 == 0, two points a group
+//   with their loads in flight before the first deposit.  Non-negative
+//   IEEE floats order like their bit patterns and a contribution <= 0
+//   (-0.0 included) never beats the zero fill, so the maximum is exact and
+//   the same in every run, whatever order the list and the atomics take.
+//   A row of one chunk writes each slab out whole (float4 stores: the
+//   grid needs no fill and no word is read back); a row of several
+//   chunks raises a zero-filled grid by global atomicMax of each slab's
+//   positive words.  Measured on the H100 at the models' shapes: a read
+//   of the word before each atomic (in shared memory, or a relaxed global
+//   read in the multi-chunk write-out) cost more than the atomics it
+//   saved, lanes of one feature each lost to quads, and more or fewer
+//   chunks lost to 396 blocks (PERF.md); the kernel has no such
+//   pre-check.
+// * splat_max_winner (pallas_splat(..., with_winner=True)): the grid and
+//   the winner map from one entry point, through splat_max's kernel, which
+//   also fills the map with INT_MAX.  Where each block is its row's only
+//   chunk and lists its points at one go (the four large grids of the
+//   classifier), the slab in shared memory holds the final maximum once
+//   the deposits are in, and the same block records the winners: it
+//   visits its listed contributions again and takes atomicMin of the
+//   point index where c > 0 equals the slab word.  Elsewhere the splat
+//   backward's winner pass (below) follows on the finished grid.  The map
+//   is the lowest point index whose contribution equals the cell's
+//   positive max, in every run.  No 64-bit packed buffer and no unpack
+//   pass.  The kernels carry a tag type (use::splat_max_winner) so that a
+//   profile tells these launches from splat_max's and splat_max_bwd's.
 // * slice: point-major.  A point is served by a group of 1, 2, 4 or 8 lanes
 //   (the next power of two >= ceil(F / 4), at most 8), each lane holding a
 //   quad of 4 features, and a thread serves 4 points in 2D and 2 in 3D
@@ -35,8 +66,10 @@
 //
 // Bound on the H100: bytes.  Each point reads 40 bytes of mapping and 4F of
 // features, and the grid is written (splat) or read (slice) once; the
-// arithmetic is a few operations per byte.  The splat's atomics are what
-// keeps it from that bound: 2^dim * F of them per point, resolved in L2.
+// arithmetic is a few operations per byte.  What keeps the splat from that
+// bound is latency: each block's scans and deposits wait on loads in
+// turn, and its shared-memory atomics (2^dim * F a point) serialise where
+// lanes meet on one bank; a row's x0 and lane0 are read once a slab.
 // The slice's grid rows are scattered: at F = 4 a row is 16 bytes of a
 // 32-byte sector, so up to half of what it moves is not used.
 // Shared-memory tiling of the grid by x slabs is later work.
@@ -67,17 +100,8 @@
 //   run), d_w is the dot of the vertex's grid row with g over the features,
 //   with no atomics.
 //
-// * splat_max_winner (replaces pallas_splat(..., with_winner=True), which
-//   keeps a float point index beside the grid in VMEM and updates it with
-//   the max): the grid and the winner map in one scatter.  Each positive
-//   contribution c of point k goes in with a 64-bit atomicMax of
-//   (float_bits(c) << 32) | (INT_MAX - k) on a zero-filled [R, G, F] buffer:
-//   positive floats order like their bits, so the high word ends as the
-//   maximum (bit-equal to splat_max), and among equal maxima the largest low
-//   word, the lowest k, wins, whatever order the atomics land in.  A second
-//   pass unpacks the buffer into the grid and the int32 winner map, INT_MAX
-//   where nothing landed.  splat_route (replacing pallas_splat_bwd_routed) is
-//   then the backward's routing pass alone, launched on its own.
+// * splat_route (replacing pallas_splat_bwd_routed) is the routing pass
+//   alone, on the winner map that splat_max_winner made.
 //
 // In the slice backward, the features of a point sit on a group of 1 to 32
 // neighbouring lanes of one warp (the next power of two >= min(F, 32)); a
@@ -98,6 +122,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <initializer_list>
 
 namespace {
@@ -105,37 +130,21 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSliceThreads = 256;   // slice block (slice_plan's threads)
 constexpr int kBwdThreads = 256;     // splat backward block (splat_bwd_plan)
+constexpr int kSplatThreads = 256;   // splat block (splat_plan's threads)
+constexpr int kSlabWords = 10236;    // grid words a splat block holds (40 KiB)
+constexpr int kScanPoints = 2048;    // points a splat block lists at a time
+constexpr int kListP = 2;            // listed points a lane group holds
+constexpr int kFillBlocks = 132 * 3; // splat blocks that fill the card
+constexpr int kMinChunk = 256;       // points for each splat chunk, at most
 
-__global__ void splat_max_kernel(const int* __restrict__ x0,
-                                 const int* __restrict__ lane0,
-                                 const float* __restrict__ w_lo,
-                                 const float* __restrict__ w_hi,
-                                 const float* __restrict__ values,
-                                 float* __restrict__ grid,
-                                 int64_t n_points_total, int K, int F, int G,
-                                 int lane_extent, int off2, int off3,
-                                 int n_vert) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_points_total * F) return;
-  const int64_t p = t / F;  // r * K + k
-  const int f = (int)(t - p * F);
-  const int64_t r = p / K;
-  const float v = values[t];
-  const int base = x0[p] * lane_extent + lane0[p];
-  const int offs[4] = {0, 1, off2, off3};
-  int* g = reinterpret_cast<int*>(grid + r * (int64_t)G * F) + f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (j >= n_vert) break;
-    const float c_lo = w_lo[p * 4 + j] * v;
-    if (c_lo > 0.0f)
-      atomicMax(g + (int64_t)(base + offs[j]) * F, __float_as_int(c_lo));
-    const float c_hi = w_hi[p * 4 + j] * v;
-    if (c_hi > 0.0f)
-      atomicMax(g + (int64_t)(base + lane_extent + offs[j]) * F,
-                __float_as_int(c_hi));
-  }
-}
+// The entry point a launch serves, as a template tag of the kernels that
+// two of them share: splat_max_winner launches splat_max's kernel and
+// splat_max_bwd's winner pass, and a profile tells the three apart by it.
+namespace use {
+struct splat_max;
+struct splat_max_bwd;
+struct splat_max_winner;
+}  // namespace use
 
 __device__ __forceinline__ void fma4(float4& acc, float w, float4 v) {
   acc.x = __fmaf_rn(w, v.x, acc.x);
@@ -259,6 +268,194 @@ __device__ __forceinline__ void vertex_rows(
   }
 }
 
+// One contribution c of point k to the slab word `at`, where that lies in
+// the slab's n_words: see visit_listed.
+template <bool kTrack>
+__device__ __forceinline__ void take(float* slab, int* won, int at,
+                                     int n_words, float c, int k) {
+  if ((unsigned)at >= (unsigned)n_words || !(c > 0.0f)) return;
+  if (kTrack) {
+    if (c == slab[at]) atomicMin(won + at, k);
+  } else {
+    atomicMax(reinterpret_cast<int*>(slab + at), __float_as_int(c));
+  }
+}
+
+// The listed points' contributions c = w * v (one rounded multiply) whose
+// word lies in the slab: a point on kGroup lanes of feature quads (quads
+// q = sub, sub + kGroup, ...; values read as float4 where kVec), kListP
+// points a lane group with their loads in flight before the first use.
+// Without kTrack each c > 0 goes into the slab by shared-memory atomicMax
+// on its bits (a c <= 0, -0.0 included, never beats the zero fill); with
+// kTrack, where c > 0 equals the finished slab word, the point index k goes
+// into the winner map `won` by atomicMin.
+template <int kGroup, int kNV, bool kVec, bool kTrack>
+__device__ __forceinline__ void visit_listed(
+    const int* __restrict__ x0, const int* __restrict__ lane0,
+    const float4* __restrict__ w_lo, const float4* __restrict__ w_hi,
+    const float* __restrict__ values, const int* listed_k, int n, int row,
+    int K, int F, int lane_extent, int off2, int off3, int wb, int n_words,
+    float* slab, int* won) {
+  constexpr int kGroups = kSplatThreads / kGroup;
+  const int offs[4] = {0, 1, off2, off3};
+  const int sub = threadIdx.x % kGroup;
+  const int quads = (F + 3) >> 2;
+  for (int j0 = threadIdx.x / kGroup; j0 < n; j0 += kGroups * kListP) {
+    int pt[kListP], at[kListP];
+    float4 wl[kListP], wh[kListP];
+#pragma unroll
+    for (int q = 0; q < kListP; ++q) {
+      const int j = min(j0 + q * kGroups, n - 1);   // clamped: a real entry
+      pt[q] = row * K + listed_k[j];
+      at[q] = (__ldg(x0 + pt[q]) * lane_extent + __ldg(lane0 + pt[q])) * F
+              - wb;
+      wl[q] = __ldg(w_lo + pt[q]);
+      wh[q] = __ldg(w_hi + pt[q]);
+    }
+    for (int qd = sub; qd < quads; qd += kGroup) {
+      const int f = qd << 2;
+      const int nf = kVec ? 4 : min(4, F - f);
+      float v[kListP][4];
+#pragma unroll
+      for (int q = 0; q < kListP; ++q) {
+        if (kVec) {
+          const float4 t =
+              __ldg(reinterpret_cast<const float4*>(values + pt[q] * F + f));
+          v[q][0] = t.x; v[q][1] = t.y; v[q][2] = t.z; v[q][3] = t.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[q][e] = e < nf ? __ldg(values + pt[q] * F + f + e) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kListP; ++q) {
+        if (j0 + q * kGroups >= n) break;
+        const int k = pt[q] - row * K;
+        const float lo[4] = {wl[q].x, wl[q].y, wl[q].z, wl[q].w};
+        const float hi[4] = {wh[q].x, wh[q].y, wh[q].z, wh[q].w};
+#pragma unroll
+        for (int j = 0; j < kNV; ++j) {
+          const int a = at[q] + offs[j] * F + f;
+          const int b = at[q] + (lane_extent + offs[j]) * F + f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (e >= nf) break;
+            take<kTrack>(slab, won, a + e, n_words, __fmul_rn(lo[j], v[q][e]),
+                         k);
+            take<kTrack>(slab, won, b + e, n_words, __fmul_rn(hi[j], v[q][e]),
+                         k);
+          }
+        }
+      }
+    }
+  }
+}
+
+// splat_max: block b takes chunk b % chunks of the points of row
+// b / (chunks * slabs), and slab (b / chunks) % slabs of that row's grid:
+// the words [s * slab_words, s * slab_words + n_words) of the row's G * F,
+// held in shared memory from a zero fill.  It scans its points
+// kScanPoints at a time (the x0 and lane0 of 8 points a thread in
+// flight), lists those whose vertex cells reach into the slab, then
+// deposits the listed points' contributions (visit_listed): a c > 0 by
+// shared-memory atomicMax on its bits (a c <= 0, -0.0 included, never
+// beats the zero fill).  The list's order varies from run to run,
+// the maximum does not.  Then it writes the slab out: as float4 stores
+// where it is the row's only chunk (every word of the grid written once,
+// no fill), or by atomicMax of its positive words into the zero-filled
+// grid where several chunks share the slab.
+// Given a winner map (splat_max_winner), the slab's first chunk fills the
+// slab's words of the map with INT_MAX.  Where the block is its row's only
+// chunk and lists its points at one go (`track`), the slab holds the final
+// maximum, and the block then records the winners itself: it visits the
+// listed contributions again and, where c > 0 and c equals the slab word,
+// takes atomicMin of the point index on the map, which it alone writes.
+// Otherwise the winner pass runs after it on the stream.
+template <class Use, int kGroup, int kNV, bool kVec>
+__global__ void __launch_bounds__(kSplatThreads)
+splat_slab_kernel(const int* __restrict__ x0, const int* __restrict__ lane0,
+                  const float4* __restrict__ w_lo,
+                  const float4* __restrict__ w_hi,
+                  const float* __restrict__ values, float* grid, int* winner,
+                  int K, int F, int G, int lane_extent, int off2, int off3,
+                  int slabs, int slab_words, int chunks, int chunk,
+                  bool track) {
+  __shared__ __align__(16) float slab[kSlabWords];
+  __shared__ int listed_k[kScanPoints];
+  __shared__ int listed;
+  constexpr int kScan = kScanPoints / kSplatThreads;
+  const int c = blockIdx.x % chunks;
+  const int s = (blockIdx.x / chunks) % slabs;
+  const int r = blockIdx.x / (chunks * slabs);
+  const int row_words = G * F;
+  const int wb = s * slab_words;
+  const int n_words = min(slab_words, row_words - wb);
+  for (int i = threadIdx.x; i < n_words; i += kSplatThreads) slab[i] = 0.0f;
+  const int k_end = min(K, (c + 1) * chunk);
+  // cells from a point's base cell to past its last vertex
+  const int reach = lane_extent + off3 + 1;
+  int n = 0;
+  for (int k0 = c * chunk; k0 < k_end; k0 += kScanPoints) {
+    if (threadIdx.x == 0) listed = 0;
+    __syncthreads();   // the fill and the last list are done with
+    int base[kScan];
+#pragma unroll
+    for (int i = 0; i < kScan; ++i) {
+      const int p = r * K + min(k0 + i * kSplatThreads + (int)threadIdx.x,
+                                k_end - 1);
+      base[i] = __ldg(x0 + p) * lane_extent + __ldg(lane0 + p);
+    }
+#pragma unroll
+    for (int i = 0; i < kScan; ++i) {
+      const int k = k0 + i * kSplatThreads + threadIdx.x;
+      if (k < k_end && base[i] * F < wb + n_words &&
+          (base[i] + reach) * F > wb)
+        listed_k[atomicAdd(&listed, 1)] = k;
+    }
+    __syncthreads();
+    n = listed;
+    visit_listed<kGroup, kNV, kVec, false>(
+        x0, lane0, w_lo, w_hi, values, listed_k, n, r, K, F, lane_extent,
+        off2, off3, wb, n_words, slab, nullptr);
+    __syncthreads();   // every deposit in before the next list or the output
+  }
+  float* out = grid + r * row_words + wb;
+  if (winner != nullptr && c == 0) {
+    int* won = winner + r * row_words + wb;
+    if (row_words % 4 == 0) {
+      for (int i = threadIdx.x; i < n_words / 4; i += kSplatThreads)
+        reinterpret_cast<int4*>(won)[i] =
+            make_int4(INT_MAX, INT_MAX, INT_MAX, INT_MAX);
+    } else {
+      for (int i = threadIdx.x; i < n_words; i += kSplatThreads)
+        won[i] = INT_MAX;
+    }
+    if (track) {
+      __syncthreads();   // the fill is seen by the block's atomics
+      visit_listed<kGroup, kNV, kVec, true>(
+          x0, lane0, w_lo, w_hi, values, listed_k, n, r, K, F, lane_extent,
+          off2, off3, wb, n_words, slab, won);
+    }
+  }
+  if (chunks == 1) {
+    if (row_words % 4 == 0) {   // n_words and the row start too
+      for (int i = threadIdx.x; i < n_words / 4; i += kSplatThreads)
+        reinterpret_cast<float4*>(out)[i] =
+            reinterpret_cast<const float4*>(slab)[i];
+    } else {
+      for (int i = threadIdx.x; i < n_words; i += kSplatThreads)
+        out[i] = slab[i];
+    }
+  } else {
+    for (int i = threadIdx.x; i < n_words; i += kSplatThreads) {
+      const float t = slab[i];
+      if (t > 0.0f)
+        atomicMax(reinterpret_cast<int*>(out + i), __float_as_int(t));
+    }
+  }
+}
+
 // The splat backward's two passes.  Indices are 32-bit (the entry points
 // refuse R*K*F or R*G*F >= 2^31).
 //
@@ -273,7 +470,7 @@ __device__ __forceinline__ void vertex_rows(
 // contribution c = w * v (one rounded multiply, as the forward's) is > 0
 // and equals the grid, atomicMin of the point index k on the winner map,
 // which the wrapper filled with INT_MAX.
-template <int kGroup, int kNV>
+template <class Use, int kGroup, int kNV>
 __global__ void __launch_bounds__(kBwdThreads, 3)
 splat_winner_kernel(const int* __restrict__ x0, const int* __restrict__ lane0,
                     const float4* __restrict__ w_lo,
@@ -305,7 +502,7 @@ splat_winner_kernel(const int* __restrict__ x0, const int* __restrict__ lane0,
 // the routing pass, each vertex row of the grid read as one float4 where
 // kVec.  Where the grid is dense (many contributions a cell, few of them
 // winners) its fewer, wider loads beat the feature-major pass's.
-template <int kGroup, int kNV, bool kVec>
+template <class Use, int kGroup, int kNV, bool kVec>
 __global__ void __launch_bounds__(kBwdThreads, 3)
 splat_winner_quads_kernel(const int* __restrict__ x0,
                           const int* __restrict__ lane0,
@@ -450,49 +647,6 @@ splat_route_kernel(const int* __restrict__ x0, const int* __restrict__ lane0,
   }
 }
 
-__global__ void splat_max_winner_kernel(
-    const int* __restrict__ x0, const int* __restrict__ lane0,
-    const float* __restrict__ w_lo, const float* __restrict__ w_hi,
-    const float* __restrict__ values, unsigned long long* __restrict__ packed,
-    int64_t n_points_total, int K, int F, int G, int lane_extent, int off2,
-    int off3, int n_vert) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_points_total * F) return;
-  const int64_t p = t / F;  // r * K + k
-  const int f = (int)(t - p * F);
-  const int64_t r = p / K;
-  const int k = (int)(p - r * K);
-  const float v = values[t];
-  const int base = x0[p] * lane_extent + lane0[p];
-  const int offs[4] = {0, 1, off2, off3};
-  unsigned long long* row = packed + r * (int64_t)G * F + f;
-  // the lower the point index, the larger the low word
-  const unsigned long long tag = (unsigned long long)(INT_MAX - k);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (j >= n_vert) break;
-    // one rounded multiply, as splat_max's
-    const float c_lo = __fmul_rn(w_lo[p * 4 + j], v);
-    if (c_lo > 0.0f)
-      atomicMax(row + (int64_t)(base + offs[j]) * F,
-                ((unsigned long long)__float_as_uint(c_lo) << 32) | tag);
-    const float c_hi = __fmul_rn(w_hi[p * 4 + j], v);
-    if (c_hi > 0.0f)
-      atomicMax(row + (int64_t)(base + lane_extent + offs[j]) * F,
-                ((unsigned long long)__float_as_uint(c_hi) << 32) | tag);
-  }
-}
-
-__global__ void splat_unpack_kernel(
-    const unsigned long long* __restrict__ packed, float* __restrict__ grid,
-    int* __restrict__ winner, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const unsigned long long v = packed[i];
-  grid[i] = __uint_as_float((unsigned int)(v >> 32));  // 0 -> +0.0f
-  winner[i] = v == 0ull ? INT_MAX : INT_MAX - (int)(v & 0xffffffffull);
-}
-
 __global__ void slice_bwd_kernel(const int* __restrict__ x0,
                                  const int* __restrict__ lane0,
                                  const float* __restrict__ w_lo,
@@ -609,20 +763,6 @@ int launch_slice_g(int P, const int* x0, const int* lane0, const float* w_lo,
 // Plain C entry points for ctypes.  Each launches on the given stream,
 // does not synchronise, and returns cudaGetLastError() (0 = launched).
 
-extern "C" int ct_splat_max(const int* x0, const int* lane0, const float* w_lo,
-                            const float* w_hi, const float* values,
-                            float* grid, int R, int K, int F, int G,
-                            int lane_extent, int off2, int off3, int n_vert,
-                            void* stream) {
-  const int64_t n = (int64_t)R * K;
-  if (n * F > 0)
-    splat_max_kernel<<<n_blocks(n * F), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-        x0, lane0, w_lo, w_hi, values, grid, n, K, F, G, lane_extent, off2,
-        off3, n_vert);
-  return (int)cudaGetLastError();
-}
-
 // The slice on the caller's plan (slice_plan): `group` lanes a point,
 // `points` (1, 2 or 4) points a thread, `threads` a block, `blocks` blocks,
 // `vec` for float4 rows.  The entry point recomputes each of them and
@@ -715,13 +855,16 @@ struct BwdArgs {
   int n, K, F, G, lane_extent, off2, off3;
 };
 
-// The winner pass on the plan's layout, group and blocks.
+// The winner pass on the plan's layout, group and blocks, its kernels
+// tagged with the entry point they serve.
+template <class Use>
 int launch_winner(const int* p, const BwdArgs& a, cudaStream_t stream) {
   if (!p[15]) {   // quad-major
     const int group = p[8], n_vert = p[7], vec = p[12];
     const dim3 grid((unsigned)p[14]);
 #define CT_WQ(GR, NV, VEC)                                                 \
-  splat_winner_quads_kernel<GR, NV, VEC><<<grid, kBwdThreads, 0, stream>>>( \
+  splat_winner_quads_kernel<Use, GR, NV, VEC>                               \
+      <<<grid, kBwdThreads, 0, stream>>>(                                   \
       a.x0, a.lane0, a.w_lo, a.w_hi, a.values, a.grid, a.winner, a.n, a.K, \
       a.F, a.G, a.lane_extent, a.off2, a.off3)
 #define CT_WQ_V(GR, NV) \
@@ -744,7 +887,7 @@ int launch_winner(const int* p, const BwdArgs& a, cudaStream_t stream) {
   }
   const dim3 grid((unsigned)p[14]);
 #define CT_WIN(GR, NV)                                                      \
-  splat_winner_kernel<GR, NV><<<grid, kBwdThreads, 0, stream>>>(            \
+  splat_winner_kernel<Use, GR, NV><<<grid, kBwdThreads, 0, stream>>>(       \
       a.x0, a.lane0, a.w_lo, a.w_hi, a.values, a.grid, a.winner, a.n, a.K, \
       a.F, a.G, a.lane_extent, a.off2, a.off3)
 #define CT_WIN_N(GR)            \
@@ -813,6 +956,72 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
   return bits % 16 == 0;
 }
 
+// The splat's plan (splat_plan) recomputed from its integers p: R, K, F, G,
+// lane_extent, off2, off3, n_vert, then the plan's group, threads, slabs,
+// slab words, chunks, points a chunk, blocks and float4 flag.  False where
+// one disagrees, where an index would reach 2^31, where the weights (read
+// as float4) or the grid (written as float4) are not 16-byte aligned, or
+// where float4 values are asked of a row that is not.
+bool splat_plan_ok(const int* p, bool values_aligned, bool grid_aligned,
+                   bool weights_aligned) {
+  const int R = p[0], K = p[1], F = p[2], G = p[3], n_vert = p[7],
+            group = p[8], threads = p[9], slabs = p[10], slab_words = p[11],
+            chunks = p[12], chunk = p[13], blocks = p[14], vec = p[15];
+  const int64_t limit = (int64_t)1 << 31;
+  if ((int64_t)R * K * F >= limit || (int64_t)R * G * F >= limit)
+    return false;
+  const int64_t words = (int64_t)G * F;
+  const int64_t even = (words + (words + kSlabWords - 1) / kSlabWords - 1) /
+                       ((words + kSlabWords - 1) / kSlabWords);
+  const int64_t slab = (even + 3) / 4 * 4;
+  const int64_t n_slabs = (words + slab - 1) / slab;
+  int64_t n_chunks = (kFillBlocks + R * n_slabs - 1) / (R * n_slabs);
+  n_chunks = std::min(n_chunks, ((int64_t)K + kMinChunk - 1) / kMinChunk);
+  n_chunks = std::max(n_chunks, (int64_t)1);
+  const int64_t per_chunk = (K + n_chunks - 1) / n_chunks;
+  n_chunks = (K + per_chunk - 1) / per_chunk;
+  return group == slice_group(F) && threads == kSplatThreads &&
+         slab_words == slab && slabs == n_slabs && chunk == per_chunk &&
+         chunks == n_chunks && blocks == R * n_slabs * n_chunks &&
+         vec == (F % 4 == 0 && values_aligned) &&
+         (n_vert == 2 || n_vert == 4) && grid_aligned && weights_aligned;
+}
+
+// The splat on the plan's group and blocks, its kernels tagged with the
+// entry point they serve.
+template <class Use>
+int launch_splat(const int* p, const int* x0, const int* lane0,
+                 const float* w_lo, const float* w_hi, const float* values,
+                 float* grid, int* winner, bool track, cudaStream_t stream) {
+  const float4* wl = reinterpret_cast<const float4*>(w_lo);
+  const float4* wh = reinterpret_cast<const float4*>(w_hi);
+  const int K = p[1], F = p[2], G = p[3], lane_extent = p[4], off2 = p[5],
+            off3 = p[6], n_vert = p[7], slabs = p[10], slab_words = p[11],
+            chunks = p[12], chunk = p[13], vec = p[15];
+  const dim3 blocks((unsigned)p[14]);
+#define CT_SPL(GR, NV, VEC)                                                 \
+  splat_slab_kernel<Use, GR, NV, VEC><<<blocks, kSplatThreads, 0, stream>>>( \
+      x0, lane0, wl, wh, values, grid, winner, K, F, G, lane_extent, off2,  \
+      off3, slabs, slab_words, chunks, chunk, track)
+#define CT_SPL_V(GR, NV) \
+  if (vec) CT_SPL(GR, NV, true); else CT_SPL(GR, NV, false)
+#define CT_SPL_N(GR)                    \
+  if (n_vert == 2) { CT_SPL_V(GR, 2); } \
+  else { CT_SPL_V(GR, 4); }             \
+  break
+  switch (p[8]) {
+    case 1: CT_SPL_N(1);
+    case 2: CT_SPL_N(2);
+    case 4: CT_SPL_N(4);
+    case 8: CT_SPL_N(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CT_SPL_N
+#undef CT_SPL_V
+#undef CT_SPL
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Two launches on one plan: the winner map (int32 [R, G, F], filled with
@@ -830,34 +1039,57 @@ extern "C" int ct_splat_max_bwd(const int* x0, const int* lane0,
     return (int)cudaErrorInvalidValue;
   const BwdArgs a = bwd_args(p, x0, lane0, w_lo, w_hi, values, grid, winner,
                              g, d_w_lo, d_w_hi, d_values);
-  const int err = launch_winner(p, a, (cudaStream_t)stream);
+  const int err = launch_winner<use::splat_max_bwd>(p, a,
+                                                   (cudaStream_t)stream);
   if (err != 0) return err;
   return launch_bwd<RoutePass>(p, a, (cudaStream_t)stream);
 }
 
 
-// The grid and the winner map in two launches: the packed scatter into
-// ``packed`` (int64 [R, G, F], zero-filled by the caller), then the unpack.
+// The splat on the caller's plan (splat_plan), into ``grid``: written
+// whole where the plan has one chunk a row, raised by atomics where it has
+// several (the caller then zero-fills it).  ``p`` as splat_plan_ok reads it
+// (SPLAT_PARAMS); a launch whose numbers disagree with the plan launches
+// nothing.
+extern "C" int ct_splat_max(const int* x0, const int* lane0, const float* w_lo,
+                            const float* w_hi, const float* values,
+                            float* grid, const int* p, void* stream) {
+  if ((int64_t)p[0] * p[1] * p[2] <= 0) return 0;
+  if (!splat_plan_ok(p, aligned16({values}), aligned16({grid}),
+                     aligned16({w_lo, w_hi})))
+    return (int)cudaErrorInvalidValue;
+  return launch_splat<use::splat_max>(p, x0, lane0, w_lo, w_hi, values, grid,
+                                      nullptr, false, (cudaStream_t)stream);
+}
+
+// The grid and the winner map: the splat on its plan ``p_splat`` into
+// ``grid`` (as ct_splat_max), which also fills ``winner`` (int32
+// [R, G, F]) with INT_MAX and, where each block is its row's only chunk
+// and lists its points at one go, records the winners itself; else the
+// splat backward's winner pass follows on its plan ``p_bwd`` (the routing
+// half of which is not launched).  Both plans are checked before any
+// launch.
 extern "C" int ct_splat_max_winner(const int* x0, const int* lane0,
                                    const float* w_lo, const float* w_hi,
-                                   const float* values,
-                                   unsigned long long* packed, float* grid,
-                                   int* winner, int R, int K, int F, int G,
-                                   int lane_extent, int off2, int off3,
-                                   int n_vert, void* stream) {
-  const int64_t n = (int64_t)R * K;
-  const int64_t cells = (int64_t)R * G * F;
-  if (n * F > 0)
-    splat_max_winner_kernel<<<n_blocks(n * F), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-        x0, lane0, w_lo, w_hi, values, packed, n, K, F, G, lane_extent, off2,
-        off3, n_vert);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  if (cells > 0)
-    splat_unpack_kernel<<<n_blocks(cells), kThreads, 0,
-                          (cudaStream_t)stream>>>(packed, grid, winner, cells);
-  return (int)cudaGetLastError();
+                                   const float* values, float* grid,
+                                   int* winner, const int* p_splat,
+                                   const int* p_bwd, void* stream) {
+  if ((int64_t)p_splat[0] * p_splat[1] * p_splat[2] <= 0) return 0;
+  const bool weights = aligned16({w_lo, w_hi});
+  for (int i = 0; i < 8; ++i)
+    if (p_splat[i] != p_bwd[i]) return (int)cudaErrorInvalidValue;
+  if (!splat_plan_ok(p_splat, aligned16({values}), aligned16({grid, winner}),
+                     weights) ||
+      !bwd_plan_ok(p_bwd, aligned16({values, grid, winner}), weights))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool track = p_splat[12] == 1 && p_splat[13] <= kScanPoints;
+  const int err = launch_splat<use::splat_max_winner>(
+      p_splat, x0, lane0, w_lo, w_hi, values, grid, winner, track, s);
+  if (err != 0 || track) return err;
+  const BwdArgs a = bwd_args(p_bwd, x0, lane0, w_lo, w_hi, values, grid,
+                             winner, nullptr, nullptr, nullptr, nullptr);
+  return launch_winner<use::splat_max_winner>(p_bwd, a, s);
 }
 
 // The routing pass alone, from a winner map made by ct_splat_max_winner,

@@ -33,11 +33,11 @@ _F = ctypes.c_float
 # C signatures of the entry points, by library (source stem)
 SIGNATURES = {
     "splat_slice": {
-        "ct_splat_max": [_P] * 6 + [_I] * 8 + [_P],
+        "ct_splat_max": [_P] * 8,
         "ct_slice": [_P] * 8,
         "ct_splat_max_bwd": [_P] * 13,
         "ct_slice_bwd": [_P] * 9 + [_I] * 8 + [_P],
-        "ct_splat_max_winner": [_P] * 8 + [_I] * 8 + [_P],
+        "ct_splat_max_winner": [_P] * 10,
         "ct_splat_route": [_P] * 12,
     },
     "grid_conv": {

@@ -36,6 +36,15 @@ NO_WINNER = 2 ** 31 - 1
 SLICE_THREADS = 256
 # threads of a splat backward block (csrc: kBwdThreads)
 BWD_THREADS = 256
+# the splat's blocks (csrc: kSplatThreads, kSlabWords, kFillBlocks,
+# kMinChunk, kScanPoints): threads, grid words held in shared memory (40
+# KiB), blocks that fill the card (132 SMs x 3), the points for each
+# chunk, and the points a block lists at one go
+SPLAT_THREADS = 256
+SLAB_WORDS = 10236
+SPLAT_FILL_BLOCKS = 132 * 3
+SPLAT_MIN_CHUNK = 256
+SPLAT_SCAN_POINTS = 2048
 # threads a slice launch should have in flight (132 SMs x 16 warps) before a
 # thread takes more points
 SLICE_FILL_THREADS = 132 * 512
@@ -58,6 +67,11 @@ BWD_PARAMS = SLICE_PARAMS + ("winner_group", "winner_blocks",
 # contributions a grid cell gets on average (points x 2^dim / cells) below
 # which the winner pass goes feature-major (csrc: bwd_plan_ok)
 WINNER_DENSE = 16
+# the splat's slabs and chunks; the integers ct_splat_max takes by address
+SplatPlan = collections.namedtuple("SplatPlan", (
+    "group", "threads", "slabs", "slab_words", "chunks", "chunk", "blocks",
+    "vec"))
+SPLAT_PARAMS = SLICE_PARAMS[:8] + SplatPlan._fields
 
 
 def vertex_decomposition(keys_scaled, sizes):
@@ -165,22 +179,107 @@ def splat_max_plain(x0, lane0, w_lo, w_hi, values, sizes):
                                 include_self=True)
 
 
+def splat_plan(rows, points, feat, sizes):
+    """Launch arithmetic of the splat (``splat_slab_kernel`` in
+    ``csrc/splat_slice.cu``).  A row's grid, its G * F words, is cut into
+    ``slabs`` even slabs of ``slab_words`` (a multiple of 4, at most
+    ``SLAB_WORDS``: shared memory), and its points into ``chunks`` of
+    ``chunk``: as many as it takes for ``SPLAT_FILL_BLOCKS`` blocks, and
+    no more than one for each ``SPLAT_MIN_CHUNK`` points.  One block of
+    ``threads`` for each (row, slab, chunk), ``blocks`` in all, block b
+    taking chunk b % chunks, slab b // chunks % slabs, row
+    b // (chunks * slabs).  A listed point takes ``group`` lanes of
+    feature quads (the next power of two >= ceil(F / 4), at most 8, as in
+    ``slice_plan``), its values read as float4 where ``vec``.  With one
+    chunk a row each block writes its slab whole; with several, the grid
+    must arrive zero-filled.  Raises where an index of the points or of
+    the grid reaches 2^31.  Cached per shape, as are the entry point's
+    integers built from it (``_splat_params``, in ``SPLAT_PARAMS``
+    order)."""
+    return _splat_plan(rows, points, feat, tuple(sizes))
+
+
+def _quad_group(feat):
+    """Lanes of feature quads: the next power of two >= ceil(F / 4), at
+    most 8."""
+    group = 1
+    while group < -(-feat // 4) and group < 8:
+        group *= 2
+    return group
+
+
+def _check_index_limit(what, rows, points, feat, sizes):
+    cells = kernel_grid_dims(sizes)[2]
+    if rows * points * feat >= INDEX_LIMIT or \
+            rows * cells * feat >= INDEX_LIMIT:
+        raise ValueError(
+            f"{what}: {rows} x {points} points or {rows} x {cells} "
+            f"cells of {feat} features reach the 2^31 index limit")
+
+
+@functools.lru_cache(maxsize=None)
+def _splat_plan(rows, points, feat, sizes):
+    _check_index_limit("splat_max", rows, points, feat, sizes)
+    words = kernel_grid_dims(sizes)[2] * feat
+    slab = -(-words // -(-words // SLAB_WORDS))      # even slabs
+    slab = -(-slab // 4) * 4
+    slabs = -(-words // slab)
+    chunks = max(1, min(-(-SPLAT_FILL_BLOCKS // (rows * slabs)),
+                        -(-points // SPLAT_MIN_CHUNK)))
+    chunk = -(-points // chunks)
+    chunks = -(-points // chunk)
+    return SplatPlan(group=_quad_group(feat), threads=SPLAT_THREADS,
+                     slabs=slabs, slab_words=slab, chunks=chunks,
+                     chunk=chunk, blocks=rows * slabs * chunks,
+                     vec=feat % 4 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _splat_params(rows, points, feat, sizes):
+    """``ct_splat_max``'s integers for one shape (``SPLAT_PARAMS``), as
+    ``cuda_build.int_params``; the cache keeps the array alive."""
+    plan = _splat_plan(rows, points, feat, sizes)
+    return cuda_build.int_params(rows, *_launch_args(sizes, points, feat),
+                                 *plan[:-1], int(plan.vec))
+
+
+def winners_in_splat(plan):
+    """Whether ``splat_max_winner`` records the winners in its splat kernel
+    (each block its row's only chunk, listing its points at one go) rather
+    than in the winner pass after it."""
+    return plan.chunks == 1 and plan.chunk <= SPLAT_SCAN_POINTS
+
+
+def _splat_grid(rows, points, feat, sizes, device):
+    """The grid the splat kernel writes into: zero-filled where several
+    chunks raise it by atomics, else left as it comes (each block writes
+    its slab whole)."""
+    shape = (rows, kernel_grid_dims(sizes)[2], feat)
+    if _splat_plan(rows, points, feat, sizes).chunks > 1:
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
 def splat_max(x0, lane0, w_lo, w_hi, values, sizes):
     """grid[r, cell, f] = max(0, max over the (k, v) mapping to cell of
     w[r, k, v] * values[r, k, f]).  -> [R, G, F] f32."""
     r, k = x0.shape
+    f = values.shape[-1]
     _check_mapping(x0, lane0, w_lo, w_hi, sizes,
-                   ("values", values, (r, k, values.shape[-1])))
+                   ("values", values, (r, k, f)))
     if not values.is_cuda:
         return splat_max_plain(x0, lane0, w_lo, w_hi, values, sizes)
-    r, k, f = values.shape
-    args = [a.contiguous() for a in (x0, lane0, w_lo, w_hi, values)]
-    grid = torch.zeros(r, kernel_grid_dims(sizes)[2], f,
-                       dtype=torch.float32, device=values.device)
-    lib = cuda_build.libraries()["splat_slice"]
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    err = lib.ct_splat_max(*(a.data_ptr() for a in args), grid.data_ptr(),
-                           r, *_launch_args(sizes, k, f), stream)
+    sizes = tuple(sizes)
+    if r * k * f == 0:   # nothing to splat: no kernel
+        return torch.zeros(r, kernel_grid_dims(sizes)[2], f,
+                           device=values.device)
+    params = _splat_params(r, k, f, sizes)[1]
+    kept, ptrs = _point_inputs(x0, lane0, w_lo, w_hi, values)
+    dev = values.device
+    grid = _splat_grid(r, k, f, sizes, dev)
+    err = cuda_build.libraries()["splat_slice"].ct_splat_max(
+        *ptrs, grid.data_ptr(), params, cuda_build.current_stream(dev))
+    del kept
     cuda_build.check(err, "splat_max")
     splat_max.launches += 1
     return grid
@@ -202,26 +301,36 @@ def splat_max_winner(x0, lane0, w_lo, w_hi, values, sizes):
     lowest point index whose contribution is the maximum (``NO_WINNER``
     where no contribution is positive): the splat backward's winner map,
     made in the forward so that the backward is ``splat_route`` alone.
+    One entry point: the splat on ``splat_plan``, which also fills the
+    map with ``NO_WINNER`` and, where each of its blocks is its row's only
+    chunk and lists its points at one go, records the winners itself;
+    else the splat backward's winner pass follows on ``splat_bwd_plan``.
+    No Python wrapper of either runs, so their counters do not move.
     -> (grid [R, G, F] f32, bit-equal to ``splat_max``'s; winner [R, G, F]
     int32, equal to ``splat_winner_plain``'s)."""
     r, k = x0.shape
+    f = values.shape[-1]
     _check_mapping(x0, lane0, w_lo, w_hi, sizes,
-                   ("values", values, (r, k, values.shape[-1])))
+                   ("values", values, (r, k, f)))
     if not values.is_cuda:
         return splat_max_winner_plain(x0, lane0, w_lo, w_hi, values, sizes)
-    f = values.shape[-1]
-    cells = kernel_grid_dims(sizes)[2]
+    sizes = tuple(sizes)
+    if r * k * f == 0:   # nothing to splat: no kernel
+        shape = (r, kernel_grid_dims(sizes)[2], f)
+        return (torch.zeros(shape, device=values.device),
+                torch.full(shape, NO_WINNER, dtype=torch.int32,
+                           device=values.device))
+    params = _splat_params(r, k, f, sizes)[1]
+    bwd_params = _splat_bwd_params(r, k, f, sizes)[1]
+    kept, ptrs = _point_inputs(x0, lane0, w_lo, w_hi, values)
     dev = values.device
-    args = [a.contiguous() for a in (x0, lane0, w_lo, w_hi, values)]
-    # (contribution bits << 32 | INT_MAX - k), 0 where nothing landed
-    packed = torch.zeros(r, cells, f, dtype=torch.int64, device=dev)
-    grid = torch.empty(r, cells, f, dtype=torch.float32, device=dev)
-    winner = torch.empty(r, cells, f, dtype=torch.int32, device=dev)
-    lib = cuda_build.libraries()["splat_slice"]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ct_splat_max_winner(
-        *(a.data_ptr() for a in args), packed.data_ptr(), grid.data_ptr(),
-        winner.data_ptr(), r, *_launch_args(sizes, k, f), stream)
+    grid = _splat_grid(r, k, f, sizes, dev)
+    # filled with NO_WINNER by the splat kernel, before the winner pass
+    winner = torch.empty(grid.shape, dtype=torch.int32, device=dev)
+    err = cuda_build.libraries()["splat_slice"].ct_splat_max_winner(
+        *ptrs, grid.data_ptr(), winner.data_ptr(), params, bwd_params,
+        cuda_build.current_stream(dev))
+    del kept
     cuda_build.check(err, "splat_max_winner")
     splat_max_winner.launches += 1
     return grid, winner
@@ -269,16 +378,10 @@ def _point_major_plan(what, rows, points, feat, sizes, per_thread, threads):
     (``slice_kernel``, the splat backward's two passes): ``per_thread``
     points a thread at most, halved while the launch would have fewer than
     ``SLICE_FILL_THREADS`` threads."""
-    cells = kernel_grid_dims(sizes)[2]
+    _check_index_limit(what, rows, points, feat, sizes)
     n = rows * points
-    if n * feat >= INDEX_LIMIT or rows * cells * feat >= INDEX_LIMIT:
-        raise ValueError(
-            f"{what}: {rows} x {points} points or {rows} x {cells} "
-            f"cells of {feat} features reach the 2^31 index limit")
     quads = -(-feat // 4)
-    group = 1
-    while group < quads and group < 8:
-        group *= 2
+    group = _quad_group(feat)
     while per_thread > 1 and n * group < SLICE_FILL_THREADS * per_thread:
         per_thread //= 2
     per_block = per_thread * (threads // group)
@@ -384,10 +487,10 @@ def _splat_bwd_params(rows, points, feat, sizes):
         plan.winner_group, plan.winner_blocks, int(plan.winner_features))
 
 
-def _bwd_inputs(x0, lane0, w_lo, w_hi, *rows):
+def _point_inputs(x0, lane0, w_lo, w_hi, *rows):
     """The mapping, then ``rows`` (values, grids, maps, cotangents), as a
-    splat backward entry point takes them: contiguous, and 16-byte aligned
-    where they are read as float4 (copied where they are not).  ->
+    splat or splat backward entry point takes them: contiguous, and 16-byte
+    aligned where they are read as float4 (copied where they are not).  ->
     (tensors, their addresses); the caller keeps the tensors until it has
     launched."""
     kept = [x0.contiguous(), lane0.contiguous()]
@@ -480,7 +583,7 @@ def splat_max_bwd(x0, lane0, w_lo, w_hi, values, grid, g, sizes,
                                        sizes),)
         return out
     params = _splat_bwd_params(r, k, f, tuple(sizes))[1]
-    kept, ptrs = _bwd_inputs(x0, lane0, w_lo, w_hi, values, grid, g)
+    kept, ptrs = _point_inputs(x0, lane0, w_lo, w_hi, values, grid, g)
     dev = values.device
     winner = torch.full((r, cells, f), NO_WINNER, dtype=torch.int32,
                         device=dev)
@@ -534,7 +637,7 @@ def splat_route(x0, lane0, w_lo, w_hi, values, winner, g, sizes):
         return splat_route_plain(x0, lane0, w_lo, w_hi, values, winner, g,
                                  sizes)
     params = _splat_bwd_params(r, k, f, tuple(sizes))[1]
-    kept, ptrs = _bwd_inputs(x0, lane0, w_lo, w_hi, values, winner, g)
+    kept, ptrs = _point_inputs(x0, lane0, w_lo, w_hi, values, winner, g)
     dev = values.device
     d_w_lo = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
     d_w_hi = torch.empty(r, k, 4, dtype=torch.float32, device=dev)

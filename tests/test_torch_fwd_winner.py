@@ -7,8 +7,10 @@ the kernel layout (3e38 where nothing won) to the port's int32 map
 (``NO_WINNER``).  ``splat_route`` against ``pallas_splat_bwd_routed`` within
 1e-6 (a few terms each).  And through ``splat_max_mapping_k`` and the
 slice: with ``FWD_WINNER`` the port's gradients are bit-identical to its
-two-pass path, exact duplicates included, and within 1e-6 of the JAX
-package's under its own ``FWD_WINNER``.
+two-pass path, exact duplicates and a ragged ``pts_mask`` included, and
+within 1e-6 of the JAX package's under its own ``FWD_WINNER``.  On the CPU
+the winner-tracking splat is ``splat_max`` followed by the splat backward's
+winner map, as its kernel is on the card.
 """
 
 import importlib
@@ -96,6 +98,31 @@ def test_winner_map_and_routing_match_jax(sizes):
         assert not got[0][..., 2:].any() and not got[1][..., 2:].any()
 
 
+@pytest.mark.parametrize("sizes", SIZES)
+def test_winner_splat_is_the_splat_then_the_winner_pass(sizes):
+    """Exact ties and a ragged ``pts_mask`` (37, 1, 64 and 0 valid points
+    in the four rows, zeroed as ``splat_max_mapping_k`` zeroes them, so
+    that the twin of point 36 is masked): the grid bit-equal to
+    ``splat_max``'s, the map equal to ``splat_winner_plain``'s on that
+    grid, and no masked point wins."""
+    x0, lane0, w_lo, w_hi, values = _inputs(sizes, r=4, k=64, f=5)
+    valid = torch.tensor([37, 1, 64, 0])
+    mask = (torch.arange(64)[None] < valid[:, None]).to(values.dtype)
+    values = values * mask[..., None]
+    mapping = (x0, lane0, w_lo, w_hi)
+    grid, winner = tps.splat_max_winner(*mapping, values, sizes)
+    assert tps.splat_max_winner.launches == 0     # CPU: the plain version
+    want = tps.splat_max(*mapping, values, sizes)
+    assert torch.equal(grid, want)
+    assert torch.equal(winner, tps.splat_winner_plain(*mapping, values, want,
+                                                      sizes))
+    won = winner != tps.NO_WINNER
+    assert won.any()
+    assert (winner.long() < valid[:, None, None])[won].all()
+    assert not won[3].any() and not grid[3].any()
+    assert torch.equal(won, grid > 0)
+
+
 def _case(dim, seed=3, b=1, p=16, heads=2, feat=4):
     """Keys and values where point 5 duplicates point 0 exactly."""
     rs = np.random.RandomState(seed)
@@ -106,12 +133,12 @@ def _case(dim, seed=3, b=1, p=16, heads=2, feat=4):
     return (8,) * dim, keys, values, feat
 
 
-def _port_grads(sizes, keys, values, feat):
+def _port_grads(sizes, keys, values, feat, pts_mask=None):
     k = torch.from_numpy(keys).requires_grad_()
     v = torch.from_numpy(values).requires_grad_()
     m = tgm.grid_mapping(k, sizes, len(sizes))
-    gk = tss.splat_max_mapping_k(m, v, sizes)
-    out = tss.slice_grid_mapping_k(m, gk, sizes, feat)
+    gk = tss.splat_max_mapping_k(m, v, sizes, pts_mask=pts_mask)
+    out = tss.slice_grid_mapping_k(m, gk, sizes, feat, pts_mask=pts_mask)
     (torch.tanh(out) * 0.01).sum().backward()
     return k.grad, v.grad
 
@@ -142,6 +169,24 @@ def test_fwd_winner_gradients_bit_identical_to_two_pass(dim, monkeypatch):
         m = tgm.grid_mapping(torch.from_numpy(keys), sizes, dim)
         tss.splat_max_mapping_k(m, torch.from_numpy(values), sizes)
     assert calls == {"winner": 1, "route": 1}
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_fwd_winner_gradients_with_a_ragged_mask(dim, monkeypatch):
+    """Two clouds with 11 and 16 valid points (point 5 duplicates point 0
+    in both): the switch leaves the gradients bit-identical, and a masked
+    point gets no value gradient."""
+    sizes, keys, values, feat = _case(dim, b=2)
+    mask = torch.ones(2, 16)
+    mask[0, 11:] = 0
+    grads = {}
+    for fw in (False, True):
+        monkeypatch.setattr(tss, "FWD_WINNER", fw)
+        grads[fw] = _port_grads(sizes, keys, values, feat, pts_mask=mask)
+    for a, b in zip(grads[False], grads[True]):
+        assert torch.equal(a, b)
+    assert not grads[True][1][0, 11:].any() and grads[True][1][1, 11:].any()
+    assert not grads[True][1][:, 5].any()
 
 
 @pytest.mark.parametrize("dim", [2, 3])

@@ -1103,3 +1103,163 @@ def test_splat_backward_launch_refuses_a_plan_it_did_not_make(gen):
         assert err != 0 and err2 != 0, name
         assert bool((winner == 7).all()), name
         assert all(bool((o == 7.0).all()) for o in outs), name
+
+
+# --- the point-major splat and the winner-tracking splat -------------------
+
+def _splat_both(gen, mapping, values, sizes):
+    """splat_max and splat_max_winner on one input: the grid bit-equal to
+    the plain splat's, the map equal to the plain map and to the two-pass
+    backward's, each kernel bit-equal over two runs, and the winner splat
+    moving its own counter only.  -> (grid, winner)."""
+    grid = tps.splat_max(*mapping, values, sizes)
+    assert torch.equal(grid, tps.splat_max_plain(*mapping, values, sizes))
+    assert torch.equal(grid, tps.splat_max(*mapping, values, sizes))
+    wrappers = (tps.splat_max, tps.splat_max_bwd, tps.splat_max_winner)
+    counts = [w.launches for w in wrappers]
+    w_grid, winner = tps.splat_max_winner(*mapping, values, sizes)
+    assert [w.launches for w in wrappers] == [counts[0], counts[1],
+                                              counts[2] + 1]
+    assert torch.equal(w_grid, grid) and winner.dtype == torch.int32
+    assert torch.equal(winner, tps.splat_winner_plain(*mapping, values, grid,
+                                                      sizes))
+    two_pass = tps.splat_max_bwd(*mapping, values, grid,
+                                 torch.zeros_like(grid), sizes,
+                                 return_winner=True)[3]
+    assert torch.equal(winner, two_pass)
+    again = tps.splat_max_winner(*mapping, values, sizes)
+    assert torch.equal(again[0], grid) and torch.equal(again[1], winner)
+    return grid, winner
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k", [(8, 2048), (2, 16384)])
+@pytest.mark.parametrize("sizes,f", SLICE_SHAPES)
+def test_splat_kernels_at_the_model_shapes(gen, sizes, f, b, k):
+    """The classifier's rows (B = 8 x 16 heads x 2048 points) and the
+    completion decoder's (B = 2 x 16 x 16384) at every head group."""
+    mapping, values = _mapping(gen, sizes, b, 16, k, f, ties=False)
+    _splat_both(gen, mapping, values, sizes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f", [((128, 128), 4), ((16, 16, 16), 16)])
+def test_splat_kernels_over_two_scans(gen, sizes, f):
+    """3000 points a row and one chunk: each block lists its points in two
+    scans, and the winner splat leaves the winners to the winner pass."""
+    mapping, values = _mapping(gen, sizes, 8, 16, 3000, f)
+    plan = tps.splat_plan(128, 3000, f, sizes)
+    assert plan.chunks == 1 and plan.chunk > tps.SPLAT_SCAN_POINTS
+    assert not tps.winners_in_splat(plan)
+    _splat_both(gen, mapping, values, sizes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", RAGGED_SIZES)
+@pytest.mark.parametrize("f", RAGGED_F)
+@pytest.mark.parametrize("k", [38, 3002])
+def test_splat_kernels_at_ragged_shapes(gen, sizes, f, k):
+    """One chunk a row (38 points: the slab written whole into an
+    unfilled grid, the winners recorded by the splat kernel) and several
+    (3002: raised by atomics into a zero-filled one, the winners by the
+    winner pass), every lane group, rows of G * F words that are no
+    multiple of 4, exact ties going to the lower index, values that start
+    off 16 bytes."""
+    mapping, values = _mapping(gen, sizes, 2, 3, k, f)
+    plan = tps.splat_plan(6, k, f, sizes)
+    assert (plan.chunks > 1) == (k == 3002)
+    assert tps.winners_in_splat(plan) == (k == 38)
+    n = tps.splat_max.launches
+    grid, winner = _splat_both(gen, mapping, values, sizes)
+    assert tps.splat_max.launches == n + 2
+    assert not grid[-1].any()
+    assert not (winner % 2 == 1)[winner != tps.NO_WINNER].any()
+    shifted = torch.empty(values.numel() + 1, device="cuda")[1:].view(
+        values.shape)
+    shifted.copy_(values)
+    assert torch.equal(tps.splat_max(*mapping, shifted, sizes), grid)
+    assert torch.equal(tps.splat_max_winner(*mapping, shifted, sizes)[1],
+                       winner)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f", [((8, 8, 8), 32), ((16, 16), 16),
+                                     ((8, 8, 8), 5)])
+def test_splat_precheck_is_exact_on_a_dense_grid(gen, sizes, f):
+    """16384 points a row on a small grid (128-256 contributions a cell),
+    duplicated points and values rounded to a few levels, so that many
+    contributions equal the cell's maximum and most skip their atomic after
+    reading the word in shared memory, and many chunks a row raise the
+    grid: the grid bit-equal to the plain splat in every one of five runs,
+    and the winner map to the plain map."""
+    mapping, values = _mapping(gen, sizes, 1, 4, 16384, f)
+    values = (values * 2).round() / 2
+    assert tps.splat_plan(4, 16384, f, sizes).chunks > 8
+    ref = tps.splat_max_plain(*mapping, values, sizes)
+    assert bool((ref[:-1] > 0).float().mean() > 0.9)
+    for _ in range(5):
+        assert torch.equal(tps.splat_max(*mapping, values, sizes), ref)
+    _splat_both(gen, mapping, values, sizes)
+
+
+@pytest.mark.gpu
+def test_splat_launch_refuses_a_plan_it_did_not_make(gen):
+    """Both entry points recompute the splat's plan (and the winner splat
+    the winner pass's too) and launch nothing, writing nothing, where the
+    caller's numbers disagree: with one chunk a row and with several."""
+    sizes, f = (16, 16), 16
+    lib = tps.cuda_build.libraries()["splat_slice"]
+    stream = torch.cuda.current_stream().cuda_stream
+    at = {n: i for i, n in enumerate(tps.SPLAT_PARAMS)}
+    for k in (200, 3000):
+        mapping, values = _mapping(gen, sizes, 2, 4, k, f)
+        assert (tps.splat_plan(8, k, f, sizes).chunks > 1) == (k == 3000)
+        good = list(tps._splat_params(8, k, f, sizes)[0])
+        bwd = tps._splat_bwd_params(8, k, f, sizes)[1]
+        other = tps._splat_bwd_params(8, k - 1, f, sizes)[1]
+        cases = [(name, good[at[name]] + step, bwd) for name, step in (
+            ("group", good[at["group"]]), ("threads", -128), ("slabs", 1),
+            ("slab_words", -4), ("chunks", 1), ("chunk", 1), ("blocks", 1))]
+        cases.append(("another shape's winner pass", None, other))
+        for name, wrong, bwd_params in cases:
+            bad = list(good)
+            if wrong is not None:
+                bad[at[name]] = wrong
+            params = tps.cuda_build.int_params(*bad)
+            grid = torch.full((8, 256, f), 7.0, device="cuda")
+            winner = torch.full(grid.shape, 7, dtype=torch.int32,
+                                device="cuda")
+            ptrs = [a.data_ptr() for a in (*mapping, values, grid)]
+            errs = [lib.ct_splat_max_winner(*ptrs, winner.data_ptr(),
+                                            params[1], bwd_params, stream)]
+            if wrong is not None:
+                errs.append(lib.ct_splat_max(*ptrs, params[1], stream))
+            torch.cuda.synchronize()
+            assert all(e != 0 for e in errs), (k, name)
+            assert bool((grid == 7.0).all()), (k, name)
+            assert bool((winner == 7).all()), (k, name)
+
+
+@pytest.mark.gpu
+def test_splat_refuses_the_index_limit_on_the_card(gen):
+    """R * G * F at 2^31 raises before anything is allocated."""
+    mapping, values = _mapping(gen, (64, 64), 1, 2, 4, 2 ** 18,
+                               ties=False)
+    with pytest.raises(ValueError):
+        tps.splat_max(*mapping, values, (64, 64))
+    with pytest.raises(ValueError):
+        tps.splat_max_winner(*mapping, values, (64, 64))
+
+
+@pytest.mark.gpu
+def test_splat_kernels_in_a_cuda_graph(gen):
+    sizes, f = (16, 16, 16), 16
+    mapping, values = _mapping(gen, sizes, 2, 4, 2048, f)
+    ref = tps.splat_max(*mapping, values, sizes)
+    for run in _graph_replays(lambda: (tps.splat_max(*mapping, values,
+                                                     sizes),)):
+        assert torch.equal(run[0], ref)
+    ref = tps.splat_max_winner(*mapping, values, sizes)
+    for run in _graph_replays(lambda: tps.splat_max_winner(
+            *mapping, values, sizes)):
+        assert all(torch.equal(a, b) for a, b in zip(run, ref))
