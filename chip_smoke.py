@@ -9,9 +9,10 @@
    exactly (and bit-equal over two runs), slice and grid conv within 1e-5
    of the output scale; the splat
    backward's winner map exactly and its gradients within 1e-6, the slice
-   backward and the conv weight gradient within 1e-5; times the kernel, the
-   plain version and, where one PyTorch call computes the same function,
-   that call (``scatter_reduce_`` amax for the splat, ``grid_sample`` for
+   backward within 1e-5 and bit-equal over two runs (its d_grid is summed
+   in fixed point), the conv weight gradient within 1e-5; times the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call (``scatter_reduce_`` amax for the splat, ``grid_sample`` for
    the slice, grouped ``conv3d`` for the conv, ``scatter_add_`` for the
    d_grid half of the slice backward, ``convolution_backward`` for the conv
    weight gradient; each is held to the plain version too; no single call
@@ -28,9 +29,10 @@
    and the fused block at every head group's shape, with and without gk2
    (gk exact, points and gk2 within 1e-5, two runs bit-equal), timed
    beside the three separate kernels.  The fused block, the splat, the
-   splat backward, the winner-tracking splat and the routing pass also at
-   the completion decoder's rows (B = 2 clouds x 16 heads, K = 16384
-   points) at every head group's shape, with the same gates;
+   splat backward, the winner-tracking splat, the routing pass and the
+   slice backward also at the completion decoder's rows (B = 2 clouds x 16
+   heads, K = 16384 points) at every head group's shape, with the same
+   gates;
 4. serves 100 full-width ScanObjectNN classifier requests (random weights
    from a seed, clouds of 1024 to 3000 points) through
    ``InferenceEngine.classify`` in the B=8 x 2048 bucket, with the launch
@@ -97,15 +99,15 @@
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
    2D and 3D convs, their weight gradients, the slice, ``top2``, the
-   fused block, the splat, the winner-tracking splat, the splat backward
-   and the routing pass also with ``bound_share``, bound_ms / ms, per pass
-   and per shape, and per shape whether the kernel took less time than its
-   library call in this run; the slice, ``top2`` and those five also with
-   their device and host times, and per shape their launch plan; the fused
-   block also beside the three separate kernels, by the loop and on the
-   device; those five also per completion decoder step, from the decoder's
-   rows; ``top2`` also per evaluated cloud, from the bid
-   searches the evaluation ran at each width), then
+   fused block, the splat, the winner-tracking splat, the splat backward,
+   the routing pass and the slice backward also with ``bound_share``,
+   bound_ms / ms, per pass and per shape, and per shape whether the kernel
+   took less time than its library call in this run; the slice, ``top2``
+   and those six also with their device and host times, and per shape
+   their launch plan; the fused block also beside the three separate
+   kernels, by the loop and on the device; those six also per completion
+   decoder step, from the decoder's rows; ``top2`` also per evaluated
+   cloud, from the bid searches the evaluation ran at each width), then
    the ``{"ok": true, "device": ...}`` line last.
 
 In phase 3 the auction's two kernels are held too: ``top2`` against
@@ -122,7 +124,8 @@ values of 12 float32 operations, or their square roots at the
 special-function rate, whichever takes longer.  Every kernel's ``ms`` and
 ``library_ms`` time a loop of 20 launches (``cuda_ms``), so they hold the
 wrapper's host cost wherever it exceeds the kernel's.  The slice, ``top2``,
-``grid_sample``, the fused block and the splat kernels take tens
+``grid_sample``, the fused block, the splat kernels and the slice backward
+(with ``scatter_add_``) take tens
 of microseconds at some shapes, about what a wrapper takes on the host, so
 they are also timed by replaying a CUDA graph of 20 calls (``graph_ms``),
 which leaves the host out: ``device_ms`` and
@@ -250,13 +253,13 @@ LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
 BOUND_SHARE = ("grid_conv2d", "grid_conv2d_dw", "grid_conv3d",
                "grid_conv3d_dw", "slice_gather", "top2", "fused_block",
                "splat_max_bwd", "splat_route", "splat_max",
-               "splat_max_winner")
+               "splat_max_winner", "slice_bwd")
 # kernels short enough that a loop of launches may time their wrappers on
 # the host: their entries also carry the device time of a CUDA graph
 # replay (``device_ms``, ``device_bound_share``; per shape, against the
 # library call's, ``faster_than_library_device``)
 DEVICE_TIMED = ("slice_gather", "top2", "fused_block", "splat_max_bwd",
-                "splat_route", "splat_max", "splat_max_winner")
+                "splat_route", "splat_max", "splat_max_winner", "slice_bwd")
 # the path whose run gives each kernel's ``launches``
 MAIN_PATH = {"splat_max": "serving", "slice_gather": "serving",
              "grid_conv3d": "serving", "splat_max_bwd": "training",
@@ -562,10 +565,6 @@ def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
                           n_splat, n_slice, touched):
     """The splat and slice backward kernels at one main-path shape.  The
     splat's ``grid`` is the forward's own output, so winners exist."""
-    shape = shape_name(sizes, f)
-    cells = ps.kernel_grid_dims(sizes)[2]
-    n_vert = 2 ** len(sizes)
-    map_bytes = R * K * 40
     bwd_row, route_row, winner = check_splat_backward(
         ps, gen, mapping, values, grid, sizes, f, n_splat, touched)
     rows["splat_max_bwd"].append(bwd_row)
@@ -577,34 +576,62 @@ def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
         ps, mapping, values, grid, winner, sizes, f, n_splat))
     del winner
 
-    g_pts = torch.randn(R, K, f, generator=gen, device="cuda")
+    rows["slice_bwd"].append(check_slice_bwd(ps, gen, mapping, grid, sizes,
+                                             f, n_slice, touched))
+
+
+def check_slice_bwd(ps, gen, mapping, grid, sizes, f, calls, touched):
+    """``slice_bwd`` at one shape, on a grid of the forward's kind: its
+    outputs bit-equal over two runs (d_grid is summed in fixed point) and
+    within TOL of the plain version; timed by the loop, by graph replay and
+    on the host, beside ``scatter_add_`` (the d_grid half: one call on
+    products expanded outside the timing, held to the plain version).  ->
+    its entry."""
+    r, k = mapping[0].shape
+    shape = shape_name(sizes, f, r, k)
+    cells = ps.kernel_grid_dims(sizes)[2]
+    g_pts = torch.randn(r, k, f, generator=gen, device="cuda")
     d_grid, d_lo, d_hi = ps.slice_bwd(*mapping, g_pts, grid, sizes)
+    if not all(torch.equal(a, b) for a, b in zip(
+            ps.slice_bwd(*mapping, g_pts, grid, sizes),
+            (d_grid, d_lo, d_hi))):
+        raise AssertionError(f"slice_bwd {shape}: two runs differ")
     p_grid, p_lo, p_hi = ps.slice_bwd_plain(*mapping, g_pts, grid, sizes)
     err = max(held(f"slice_bwd {shape} {n}", a, b, TOL)
               for n, a, b in (("d_grid", d_grid, p_grid),
                               ("d_w_lo", d_lo, p_lo), ("d_w_hi", d_hi, p_hi)))
-    # the library yardstick covers the d_grid half only: one scatter_add_
-    # of products expanded outside the timing
+    if len(sizes) == 2 and (d_lo[..., 2:].any() or d_hi[..., 2:].any()):
+        raise AssertionError(f"slice_bwd {shape}: 2D slots 2, 3 not zero")
+    del d_grid, d_lo, d_hi, p_lo, p_hi
     idx, w = ps.vertex_index_weights(*mapping, sizes)
-    index = idx.reshape(R, K * 8, 1).expand(R, K * 8, f).contiguous()
-    src = (w[..., None] * g_pts[:, :, None, :]).reshape(R, K * 8, f)
+    index = idx.reshape(r, k * 8, 1).expand(r, k * 8, f).contiguous()
+    src = (w[..., None] * g_pts[:, :, None, :]).reshape(r, k * 8, f)
+    del idx, w
 
     def library():
-        return torch.zeros(R, cells, f, device="cuda").scatter_add_(
+        return torch.zeros(r, cells, f, device="cuda").scatter_add_(
             1, index, src)
     lib_err = held(f"scatter_add_ {shape}", library(), p_grid, LIB_TOL)
-    rows["slice_bwd"].append(dict(
-        shape=shape, calls=n_slice, max_abs_err=err, library_err=lib_err,
-        grid_rows_read=touched, grid_rows=R * cells,
-        ms=cuda_ms(lambda: ps.slice_bwd(*mapping, g_pts, grid, sizes)),
+    del p_grid
+
+    def slice_bwd():
+        return ps.slice_bwd(*mapping, g_pts, grid, sizes)
+    row = dict(
+        shape=shape, calls=calls, max_abs_err=err, library_err=lib_err,
+        grid_rows_read=touched, grid_rows=r * cells,
+        plan=ps.slice_bwd_plan(r, k, f, sizes)._asdict(),
+        ms=cuda_ms(slice_bwd), device_ms=graph_ms(slice_bwd),
+        host_ms=host_ms(slice_bwd),
         plain_ms=cuda_ms(lambda: ps.slice_bwd_plain(
             *mapping, g_pts, grid, sizes), iters=3, warmup=1),
-        library_ms=cuda_ms(library),
+        library_ms=cuda_ms(library), library_device_ms=graph_ms(library),
         # reads the mapping, the point cotangents and the touched grid
         # rows; writes the whole d_grid (zeros included) and the two d_w
-        bound=bound(map_bytes + R * K * f * 4 + touched * f * 4
-                    + R * cells * f * 4 + R * K * 32,
-                    R * K * n_vert * f * 4)))
+        bound=bound(r * k * 40 + r * k * f * 4 + touched * f * 4
+                    + r * cells * f * 4 + r * k * 32,
+                    r * k * 2 ** len(sizes) * f * 4))
+    del index, src
+    return row
 
 
 def check_kernels(gen):
@@ -791,27 +818,30 @@ def check_fused_block(gen, sizes, f, calls, b=B, k=K):
 
 def check_completion_rows(gen):
     """The fused block, the splat, the splat backward, the winner-tracking
-    splat and the routing pass at the completion decoder's rows (B = 2
-    clouds x 16 heads, K = 16384 points) at each head group's shape, with
-    the gates of the classifier's shapes.  -> {kernel: [entry per shape]},
-    ``calls`` per completion step (the decoder's part)."""
+    splat, the routing pass and the slice backward at the completion
+    decoder's rows (B = 2 clouds x 16 heads, K = 16384 points) at each head
+    group's shape, with the gates of the classifier's shapes.  ->
+    {kernel: [entry per shape]}, ``calls`` per completion step (the
+    decoder's part)."""
     from cloud_transformers_tpu_torch.ops import pallas_splat as ps
     b, k = COMPLETION_ROWS
     out = {"fused_block": [], "splat_max": [], "splat_max_bwd": [],
-           "splat_max_winner": [], "splat_route": []}
+           "splat_max_winner": [], "splat_route": [], "slice_bwd": []}
     for sizes, f, calls in BLOCK_SHAPES:
         out["fused_block"].append(check_fused_block(gen, sizes, f, calls,
                                                     b, k))
         mapping, values, _ = mapping_inputs(sizes, f, gen, b, k)
         splat_row, grid = check_splat(ps, mapping, values, sizes, f, calls)
         out["splat_max"].append(splat_row)
+        touched = touched_rows(ps, mapping, sizes)
         bwd_row, route_row, winner = check_splat_backward(
-            ps, gen, mapping, values, grid, sizes, f, calls,
-            touched_rows(ps, mapping, sizes))
+            ps, gen, mapping, values, grid, sizes, f, calls, touched)
         out["splat_max_bwd"].append(bwd_row)
         out["splat_route"].append(route_row)
         out["splat_max_winner"].append(check_winner_splat(
             ps, mapping, values, grid, winner, sizes, f, calls))
+        out["slice_bwd"].append(check_slice_bwd(
+            ps, gen, mapping, grid, sizes, f, calls, touched))
         del mapping, values, grid, winner
         torch.cuda.empty_cache()
     return out

@@ -95,28 +95,36 @@
 //   the point); d_values sums w * dcon over the vertices, d_w sums
 //   v * dcon over the lane's features and then over the group by
 //   shuffles, in a fixed order.
-// * slice_bwd, one launch: d_grid gets w * g by float atomicAdd into a grid
-//   the wrapper zero-filled (the order of these sums differs from run to
-//   run), d_w is the dot of the vertex's grid row with g over the features,
-//   with no atomics.
+// * slice_bwd, two launches on one plan (slice_bwd_plan).  d_w
+//   point-major, as the slice (slice_bwd_dw_kernel): the dot of the
+//   vertex's grid row with g over the features, summed in a fixed order;
+//   its blocks also bound |w| * |g|.  Then d_grid slab-major, as the
+//   splat: a block for each (row, slab of words), which lists the points
+//   that reach its slab and adds their contributions into it in 64-bit
+//   fixed point, scaled by that bound, by shared-memory integer atomics
+//   (slice_bwd_kernel, below): integer sums do not depend on their order,
+//   so every word is the same in every run; each is written once, as
+//   float4, with no fill and no float atomics.
 //
 // * splat_route (replacing pallas_splat_bwd_routed) is the routing pass
 //   alone, on the winner map that splat_max_winner made.
 //
-// In the slice backward, the features of a point sit on a group of 1 to 32
-// neighbouring lanes of one warp (the next power of two >= min(F, 32)); a
-// lane loops over f with that stride, and the sums over f are shuffles
-// inside the group.  In every backward the 2D mappings' slots 2 and 3 are
-// never read and get d_w = 0.
+// In every backward the 2D mappings' slots 2 and 3 are never read and get
+// d_w = 0.
 //
 // Bound on the H100: bytes, as for the forward kernels: the mapping, the
 // point features and cotangents, and the grid rows the points touch (the
-// winner map is scratch and is not counted).  What keeps them from it is
-// the atomics, resolved in L2: the slice backward's 2^dim * F atomicAdd
-// per point, and the splat backward's atomicMin, one for each (cell,
-// feature) a point wins (about every cell a sparse grid's points touch),
-// beside the fill of the whole winner map; its routing pass, read-only,
-// reads 16-byte rows of the winner map from L2.
+// winner map is scratch and is not counted), and for the slice backward
+// the whole d_grid, written once.  What keeps the splat backward from it
+// is its atomicMin, one for each (cell, feature) a point wins (about every
+// cell a sparse grid's points touch), beside the fill of the whole winner
+// map; its routing pass, read-only, reads 16-byte rows of the winner map
+// from L2.  The slice backward's d_grid blocks each read their row's x0
+// and lane0 (a row is read once a slab, from L2) and the cotangent rows
+// of the points that reach their slab, then add 2^dim * F terms a point,
+// each a float-to-integer conversion and two shared-memory atomics, which
+// serialise where many points share a word (the dense grids); its d_w
+// pass gathers 2^dim grid rows a point, as the slice.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -127,7 +135,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kSliceThreads = 256;   // slice block (slice_plan's threads)
 constexpr int kBwdThreads = 256;     // splat backward block (splat_bwd_plan)
 constexpr int kSplatThreads = 256;   // splat block (splat_plan's threads)
@@ -136,6 +143,10 @@ constexpr int kScanPoints = 2048;    // points a splat block lists at a time
 constexpr int kListP = 2;            // listed points a lane group holds
 constexpr int kFillBlocks = 132 * 3; // splat blocks that fill the card
 constexpr int kMinChunk = 256;       // points for each splat chunk, at most
+constexpr int kSbSlabWords = 4992;   // d_grid words a slice backward block
+                                     // sums (64-bit each, in dynamic
+                                     // shared memory with its list)
+constexpr int kSbFillBlocks = 132 * 3;   // its blocks that fill the card
 
 // The entry point a launch serves, as a template tag of the kernels that
 // two of them share: splat_max_winner launches splat_max's kernel and
@@ -352,6 +363,39 @@ __device__ __forceinline__ void visit_listed(
   }
 }
 
+// The block lists in listed_k the points k0 <= k < k_end of the row that
+// starts at point `row` whose vertex cells, from the base cell to
+// `reach` cells past it, reach into the slab's words [wb, wb + n_words),
+// and returns how many (every thread of the block calls it): the x0 and
+// lane0 of kScanPoints / kSplatThreads points a thread in flight, then a
+// shared-memory atomicAdd on `listed` a listed point, so the list's order
+// varies from run to run.  It starts with a barrier, after which the
+// block's last list may be overwritten.
+__device__ __forceinline__ int list_slab_points(
+    const int* __restrict__ x0, const int* __restrict__ lane0, int row,
+    int k0, int k_end, int F, int lane_extent, int reach, int wb,
+    int n_words, int* listed_k, int& listed) {
+  constexpr int kScan = kScanPoints / kSplatThreads;
+  if (threadIdx.x == 0) listed = 0;
+  __syncthreads();
+  int base[kScan];
+#pragma unroll
+  for (int i = 0; i < kScan; ++i) {
+    const int p = row + min(k0 + i * kSplatThreads + (int)threadIdx.x,
+                            k_end - 1);
+    base[i] = __ldg(x0 + p) * lane_extent + __ldg(lane0 + p);
+  }
+#pragma unroll
+  for (int i = 0; i < kScan; ++i) {
+    const int k = k0 + i * kSplatThreads + threadIdx.x;
+    if (k < k_end && base[i] * F < wb + n_words &&
+        (base[i] + reach) * F > wb)
+      listed_k[atomicAdd(&listed, 1)] = k;
+  }
+  __syncthreads();
+  return listed;
+}
+
 // splat_max: block b takes chunk b % chunks of the points of row
 // b / (chunks * slabs), and slab (b / chunks) % slabs of that row's grid:
 // the words [s * slab_words, s * slab_words + n_words) of the row's G * F,
@@ -384,7 +428,6 @@ splat_slab_kernel(const int* __restrict__ x0, const int* __restrict__ lane0,
   __shared__ __align__(16) float slab[kSlabWords];
   __shared__ int listed_k[kScanPoints];
   __shared__ int listed;
-  constexpr int kScan = kScanPoints / kSplatThreads;
   const int c = blockIdx.x % chunks;
   const int s = (blockIdx.x / chunks) % slabs;
   const int r = blockIdx.x / (chunks * slabs);
@@ -397,24 +440,9 @@ splat_slab_kernel(const int* __restrict__ x0, const int* __restrict__ lane0,
   const int reach = lane_extent + off3 + 1;
   int n = 0;
   for (int k0 = c * chunk; k0 < k_end; k0 += kScanPoints) {
-    if (threadIdx.x == 0) listed = 0;
-    __syncthreads();   // the fill and the last list are done with
-    int base[kScan];
-#pragma unroll
-    for (int i = 0; i < kScan; ++i) {
-      const int p = r * K + min(k0 + i * kSplatThreads + (int)threadIdx.x,
-                                k_end - 1);
-      base[i] = __ldg(x0 + p) * lane_extent + __ldg(lane0 + p);
-    }
-#pragma unroll
-    for (int i = 0; i < kScan; ++i) {
-      const int k = k0 + i * kSplatThreads + threadIdx.x;
-      if (k < k_end && base[i] * F < wb + n_words &&
-          (base[i] + reach) * F > wb)
-        listed_k[atomicAdd(&listed, 1)] = k;
-    }
-    __syncthreads();
-    n = listed;
+    // after the fill and the last list are done with
+    n = list_slab_points(x0, lane0, r * K, k0, k_end, F, lane_extent, reach,
+                         wb, n_words, listed_k, listed);
     visit_listed<kGroup, kNV, kVec, false>(
         x0, lane0, w_lo, w_hi, values, listed_k, n, r, K, F, lane_extent,
         off2, off3, wb, n_words, slab, nullptr);
@@ -647,60 +675,272 @@ splat_route_kernel(const int* __restrict__ x0, const int* __restrict__ lane0,
   }
 }
 
-__global__ void slice_bwd_kernel(const int* __restrict__ x0,
-                                 const int* __restrict__ lane0,
-                                 const float* __restrict__ w_lo,
-                                 const float* __restrict__ w_hi,
-                                 const float* __restrict__ g_pts,
-                                 const float* __restrict__ grid,
-                                 float* __restrict__ d_grid,
-                                 float* __restrict__ d_w_lo,
-                                 float* __restrict__ d_w_hi,
-                                 int64_t n_points_total, int K, int F, int G,
-                                 int lane_extent, int off2, int off3,
-                                 int n_vert, int group) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t p_raw = t / group;
-  const int sub = (int)(t - p_raw * group);
-  const bool live = p_raw < n_points_total;
-  const int64_t p = live ? p_raw : 0;
-  const int64_t r = p / K;
-  const int base = x0[p] * lane_extent + lane0[p];
+// ---- slice backward ---------------------------------------------------------
+//
+// Two launches on one plan (slice_bwd_plan), d_w first.
+//
+// d_w, point-major as slice_kernel (slice_bwd_dw_kernel; slice_plan's
+// group, points a thread and blocks): a point on kGroup lanes of feature
+// quads, kP points a thread, the point's cotangent quad and its 2 * kNV
+// vertex rows of the grid read as float4 where kVec, all of a thread's
+// loads in flight before the first sum.  d_w[v] = sum over f of grid row
+// v times g: a lane sums its quads' features by fused multiply-adds from
+// 0, then the group's lanes are summed by xor shuffles, in the same order
+// in every run; a 2D mapping's slots 2 and 3 get 0.  Each block also
+// writes the largest |w| * |g| of its points to `most` (one word a
+// block), the bound the d_grid kernel scales its fixed point by.
+template <int kGroup, int kP, int kNV, bool kVec>
+__global__ void __launch_bounds__(kSliceThreads)
+slice_bwd_dw_kernel(const int* __restrict__ x0,
+                    const int* __restrict__ lane0,
+                    const float4* __restrict__ w_lo,
+                    const float4* __restrict__ w_hi,
+                    const float* __restrict__ g_pts,
+                    const float* __restrict__ grid,
+                    float4* __restrict__ d_w_lo, float4* __restrict__ d_w_hi,
+                    int* __restrict__ most, int n, int K, int F, int G,
+                    int lane_extent, int off2, int off3) {
+  __shared__ int block_most;
+  constexpr int kGroups = kSliceThreads / kGroup;
+  const int g = threadIdx.x / kGroup;
+  const int sub = threadIdx.x % kGroup;
+  const int p0 = blockIdx.x * (kGroups * kP) + g;
+  const int quads = (F + 3) >> 2;
   const int offs[4] = {0, 1, off2, off3};
-  float wl[4], wh[4], dl[4], dh[4];
+  if (threadIdx.x == 0) block_most = 0;
+  int pt[kP], base[kP];
+  float dw[kP][2 * kNV], w_most[kP], g_most[kP];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    wl[j] = w_lo[p * 4 + j];
-    wh[j] = w_hi[p * 4 + j];
-    dl[j] = dh[j] = 0.0f;
+  for (int i = 0; i < kP; ++i) {
+    // clamped: lanes past n shuffle with their group and write nothing
+    pt[i] = min(p0 + i * kGroups, n - 1);
+    base[i] = (pt[i] / K) * G + __ldg(x0 + pt[i]) * lane_extent +
+              __ldg(lane0 + pt[i]);
+    const float4 a = __ldg(w_lo + pt[i]), b = __ldg(w_hi + pt[i]);
+    w_most[i] = fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)),
+                      fmaxf(fabsf(b.x), fabsf(b.y)));
+    if (kNV == 4)
+      w_most[i] = fmaxf(w_most[i], fmaxf(fmaxf(fabsf(a.z), fabsf(a.w)),
+                                         fmaxf(fabsf(b.z), fabsf(b.w))));
+    g_most[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 2 * kNV; ++j) dw[i][j] = 0.0f;
   }
-  const int64_t row = r * (int64_t)G * F;
-  for (int f = sub; f < F; f += group) {
-    const float gp = g_pts[p * F + f];
+  for (int q = sub; q < quads; q += kGroup) {
+    const int f = q << 2;
+    if (kVec) {
+      float4 gp[kP], v[kP][2 * kNV];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (j >= n_vert) break;
-      const int64_t i_lo = row + (int64_t)(base + offs[j]) * F + f;
-      const int64_t i_hi = i_lo + (int64_t)lane_extent * F;
-      dl[j] += grid[i_lo] * gp;
-      dh[j] += grid[i_hi] * gp;
-      if (live) {
-        atomicAdd(d_grid + i_lo, wl[j] * gp);
-        atomicAdd(d_grid + i_hi, wh[j] * gp);
+      for (int i = 0; i < kP; ++i) {
+        gp[i] = __ldg(reinterpret_cast<const float4*>(g_pts + pt[i] * F + f));
+        const float* gr = grid + base[i] * F + f;
+#pragma unroll
+        for (int j = 0; j < kNV; ++j) {
+          v[i][j] = __ldg(reinterpret_cast<const float4*>(gr + offs[j] * F));
+          v[i][kNV + j] = __ldg(reinterpret_cast<const float4*>(
+              gr + (lane_extent + offs[j]) * F));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kP; ++i) {
+        g_most[i] = fmaxf(g_most[i],
+                          fmaxf(fmaxf(fabsf(gp[i].x), fabsf(gp[i].y)),
+                                fmaxf(fabsf(gp[i].z), fabsf(gp[i].w))));
+#pragma unroll
+        for (int j = 0; j < 2 * kNV; ++j) {
+          dw[i][j] = __fmaf_rn(v[i][j].x, gp[i].x, dw[i][j]);
+          dw[i][j] = __fmaf_rn(v[i][j].y, gp[i].y, dw[i][j]);
+          dw[i][j] = __fmaf_rn(v[i][j].z, gp[i].z, dw[i][j]);
+          dw[i][j] = __fmaf_rn(v[i][j].w, gp[i].w, dw[i][j]);
+        }
+      }
+    } else {
+      const int nf = min(4, F - f);
+#pragma unroll
+      for (int i = 0; i < kP; ++i) {
+        const float* gr = grid + base[i] * F + f;
+        for (int e = 0; e < nf; ++e) {
+          const float gp = __ldg(g_pts + pt[i] * F + f + e);
+          g_most[i] = fmaxf(g_most[i], fabsf(gp));
+#pragma unroll
+          for (int j = 0; j < kNV; ++j) {
+            dw[i][j] = __fmaf_rn(__ldg(gr + offs[j] * F + e), gp, dw[i][j]);
+            dw[i][kNV + j] = __fmaf_rn(
+                __ldg(gr + (lane_extent + offs[j]) * F + e), gp,
+                dw[i][kNV + j]);
+          }
+        }
       }
     }
   }
+  float t_most = 0.0f;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    dl[j] = group_sum(dl[j], group);
-    dh[j] = group_sum(dh[j], group);
-  }
-  if (live && sub == 0) {
+  for (int i = 0; i < kP; ++i) {
+    t_most = fmaxf(t_most, w_most[i] * g_most[i]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      d_w_lo[p * 4 + j] = dl[j];
-      d_w_hi[p * 4 + j] = dh[j];
+    for (int j = 0; j < 2 * kNV; ++j) dw[i][j] = group_sum(dw[i][j], kGroup);
+    const int p = p0 + i * kGroups;
+    if (p < n && sub == 0) {
+      if constexpr (kNV == 4) {
+        d_w_lo[p] = make_float4(dw[i][0], dw[i][1], dw[i][2], dw[i][3]);
+        d_w_hi[p] = make_float4(dw[i][4], dw[i][5], dw[i][6], dw[i][7]);
+      } else {
+        d_w_lo[p] = make_float4(dw[i][0], dw[i][1], 0.0f, 0.0f);
+        d_w_hi[p] = make_float4(dw[i][2], dw[i][3], 0.0f, 0.0f);
+      }
     }
+  }
+  // non-negative floats order as their bits
+  __syncthreads();   // block_most is 0
+  const int bits = __reduce_max_sync(0xffffffffu, __float_as_int(t_most));
+  if ((threadIdx.x & 31) == 0) atomicMax(&block_most, bits);
+  __syncthreads();
+  if (threadIdx.x == 0) most[blockIdx.x] = block_most;
+}
+
+// d_grid, slab-major as the splat (slice_bwd_kernel): block b takes row
+// b / slabs and the words [s * slab_words, s * slab_words + n_words) of
+// its G * F, s = b % slabs, held in shared memory as 64-bit integers from
+// 0, a low and a high 32-bit word each.  A row is never cut into chunks of
+// points: where a row's slabs would not fill the card the slabs are made
+// smaller (slice_bwd_plan).  The row's scale is 2^S, S = 61 - bits(K) -
+// e, where 2^e bounds |w| * |g| over the row's points (the largest of the
+// d_w blocks' `most` that cover the row, which may take in a neighbouring
+// row's points too): no sum of K terms times 2^S reaches 2^61.  The block
+// scans its row's points kScanPoints at a time (x0 and lane0 only), lists
+// those whose vertex cells reach into the slab, and adds each listed
+// point's contributions c = w * g (one rounded multiply, as the plain
+// version's) into the slab as the integers rint(c * 2^S): an atomicAdd on
+// the low word, whose old value gives the carry, and one on the high word
+// (native 32-bit shared-memory atomics); a point on a group of 1-8 lanes
+// of feature quads, two points a group with their loads in flight, as the
+// splat.  Integer sums do not depend on their order, so each word is the
+// same in every run, whatever order the list and the atomics take: the
+// sum of the terms rounded to multiples of 2^-S, within K * 2^-(S+1) of
+// the exact sum (about K^2 * max * 2^-62), rounded once to float32 as
+// the word is written: every word once, as float4 where F % 4 == 0, zeros
+// included; no fill, no float atomics, no second pass.  This is not the
+// order of the plain version's float sums (ascending point, vertex), so
+// d_grid is held within 1e-5 of it, not bit-equal.  A 2D mapping's slots
+// 2 and 3 carry weight 0 and are not visited.
+template <int kGroup, int kNV, bool kVec>
+__global__ void __launch_bounds__(kSplatThreads)
+slice_bwd_kernel(const int* __restrict__ x0, const int* __restrict__ lane0,
+                 const float4* __restrict__ w_lo,
+                 const float4* __restrict__ w_hi,
+                 const float* __restrict__ g_pts,
+                 const int* __restrict__ most, float* __restrict__ d_grid,
+                 int K, int F, int G, int lane_extent, int off2, int off3,
+                 int slabs, int slab_words, int dw_per_block) {
+  // dynamic: the slab's low and high words, then the list
+  extern __shared__ __align__(16) unsigned sb_shared[];
+  unsigned* slab_lo = sb_shared;
+  int* slab_hi = reinterpret_cast<int*>(sb_shared + slab_words);
+  int* listed_k = slab_hi + slab_words;
+  __shared__ int listed, row_most;
+  constexpr int kGroups = kSplatThreads / kGroup;
+  const int s = blockIdx.x % slabs, r = blockIdx.x / slabs;
+  const int row_words = G * F;
+  const int wb = s * slab_words;
+  const int n_words = min(slab_words, row_words - wb);
+  const int sub = threadIdx.x % kGroup;
+  const int quads = (F + 3) >> 2;
+  const int offs[4] = {0, 1, off2, off3};
+  for (int i = threadIdx.x; i < n_words; i += kSplatThreads) {
+    slab_lo[i] = 0u;
+    slab_hi[i] = 0;
+  }
+  if (threadIdx.x == 0) row_most = 0;
+  __syncthreads();
+  {   // the row's bound: the d_w blocks that cover its points
+    const int b0 = (int)((int64_t)r * K / dw_per_block);
+    const int b1 = (int)(((int64_t)r * K + K - 1) / dw_per_block);
+    int m = 0;
+    for (int b = b0 + threadIdx.x; b <= b1; b += kSplatThreads)
+      m = max(m, __ldg(most + b));
+    m = __reduce_max_sync(0xffffffffu, m);
+    if ((threadIdx.x & 31) == 0) atomicMax(&row_most, m);
+  }
+  __syncthreads();   // the fill and the bound are in
+  int e_most = 0;
+  frexpf(__int_as_float(row_most), &e_most);   // |w| * |g| < 2^e_most
+  const int S = max(-126, min(126, 61 - (32 - __clz(K)) - e_most));
+  const float scale = ldexpf(1.0f, S), unscale = ldexpf(1.0f, -S);
+  // cells from a point's base cell to past its last vertex
+  const int reach = lane_extent + off3 + 1;
+  for (int k0 = 0; k0 < K; k0 += kScanPoints) {
+    // after the last list is done with
+    const int n = list_slab_points(x0, lane0, r * K, k0, K, F, lane_extent,
+                                   reach, wb, n_words, listed_k, listed);
+    for (int j0 = threadIdx.x / kGroup; j0 < n; j0 += kGroups * kListP) {
+      int pt[kListP], at[kListP];
+      float4 wl[kListP], wh[kListP];
+#pragma unroll
+      for (int q = 0; q < kListP; ++q) {
+        const int j = min(j0 + q * kGroups, n - 1);   // clamped: a real entry
+        pt[q] = r * K + listed_k[j];
+        at[q] = (__ldg(x0 + pt[q]) * lane_extent + __ldg(lane0 + pt[q])) * F
+                - wb;
+        wl[q] = __ldg(w_lo + pt[q]);
+        wh[q] = __ldg(w_hi + pt[q]);
+      }
+      for (int qd = sub; qd < quads; qd += kGroup) {
+        const int f = qd << 2;
+        const int nf = kVec ? 4 : min(4, F - f);
+        float v[kListP][4];
+#pragma unroll
+        for (int q = 0; q < kListP; ++q) {
+          if (kVec) {
+            const float4 t = __ldg(
+                reinterpret_cast<const float4*>(g_pts + pt[q] * F + f));
+            v[q][0] = t.x; v[q][1] = t.y; v[q][2] = t.z; v[q][3] = t.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              v[q][e] = e < nf ? __ldg(g_pts + pt[q] * F + f + e) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kListP; ++q) {
+          if (j0 + q * kGroups >= n) break;
+          const float lo[4] = {wl[q].x, wl[q].y, wl[q].z, wl[q].w};
+          const float hi[4] = {wh[q].x, wh[q].y, wh[q].z, wh[q].w};
+#pragma unroll
+          for (int j = 0; j < 2 * kNV; ++j) {
+            const float w = j < kNV ? lo[j] : hi[j - kNV];
+            const int c = at[q] + (j < kNV ? offs[j]
+                                           : lane_extent + offs[j - kNV]) * F
+                          + f;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (e >= nf) break;
+              if ((unsigned)(c + e) >= (unsigned)n_words) continue;
+              const long long term = __float2ll_rn(
+                  __fmul_rn(__fmul_rn(w, v[q][e]), scale));
+              const unsigned low = (unsigned)term;
+              const unsigned old = atomicAdd(slab_lo + c + e, low);
+              atomicAdd(slab_hi + c + e,
+                        (int)(term >> 32) + (old + low < old ? 1 : 0));
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();   // every deposit is in
+  float* out = d_grid + r * row_words + wb;
+  auto word = [&](int i) {
+    const long long v = (long long)(((unsigned long long)(unsigned)slab_hi[i]
+                                     << 32) | slab_lo[i]);
+    return __fmul_rn(__ll2float_rn(v), unscale);
+  };
+  if (row_words % 4 == 0) {   // n_words and the row start too
+    for (int i = threadIdx.x; i < n_words / 4; i += kSplatThreads)
+      reinterpret_cast<float4*>(out)[i] = make_float4(
+          word(4 * i), word(4 * i + 1), word(4 * i + 2), word(4 * i + 3));
+  } else {
+    for (int i = threadIdx.x; i < n_words; i += kSplatThreads)
+      out[i] = word(i);
   }
 }
 
@@ -709,10 +949,6 @@ int feature_group(int F) {
   int group = 1;
   while (group < F && group < 32) group <<= 1;
   return group;
-}
-
-unsigned int n_blocks(int64_t n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
 }
 
 // Lanes of a slice group: the next power of two >= the feature quads, at
@@ -1109,20 +1345,123 @@ extern "C" int ct_splat_route(const int* x0, const int* lane0,
   return launch_bwd<RoutePass>(p, a, (cudaStream_t)stream);
 }
 
-// d_grid must arrive zero-filled.
+namespace {
+
+// The slice backward's plan (slice_bwd_plan) recomputed from its integers
+// p: R, K, F, G, lane_extent, off2, off3, n_vert, then the lanes a point
+// (both launches), the d_grid launch's threads, slab words, slabs a row
+// and blocks, the d_w launch's points a thread and blocks, and the float4
+// flag.
+// False where one disagrees, where an index would reach 2^31, or where
+// float4 access is asked of rows (g_pts, grid, d_grid, d_w) or always of
+// the weights that are not 16-byte aligned.
+bool slice_bwd_plan_ok(const int* p, bool rows_aligned, bool aligned) {
+  const int R = p[0], K = p[1], F = p[2], G = p[3], n_vert = p[7],
+            group = p[8], threads = p[9], slab_words = p[10], slabs = p[11],
+            blocks = p[12], points = p[13], dw_blocks = p[14], vec = p[15];
+  const int64_t limit = (int64_t)1 << 31;
+  if ((int64_t)R * K * F >= limit || (int64_t)R * G * F >= limit || G <= 0)
+    return false;
+  // the fewest even slabs that fit, or as many as fill the card (of 4
+  // words at least)
+  const int64_t words = (int64_t)G * F;
+  const int64_t most = (words + 3) / 4;
+  int64_t n_slabs = std::max(
+      (words + kSbSlabWords - 1) / kSbSlabWords,
+      std::min<int64_t>((kSbFillBlocks + R - 1) / R, most));
+  const int64_t slab = ((words + n_slabs - 1) / n_slabs + 3) / 4 * 4;
+  n_slabs = (words + slab - 1) / slab;
+  const int64_t n = (int64_t)R * K;
+  const int64_t per_block = (int64_t)points * (kSliceThreads / group);
+  return group == slice_group(F) && threads == kSplatThreads &&
+         slab_words == slab && slabs == n_slabs && blocks == R * n_slabs &&
+         (points == 1 || points == 2 || points == 4) &&
+         dw_blocks == (n + per_block - 1) / per_block &&
+         vec == (F % 4 == 0 && rows_aligned) &&
+         (n_vert == 2 || n_vert == 4) && aligned;
+}
+
+template <int kGroup, int kP>
+void launch_slice_bwd_dw(const int* p, const int* x0, const int* lane0,
+                         const float4* w_lo, const float4* w_hi,
+                         const float* g_pts, const float* grid,
+                         float* d_w_lo, float* d_w_hi, int* most,
+                         cudaStream_t stream) {
+  float4* lo = reinterpret_cast<float4*>(d_w_lo);
+  float4* hi = reinterpret_cast<float4*>(d_w_hi);
+  const dim3 blocks((unsigned)p[14]);
+#define CT_SBDW(NV, VEC)                                                     \
+  slice_bwd_dw_kernel<kGroup, kP, NV, VEC>                                    \
+      <<<blocks, kSliceThreads, 0, stream>>>(                                 \
+      x0, lane0, w_lo, w_hi, g_pts, grid, lo, hi, most, p[0] * p[1], p[1],    \
+      p[2], p[3], p[4], p[5], p[6])
+  if (p[7] == 2) {
+    if (p[15]) CT_SBDW(2, true); else CT_SBDW(2, false);
+  } else {
+    if (p[15]) CT_SBDW(4, true); else CT_SBDW(4, false);
+  }
+#undef CT_SBDW
+}
+
+template <int kGroup>
+void launch_slice_bwd(const int* p, const int* x0, const int* lane0,
+                      const float* w_lo, const float* w_hi,
+                      const float* g_pts, const float* grid, float* d_grid,
+                      float* d_w_lo, float* d_w_hi, int* most,
+                      cudaStream_t stream) {
+  const float4* wl = reinterpret_cast<const float4*>(w_lo);
+  const float4* wh = reinterpret_cast<const float4*>(w_hi);
+  switch (p[13]) {
+    case 1: launch_slice_bwd_dw<kGroup, 1>(p, x0, lane0, wl, wh, g_pts, grid, d_w_lo, d_w_hi, most, stream); break;
+    case 2: launch_slice_bwd_dw<kGroup, 2>(p, x0, lane0, wl, wh, g_pts, grid, d_w_lo, d_w_hi, most, stream); break;
+    case 4: launch_slice_bwd_dw<kGroup, 4>(p, x0, lane0, wl, wh, g_pts, grid, d_w_lo, d_w_hi, most, stream); break;
+  }
+  if (cudaPeekAtLastError() != cudaSuccess) return;
+  const dim3 blocks((unsigned)p[12]);
+  const int per_block = p[13] * (kSliceThreads / kGroup);
+  const int smem = p[10] * 8 + kScanPoints * 4;
+#define CT_SB(NV, VEC)                                                      \
+  do {                                                                      \
+    if (smem <= 48 * 1024 ||                                                \
+        cudaFuncSetAttribute(slice_bwd_kernel<kGroup, NV, VEC>,             \
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+                             smem) == cudaSuccess)                          \
+      slice_bwd_kernel<kGroup, NV, VEC><<<blocks, kSplatThreads, smem,       \
+                                          stream>>>(                        \
+          x0, lane0, wl, wh, g_pts, most, d_grid, p[1], p[2], p[3], p[4],    \
+          p[5], p[6], p[11], p[10], per_block);                             \
+  } while (0)
+  if (p[7] == 2) {
+    if (p[15]) CT_SB(2, true); else CT_SB(2, false);
+  } else {
+    if (p[15]) CT_SB(4, true); else CT_SB(4, false);
+  }
+#undef CT_SB
+}
+
+}  // namespace
+
+// The slice backward on the caller's plan (slice_bwd_plan), two launches:
+// d_w, which also writes its blocks' bounds to ``most`` (int32
+// [dw_blocks], scratch), then d_grid (written whole: no fill).  ``p`` as
+// slice_bwd_plan_ok reads it (SLICE_BWD_PARAMS); a launch whose numbers
+// disagree with the plan launches nothing.
 extern "C" int ct_slice_bwd(const int* x0, const int* lane0,
                             const float* w_lo, const float* w_hi,
                             const float* g_pts, const float* grid,
                             float* d_grid, float* d_w_lo, float* d_w_hi,
-                            int R, int K, int F, int G, int lane_extent,
-                            int off2, int off3, int n_vert, void* stream) {
-  const int64_t n = (int64_t)R * K;
-  if (n * F > 0) {
-    const int group = feature_group(F);
-    slice_bwd_kernel<<<n_blocks(n * group), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-        x0, lane0, w_lo, w_hi, g_pts, grid, d_grid, d_w_lo, d_w_hi, n, K, F,
-        G, lane_extent, off2, off3, n_vert, group);
+                            int* most, const int* p, void* stream) {
+  if ((int64_t)p[0] * p[1] * p[2] <= 0) return 0;
+  if (!slice_bwd_plan_ok(p, aligned16({g_pts, grid, d_grid}),
+                         aligned16({w_lo, w_hi, d_w_lo, d_w_hi})))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (p[8]) {
+    case 1: launch_slice_bwd<1>(p, x0, lane0, w_lo, w_hi, g_pts, grid, d_grid, d_w_lo, d_w_hi, most, s); break;
+    case 2: launch_slice_bwd<2>(p, x0, lane0, w_lo, w_hi, g_pts, grid, d_grid, d_w_lo, d_w_hi, most, s); break;
+    case 4: launch_slice_bwd<4>(p, x0, lane0, w_lo, w_hi, g_pts, grid, d_grid, d_w_lo, d_w_hi, most, s); break;
+    case 8: launch_slice_bwd<8>(p, x0, lane0, w_lo, w_hi, g_pts, grid, d_grid, d_w_lo, d_w_hi, most, s); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

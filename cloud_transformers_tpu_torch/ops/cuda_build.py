@@ -36,7 +36,7 @@ SIGNATURES = {
         "ct_splat_max": [_P] * 8,
         "ct_slice": [_P] * 8,
         "ct_splat_max_bwd": [_P] * 13,
-        "ct_slice_bwd": [_P] * 9 + [_I] * 8 + [_P],
+        "ct_slice_bwd": [_P] * 12,
         "ct_splat_max_winner": [_P] * 10,
         "ct_splat_route": [_P] * 12,
     },

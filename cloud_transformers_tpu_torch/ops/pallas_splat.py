@@ -72,6 +72,17 @@ SplatPlan = collections.namedtuple("SplatPlan", (
     "group", "threads", "slabs", "slab_words", "chunks", "chunk", "blocks",
     "vec"))
 SPLAT_PARAMS = SLICE_PARAMS[:8] + SplatPlan._fields
+# the slice backward's d_grid blocks (csrc: kSbSlabWords, kSbFillBlocks):
+# the words of d_grid a block sums in shared memory (64-bit each), and
+# the blocks that fill the card
+SLICE_BWD_SLAB_WORDS = 4992
+SLICE_BWD_FILL_BLOCKS = 132 * 3
+# the slice backward's two launches; the integers ct_slice_bwd takes by
+# address
+SliceBwdPlan = collections.namedtuple("SliceBwdPlan", (
+    "group", "threads", "slab_words", "slabs", "blocks",
+    "points_per_thread", "dw_blocks", "vec"))
+SLICE_BWD_PARAMS = SLICE_PARAMS[:8] + SliceBwdPlan._fields
 
 
 def vertex_decomposition(keys_scaled, sizes):
@@ -671,12 +682,63 @@ def slice_bwd_plain(x0, lane0, w_lo, w_hi, g_pts, grid, sizes):
     return d_grid, d_w[..., :4].contiguous(), d_w[..., 4:].contiguous()
 
 
+def slice_bwd_plan(rows, points, feat, sizes):
+    """Launch arithmetic of the slice backward's two kernels
+    (``slice_bwd_kernel`` and ``slice_bwd_dw_kernel`` in
+    ``csrc/splat_slice.cu``).  d_grid: a row's G * F words are cut into
+    ``slabs`` even slabs of ``slab_words`` (a multiple of 4, at most
+    ``SLICE_BWD_SLAB_WORDS``: shared memory), the fewest that fit, or more,
+    smaller ones where the rows' slabs would not make
+    ``SLICE_BWD_FILL_BLOCKS`` blocks; one block of ``threads`` for each
+    (row, slab), ``blocks`` in all, block b taking slab b % slabs of row
+    b // slabs.  A row is never cut into chunks of points, so that each
+    word is one block's sum.  A listed point takes ``group`` lanes of
+    feature quads, as in ``slice_plan``.  d_w, launched first:
+    ``slice_plan``'s arithmetic (``group``, ``points_per_thread``,
+    ``dw_blocks``); each of its blocks also writes a bound on |w| * |g|
+    over its points, and a row's d_grid blocks scale their fixed point by
+    the bounds of the d_w blocks that cover the row.  ``vec`` where rows
+    are read and written as float4.  Raises where an index of the points
+    or of the grid reaches 2^31.  Cached per shape, as are the entry
+    point's integers built from it (``_slice_bwd_params``, in
+    ``SLICE_BWD_PARAMS`` order)."""
+    return _slice_bwd_plan(rows, points, feat, tuple(sizes))
+
+
+@functools.lru_cache(maxsize=None)
+def _slice_bwd_plan(rows, points, feat, sizes):
+    _check_index_limit("slice_bwd", rows, points, feat, sizes)
+    words = kernel_grid_dims(sizes)[2] * feat
+    slabs = max(-(-words // SLICE_BWD_SLAB_WORDS),
+                min(-(-SLICE_BWD_FILL_BLOCKS // rows), -(-words // 4)))
+    slab = -(-words // slabs)                        # even slabs
+    slab = -(-slab // 4) * 4
+    slabs = -(-words // slab)
+    dw = _slice_plan(rows, points, feat, sizes)
+    return SliceBwdPlan(group=dw.group, threads=SPLAT_THREADS,
+                        slab_words=slab, slabs=slabs, blocks=rows * slabs,
+                        points_per_thread=dw.points_per_thread,
+                        dw_blocks=dw.blocks, vec=feat % 4 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _slice_bwd_params(rows, points, feat, sizes):
+    """``ct_slice_bwd``'s integers for one shape (``SLICE_BWD_PARAMS``), as
+    ``cuda_build.int_params``; the cache keeps the array alive."""
+    plan = _slice_bwd_plan(rows, points, feat, sizes)
+    return cuda_build.int_params(rows, *_launch_args(sizes, points, feat),
+                                 *plan[:-1], int(plan.vec))
+
+
 def slice_bwd(x0, lane0, w_lo, w_hi, g_pts, grid, sizes):
     """Backward of ``slice_gather`` for the point cotangent ``g_pts``
     [R, K, F]: ``d_grid[r, idx(r,k,v), f] += w[r,k,v] * g_pts[r,k,f]`` and
     ``d_w[r,k,v] = sum_f grid[r, idx(r,k,v), f] * g_pts[r,k,f]``.
     -> (d_grid [R, G, F], d_w_lo [R, K, 4], d_w_hi [R, K, 4]).  On the card
-    d_grid is summed with float atomics, in an order that varies by run."""
+    two launches on ``slice_bwd_plan``: each d_grid word is summed in 64-bit
+    fixed point (a sum that does not depend on its order) and rounded once
+    to float32, so d_grid is the same in every run, within 1e-5 of the
+    plain version; d_w is summed over the features in a fixed order."""
     r, k = x0.shape
     f = grid.shape[-1]
     cells = kernel_grid_dims(sizes)[2]
@@ -684,16 +746,25 @@ def slice_bwd(x0, lane0, w_lo, w_hi, g_pts, grid, sizes):
                    ("grid", grid, (r, cells, f)))
     if not grid.is_cuda:
         return slice_bwd_plain(x0, lane0, w_lo, w_hi, g_pts, grid, sizes)
-    args = [a.contiguous() for a in (x0, lane0, w_lo, w_hi, g_pts, grid)]
     dev = grid.device
-    d_grid = torch.zeros(r, cells, f, dtype=torch.float32, device=dev)
+    if r * k * f == 0:   # nothing to scatter: no kernel
+        return (torch.zeros(r, cells, f, device=dev),
+                torch.zeros(r, k, 4, device=dev),
+                torch.zeros(r, k, 4, device=dev))
+    sizes = tuple(sizes)
+    params = _slice_bwd_params(r, k, f, sizes)[1]
+    kept, ptrs = _point_inputs(x0, lane0, w_lo, w_hi, g_pts, grid)
+    # every word of the three is written by the kernels
+    d_grid = torch.empty(r, cells, f, dtype=torch.float32, device=dev)
     d_w_lo = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
     d_w_hi = torch.empty(r, k, 4, dtype=torch.float32, device=dev)
-    lib = cuda_build.libraries()["splat_slice"]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ct_slice_bwd(
-        *(a.data_ptr() for a in args), d_grid.data_ptr(), d_w_lo.data_ptr(),
-        d_w_hi.data_ptr(), r, *_launch_args(sizes, k, f), stream)
+    # the d_w blocks' bounds on |w| * |g|, which scale d_grid's fixed point
+    most = torch.empty(_slice_bwd_plan(r, k, f, sizes).dw_blocks,
+                       dtype=torch.int32, device=dev)
+    err = cuda_build.libraries()["splat_slice"].ct_slice_bwd(
+        *ptrs, d_grid.data_ptr(), d_w_lo.data_ptr(), d_w_hi.data_ptr(),
+        most.data_ptr(), params, cuda_build.current_stream(dev))
+    del kept
     cuda_build.check(err, "slice_bwd")
     slice_bwd.launches += 1
     return d_grid, d_w_lo, d_w_hi

@@ -22,9 +22,18 @@ weights) ``cfg['restore']`` loads ``generator``'s parameters through
 ``restore_params_only`` and, with ``new_lr``, rebuilds the optimizer at
 that learning rate, as the JAX trainer does.
 
-The best-metric checkpoints, TensorBoard/CSV logging, gradient statistics,
-profiling hooks, mesh summaries and the device mesh of the JAX trainer are
-not ported yet: a config that sets one of their keys gets a warning.
+Best-metric checkpoints, as in the JAX trainer: ``train.best_metric``
+(default ``loss``) and the keys of ``train.best_metrics`` are scored at
+every validation (``-loss`` for ``loss``, the value itself for any other
+key, ``-inf`` where the key is missing); where a score rises above its best
+of this ``fit`` call, the checkpoint is saved as ``ckpt_best`` for the
+first key and ``ckpt_<key>_best`` for the others (``m_acc`` written
+``macc``), unless ``train.save`` is false.  The bests start at ``-inf``
+when ``fit`` starts and are not restored on resume.
+
+TensorBoard/CSV logging, gradient statistics, profiling hooks, mesh
+summaries and the device mesh of the JAX trainer are not ported yet: a
+config that sets one of their keys gets a warning.
 """
 
 import logging
@@ -45,8 +54,8 @@ from cloud_transformers_tpu_torch.train.optim import make_optimizer
 logger = logging.getLogger("cloud_transformers_tpu_torch")
 
 # ``train:`` keys the JAX trainer reads and this one does not yet
-IGNORED_TRAIN_KEYS = ("best_metric", "best_metrics", "grad_stats",
-                      "profile_step", "profile_steps", "mesh_each")
+IGNORED_TRAIN_KEYS = ("grad_stats", "profile_step", "profile_steps",
+                      "mesh_each")
 
 
 class Trainer:
@@ -171,9 +180,9 @@ class Trainer:
             num_epochs=None, max_steps=None):
         """The epoch loop: a host-side metric window every ``show_each``
         steps, ``ckpt_latest`` every ``save_each`` steps and
-        ``save_each_epoch`` epochs, validation every ``val_step`` epochs,
-        stop (and save) after ``max_steps`` optimizer steps if given.
-        -> the model."""
+        ``save_each_epoch`` epochs, validation every ``val_step`` epochs
+        with the best-metric checkpoints, stop (and save) after
+        ``max_steps`` optimizer steps if given.  -> the model."""
         tcfg = self.cfg["train"]
         num_epochs = num_epochs or int(tcfg.get("num_epochs", 1))
         show_each = int(tcfg.get("show_each", 100))
@@ -181,6 +190,9 @@ class Trainer:
         save_each = int(tcfg.get("save_each", 0))
         save_each_epoch = int(tcfg.get("save_each_epoch", 1))
         save = bool(tcfg.get("save", True))
+        keys = [tcfg.get("best_metric") or "loss"]
+        keys += [k for k in tcfg.get("best_metrics") or [] if k not in keys]
+        best = dict.fromkeys(keys, -np.inf)
         for epoch in range(self.epoch, num_epochs):
             self.epoch = epoch
             train_loader.set_epoch(epoch)
@@ -208,6 +220,13 @@ class Trainer:
                 val = self.validate(val_loader, eval_hook)
                 logger.info("epoch %d val: %s", epoch,
                             {k: round(float(v), 4) for k, v in val.items()})
+                for key in keys:
+                    score = (-float(val.get("loss", np.inf)) if key == "loss"
+                             else float(val.get(key, -np.inf)))
+                    if save and score > best[key]:
+                        best[key] = score
+                        self.save("best" if key == keys[0] else
+                                  f"{key.replace('m_acc', 'macc')}_best")
         return self.model
 
     def validate(self, val_loader, eval_hook=None):

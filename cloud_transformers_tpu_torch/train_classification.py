@@ -41,6 +41,10 @@ def main(argv=None):
                       device=args.device)
     hook = classification.ClassEvalAccumulator(
         int(cfg.get("model", {}).get("n_classes", 15)))
+    # the hook's pooled accuracy and mean class accuracy gate ckpt_best and
+    # ckpt_macc_best, as in the JAX package's CLI
+    cfg["train"].setdefault("best_metric", "cls_acc")
+    cfg["train"].setdefault("best_metrics", ["m_acc"])
     trainer.fit(train_loader, val_loader, eval_hook=hook,
                 max_steps=args.steps)
     logging.getLogger("cloud_transformers_tpu_torch").info(

@@ -1,7 +1,9 @@
 """Time the splat kernels of the PyTorch/CUDA port on one NVIDIA GPU, per
-shape, beside variants of the splat kernel and beside another checkout.
+shape, beside variants of the splat kernel and beside another checkout;
+or, with ``--kernel slice_bwd``, the slice backward and its variants.
 
-    python3 splat_variants.py [--tree DIR] [--variants] [--tag NAME]
+    python3 splat_variants.py [--kernel splat|slice_bwd] [--tree DIR]
+                              [--variants] [--tag NAME]
 
 For each head-group shape of the classifier (R = 128 rows of K = 2048
 points) and of the completion decoder (R = 32 x K = 16384) it holds
@@ -14,6 +16,11 @@ another checkout (its package and its ``chip_smoke.py``), for a parent
 commit.  ``--variants`` also times the splat built from ``VARIANTS``:
 text substitutions of ``csrc/splat_slice.cu`` (asserted to apply once
 each) with the matching Python constants, compiled beside the real build.
+``--kernel slice_bwd`` does the same for ``slice_bwd`` on a grid of the
+forward's kind and a random point cotangent (``SLICE_BWD_VARIANTS``): each
+kernel within 1e-5 of the plain version, and the port's d_grid the same in
+two runs; four calls a shape at either rows (a classifier step's and a
+decoder step's).
 """
 
 import argparse
@@ -50,6 +57,19 @@ VARIANTS = {
                 {"SPLAT_FILL_BLOCKS": 264}),
     "fill528": ([("kFillBlocks = 132 * 3;", "kFillBlocks = 132 * 4;")],
                 {"SPLAT_FILL_BLOCKS": 528}),
+    "listp1": ([("kListP = 2;", "kListP = 1;")], {}),
+    "listp4": ([("kListP = 2;", "kListP = 4;")], {}),
+}
+# the slice backward's: the d_grid words a block sums (so the slabs), the
+# blocks that fill the card
+SLICE_BWD_VARIANTS = {
+    "slab8192": ([("kSbSlabWords = 4992;", "kSbSlabWords = 8192;")],
+                 {"SLICE_BWD_SLAB_WORDS": 8192}),
+    "slab12288": ([("kSbSlabWords = 4992;", "kSbSlabWords = 12288;")],
+                  {"SLICE_BWD_SLAB_WORDS": 12288}),
+    "fill132": ([("kSbFillBlocks = 132 * 3;", "kSbFillBlocks = 132;")],
+                {"SLICE_BWD_FILL_BLOCKS": 132}),
+    # one or four listed points a lane group (shared with the splat)
     "listp1": ([("kListP = 2;", "kListP = 1;")], {}),
     "listp4": ([("kListP = 2;", "kListP = 4;")], {}),
 }
@@ -133,11 +153,50 @@ def time_tag(tag, smoke, ps, winner=True):
                                             for x in got)}), flush=True)
 
 
+def time_slice_bwd(tag, smoke, ps):
+    """One JSON line a shape and the sums per pass for the slice backward
+    as it is loaded now."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for b, k in ROWS:
+        for sizes, f, _ in SHAPES:
+            mapping, values, _ = smoke.mapping_inputs(sizes, f, gen, b, k)
+            grid = ps.splat_max(*mapping, values, sizes)
+            g_pts = torch.randn(values.shape, generator=gen, device="cuda")
+
+            def slice_bwd():
+                return ps.slice_bwd(*mapping, g_pts, grid, sizes)
+            got = slice_bwd()
+            plain = ps.slice_bwd_plain(*mapping, g_pts, grid, sizes)
+            for a, p in zip(got, plain):
+                smoke.held(f"{tag} {sizes} F={f} K={k}", a, p, smoke.TOL)
+            # the port's d_grid has one order; the parent's took atomics
+            if hasattr(ps, "slice_bwd_plan") and not torch.equal(
+                    got[0], slice_bwd()[0]):
+                raise AssertionError(f"{tag} {sizes} F={f} K={k}: two "
+                                     "runs of d_grid differ")
+            row = dict(tag=tag, shape=f"{'x'.join(map(str, sizes))} F={f}",
+                       rows=b * HEADS, points=k, calls=4,
+                       ms=smoke.cuda_ms(slice_bwd),
+                       device_ms=smoke.graph_ms(slice_bwd))
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            del mapping, values, grid, g_pts, got, plain
+    for key in ("ms", "device_ms"):
+        for r in (128, 32):
+            got = [x for x in rows if x["rows"] == r]
+            print(json.dumps({"tag": tag, "per_pass": key, "rows": r,
+                              "ms": sum(x[key] * x["calls"] for x in got)}),
+                  flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=("splat", "slice_bwd"),
+                    default="splat")
     ap.add_argument("--tree", help="time the port of this checkout")
     ap.add_argument("--variants", action="store_true",
-                    help="also time the kernel variants of VARIANTS")
+                    help="also time the kernel's variants")
     ap.add_argument("--tag", default="change")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -154,26 +213,36 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip(), flush=True)
     cuda_build.libraries()
+    if args.kernel == "splat":
+        variants, caches = VARIANTS, ("_splat_plan", "_splat_params")
+
+        def run(tag, is_variant):
+            time_tag(tag, smoke, ps, winner=not is_variant)
+    else:
+        variants = SLICE_BWD_VARIANTS
+        caches = ("_slice_bwd_plan", "_slice_bwd_params")
+
+        def run(tag, is_variant):
+            time_slice_bwd(tag, smoke, ps)
     # the variants compile, all together, while the kernels as they are run
     builds = {name: start_variant(cuda_build, name, edits)
-              for name, (edits, _) in VARIANTS.items()} \
+              for name, (edits, _) in variants.items()} \
         if args.variants else {}
-    time_tag(args.tag, smoke, ps)
+    run(args.tag, False)
     real = cuda_build.libraries()["splat_slice"]
-    caches = (ps._splat_plan, ps._splat_params)
     for name, (proc, so) in builds.items():
-        consts = VARIANTS[name][1]
+        consts = variants[name][1]
         saved = {c: getattr(ps, c) for c in consts}
         cuda_build._loaded["splat_slice"] = load_variant(cuda_build, proc, so)
         for c, v in consts.items():
             setattr(ps, c, v)
         for cache in caches:
-            cache.cache_clear()
-        time_tag(name, smoke, ps, winner=False)
+            getattr(ps, cache).cache_clear()
+        run(name, True)
         for c, v in saved.items():
             setattr(ps, c, v)
         for cache in caches:
-            cache.cache_clear()
+            getattr(ps, cache).cache_clear()
     cuda_build._loaded["splat_slice"] = real
     return 0
 

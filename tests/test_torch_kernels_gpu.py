@@ -116,7 +116,10 @@ def test_backward_kernels_match_plain(gen, sizes, f):
     d_grid, d_lo, d_hi = tps.slice_bwd(*mapping, g_pts, dense, sizes)
     assert tps.slice_bwd.launches == n + 1
     p_grid, p_lo, p_hi = tps.slice_bwd_plain(*mapping, g_pts, dense, sizes)
-    _close(d_grid, p_grid, 1e-5)            # float atomics: another order
+    # summed in fixed point: the same in every run
+    assert torch.equal(d_grid, tps.slice_bwd(*mapping, g_pts, dense,
+                                             sizes)[0])
+    _close(d_grid, p_grid, 1e-5)
     _close(d_lo, p_lo, 1e-6)
     _close(d_hi, p_hi, 1e-6)
     if len(sizes) == 2:
@@ -1262,4 +1265,133 @@ def test_splat_kernels_in_a_cuda_graph(gen):
     ref = tps.splat_max_winner(*mapping, values, sizes)
     for run in _graph_replays(lambda: tps.splat_max_winner(
             *mapping, values, sizes)):
+        assert all(torch.equal(a, b) for a, b in zip(run, ref))
+
+
+# --- the slice backward -----------------------------------------------------
+
+def _slice_bwd_check(mapping, g_pts, grid, sizes, runs=5):
+    """slice_bwd against its plain version: d_grid within 1e-5 of the plain
+    version on the CPU and the same in each of ``runs`` runs, d_w within
+    1e-6 of the plain version on the card, a 2D mapping's slots 2 and 3 at
+    zero, one launch a call.  -> d_grid."""
+    cpu = tps.slice_bwd_plain(*(a.cpu() for a in (*mapping, g_pts, grid)),
+                              sizes)
+    n = tps.slice_bwd.launches
+    first = tps.slice_bwd(*mapping, g_pts, grid, sizes)
+    assert tps.slice_bwd.launches == n + 1
+    _close(first[0].cpu(), cpu[0], 1e-5)
+    p_grid, p_lo, p_hi = tps.slice_bwd_plain(*mapping, g_pts, grid, sizes)
+    _close(first[1], p_lo, 1e-6)
+    _close(first[2], p_hi, 1e-6)
+    if len(sizes) == 2:
+        assert not first[1][..., 2:].any() and not first[2][..., 2:].any()
+    for _ in range(runs - 1):
+        again = tps.slice_bwd(*mapping, g_pts, grid, sizes)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+    return first[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k", [(8, 2048), (2, 16384)])
+@pytest.mark.parametrize("sizes,f", SLICE_SHAPES)
+def test_slice_bwd_at_the_model_shapes(gen, sizes, f, b, k):
+    """The classifier's rows (B = 8 x 16 heads x 2048 points) and the
+    completion decoder's (B = 2 x 16 x 16384) at every head group, on a
+    grid of the forward's kind."""
+    mapping, values = _mapping(gen, sizes, b, 16, k, f, ties=False)
+    grid = tps.splat_max(*mapping, values, sizes)
+    g_pts = torch.randn(values.shape, generator=gen, device="cuda")
+    _slice_bwd_check(mapping, g_pts, grid, sizes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", RAGGED_SIZES)
+@pytest.mark.parametrize("f", [1, 3, 4, 5, 16, 21, 32])
+@pytest.mark.parametrize("k", [38, 3002])
+def test_slice_bwd_at_ragged_shapes(gen, sizes, f, k):
+    """Every lane group and the scalar path, one scan and four, duplicated
+    points, cotangents and a grid that start off 16 bytes."""
+    mapping, values = _mapping(gen, sizes, 2, 3, k, f)
+    grid = torch.randn(6, tps.kernel_grid_dims(sizes)[2], f, generator=gen,
+                       device="cuda")
+    d_grid = _slice_bwd_check(mapping, values, grid, sizes, runs=2)
+    shifted = [torch.empty(t.numel() + 1, device="cuda")[1:].view(t.shape)
+               for t in (values, grid)]
+    for s, t in zip(shifted, (values, grid)):
+        s.copy_(t)
+    got = tps.slice_bwd(*mapping, *shifted, sizes)
+    assert torch.equal(got[0], d_grid)
+    _close(got[1], tps.slice_bwd_plain(*mapping, values, grid, sizes)[1],
+           1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f", [((8, 8, 8), 32), ((16, 16), 16),
+                                     ((8, 8, 8), 5)])
+def test_slice_bwd_on_crowded_cells(gen, sizes, f):
+    """16384 points a row on a small grid (128-256 contributions a cell)
+    and every point of one row on one cell: many terms a word, bins of a
+    whole scan."""
+    mapping, values = _mapping(gen, sizes, 1, 4, 16384, f)
+    for a in mapping:
+        a[-1] = a[-1, :1]                  # the last row: one point, copied
+    grid = torch.randn(4, tps.kernel_grid_dims(sizes)[2], f, generator=gen,
+                       device="cuda")
+    d_grid = _slice_bwd_check(mapping, values, grid, sizes)
+    assert bool((d_grid[-1].abs().sum(-1) > 0).sum() == 2 ** len(sizes))
+
+
+@pytest.mark.gpu
+def test_slice_bwd_launch_refuses_a_plan_it_did_not_make(gen):
+    """The entry point recomputes the plan and launches nothing, writing
+    nothing, where the caller's numbers disagree."""
+    sizes, f, k = (16, 16, 16), 16, 300
+    mapping, values = _mapping(gen, sizes, 2, 4, k, f)
+    grid = torch.randn(8, 4096, f, generator=gen, device="cuda")
+    good = list(tps._slice_bwd_params(8, k, f, sizes)[0])
+    at = {n: i for i, n in enumerate(tps.SLICE_BWD_PARAMS)}
+    lib = tps.cuda_build.libraries()["splat_slice"]
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, step in (("group", 4), ("threads", -128), ("slab_words", 4),
+                       ("slabs", 1), ("blocks", 1), ("points_per_thread", 2),
+                       ("dw_blocks", -1), ("vec", -1)):
+        bad = list(good)
+        bad[at[name]] += step
+        params = tps.cuda_build.int_params(*bad)
+        outs = [torch.full(shape, 7.0, device="cuda")
+                for shape in ((8, 4096, f), (8, k, 4), (8, k, 4))]
+        most = torch.full((4096,), 7, dtype=torch.int32, device="cuda")
+        err = lib.ct_slice_bwd(
+            *(a.data_ptr() for a in (*mapping, values, grid)),
+            *(o.data_ptr() for o in outs), most.data_ptr(), params[1],
+            stream)
+        torch.cuda.synchronize()
+        assert err != 0, name
+        assert all(bool((o == 7.0).all()) for o in outs), name
+        assert bool((most == 7).all()), name
+
+
+@pytest.mark.gpu
+def test_slice_bwd_refuses_the_index_limit_on_the_card(gen):
+    """R * G * F at 2^31 (2^19 rows of 4096 cells) raises before anything
+    is allocated or copied: the cotangents and the grid are expanded
+    views."""
+    mapping, _ = _mapping(gen, (64, 64), 2 ** 15, 16, 1, 1, ties=False)
+    one = torch.zeros(1, 1, 1, device="cuda")
+    n = tps.slice_bwd.launches
+    with pytest.raises(ValueError):
+        tps.slice_bwd(*mapping, one.expand(2 ** 19, 1, 1),
+                      one.expand(2 ** 19, 4096, 1), (64, 64))
+    assert tps.slice_bwd.launches == n
+
+
+@pytest.mark.gpu
+def test_slice_bwd_in_a_cuda_graph(gen):
+    sizes, f = (16, 16, 16), 16
+    mapping, values = _mapping(gen, sizes, 2, 4, 2048, f)
+    grid = tps.splat_max(*mapping, values, sizes)
+    ref = tps.slice_bwd(*mapping, values, grid, sizes)
+    for run in _graph_replays(lambda: tps.slice_bwd(*mapping, values, grid,
+                                                    sizes)):
         assert all(torch.equal(a, b) for a, b in zip(run, ref))
