@@ -86,7 +86,9 @@
    0.004 and up to 3000 rounds) on 4 synthetic test clouds;
 9. the same EMD with the window tail switched on, on a pair that converges
    (B=2 x 16384): it ends inside the budget, one to one, at a cost within
-   2% of the staged tail's, through ``auction_window`` launches;
+   2% of the staged tail's, through ``auction_window`` launches; a third
+   run under the profiler sums its ``auction_window`` kernels' device
+   time;
 10. the completion path on the card against the CPU: the full-width
    inpainter with one stage each side, B=1, same weights and noise
    (cosine > 0.999, median error <= 1e-3), and ``loss_emd`` at N=2048
@@ -100,13 +102,14 @@
    table's twelve rows, row 9 as its forward and its routed backward; the
    2D and 3D convs, their weight gradients, the slice, ``top2``, the
    fused block, the splat, the winner-tracking splat, the splat backward,
-   the routing pass and the slice backward also with ``bound_share``,
-   bound_ms / ms, per pass and per shape, and per shape whether the kernel
-   took less time than its library call in this run; the slice, ``top2``
-   and those six also with their device and host times, and per shape
-   their launch plan; the fused block also beside the three separate
-   kernels, by the loop and on the device; those six also per completion
-   decoder step, from the decoder's rows; ``top2`` also per evaluated
+   the routing pass, the slice backward and ``auction_window`` also with
+   ``bound_share``, bound_ms / ms, per pass and per shape, and per shape
+   whether the kernel took less time than its library call in this run;
+   the slice, ``top2``, ``auction_window`` and those six also with their
+   device and host times, and per shape their launch plan; the fused
+   block also beside the three separate kernels, by the loop and on the
+   device; those six also per completion decoder step, from the
+   decoder's rows; ``top2`` also per evaluated
    cloud, from the bid searches the evaluation ran at each width), then
    the ``{"ok": true, "device": ...}`` line last.
 
@@ -116,16 +119,18 @@ In phase 3 the auction's two kernels are held too: ``top2`` against
 shape that is a multiple of nothing, with duplicated targets, with one
 target and on a mid-auction state: values and indices bit for bit, with
 its square-root skip on and off; ``auction_window`` against
-``auction_window_plain`` from a mid-auction state at B=2, W=512, M=16384,
-up to 64 rounds: owner map and rounds used equal, prices within 2e-5, two
-calls equal.  ``top2`` is timed beside ``torch.cdist`` + ``topk(2)`` (two
+``auction_window_plain`` from a mid-auction state at W=512, M=16384, up to
+64 rounds, at B=2 (the checked call, whose times stand in the kernels
+line), at B=1 and with 5 lanes of the window bidding (the window tail's
+usual call): prices, owner map and rounds used bit for bit, in two
+calls.  ``top2`` is timed beside ``torch.cdist`` + ``topk(2)`` (two
 library calls and an elementwise pass, not one); its bound is B * W * M
 values of 12 float32 operations, or their square roots at the
 special-function rate, whichever takes longer.  Every kernel's ``ms`` and
 ``library_ms`` time a loop of 20 launches (``cuda_ms``), so they hold the
 wrapper's host cost wherever it exceeds the kernel's.  The slice, ``top2``,
-``grid_sample``, the fused block, the splat kernels and the slice backward
-(with ``scatter_add_``) take tens
+``auction_window``, ``grid_sample``, the fused block, the splat kernels and
+the slice backward (with ``scatter_add_``) take tens
 of microseconds at some shapes, about what a wrapper takes on the host, so
 they are also timed by replaying a CUDA graph of 20 calls (``graph_ms``),
 which leaves the host out: ``device_ms`` and
@@ -189,7 +194,6 @@ ROUTE_TOL = 1e-6   # the same, for the splat backward (no atomics, few terms)
 LIB_TOL = 1e-4   # the same, for a library yardstick (other op order)
 SFU_OP_PER_S = 132 * 16 * 1.98e9   # H100 SXM: 16 special-function results
 #                                    a clock on each of 132 SMs at 1.98 GHz
-EMD_TOL = 2e-5   # max abs error of bid values and prices (numbers near 3)
 # top2 shapes (B, W, M): the widths of the staged schedule at N = 16384 for
 # the training batch (B = 2) and for one evaluated cloud (B = 1), and one
 # shape that is a multiple of nothing
@@ -253,13 +257,14 @@ LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
 BOUND_SHARE = ("grid_conv2d", "grid_conv2d_dw", "grid_conv3d",
                "grid_conv3d_dw", "slice_gather", "top2", "fused_block",
                "splat_max_bwd", "splat_route", "splat_max",
-               "splat_max_winner", "slice_bwd")
+               "splat_max_winner", "slice_bwd", "auction_window")
 # kernels short enough that a loop of launches may time their wrappers on
 # the host: their entries also carry the device time of a CUDA graph
 # replay (``device_ms``, ``device_bound_share``; per shape, against the
 # library call's, ``faster_than_library_device``)
 DEVICE_TIMED = ("slice_gather", "top2", "fused_block", "splat_max_bwd",
-                "splat_route", "splat_max", "splat_max_winner", "slice_bwd")
+                "splat_route", "splat_max", "splat_max_winner", "slice_bwd",
+                "auction_window")
 # the path whose run gives each kernel's ``launches``
 MAIN_PATH = {"splat_max": "serving", "slice_gather": "serving",
              "grid_conv3d": "serving", "splat_max_bwd": "training",
@@ -975,38 +980,49 @@ def check_emd_kernels(gen):
                        .expand(-1, -1, 3)).contiguous()
     j_real = idx.to(torch.int32).contiguous()
     owner = state[1].to(torch.int32)
-    args = (x1w, j_real, x2, state[2], owner, 3000, eps, m)
-    price_k, owner_k, used_k = pe.auction_window(*args, rounds_cap=64)
-    price_p, owner_p, used_p, bids = pe.auction_window_plain(
-        *args, rounds_cap=64, return_bids=True)
-    if not (torch.equal(owner_k, owner_p) and torch.equal(used_k, used_p)):
-        raise AssertionError(
-            f"auction_window: owner map or rounds used differ from the "
-            f"plain version ({int((owner_k != owner_p).sum())} owners, "
-            f"used {used_k.tolist()} vs {used_p.tolist()})")
-    err = held("auction_window price", price_k, price_p, EMD_TOL)
-    again = pe.auction_window(*args, rounds_cap=64)
-    if not all(torch.equal(a, c) for a, c in zip(
-            (price_k, owner_k, used_k), again)):
-        raise AssertionError("auction_window: two calls differ")
-    n_rounds = int(used_k.max())
-    # the bids the data needed, each over M targets, and per round the
-    # W * W comparisons of the resolve pass
-    t_bound = bound_top2(bids * m, b * (w * 16 + m * 28))[0] \
-        + int(used_k.sum()) * w * w / F32_FLOP_PER_S * 1e3
-    rows["auction_window"].append(dict(
-        shape=f"B={b} W={w} M={m}", calls=0.0, max_abs_err=err,
-        rounds_before=rounds, used=used_k.tolist(), bids=bids,
-        unassigned_before=int((state[0][:, :m] < 0).sum(1).max()),
-        ms=cuda_ms(lambda: pe.auction_window(*args, rounds_cap=64),
-                   iters=5, warmup=1),
-        plain_ms=cuda_ms(lambda: pe.auction_window_plain(
-            *args, rounds_cap=64), iters=2, warmup=0),
-        library_ms=None, bound=(t_bound, "operations")))
-    r = rows["auction_window"][-1]
-    log(f"auction_window {r['shape']}: used {r['used']} rounds, {bids} bids, "
-        f"{r['ms']:.3f} ms ({r['ms'] / max(n_rounds, 1):.3f} ms a round), "
-        f"plain {r['plain_ms']:.1f} ms")
+    unassigned = int((state[0][:, :m] < 0).sum(1).max())
+    # the window tail's usual call: a handful of lanes bid, the rest pad
+    tail_j = torch.full_like(j_real, m)
+    tail_j[:, :5] = j_real[:, :5]
+    windows = [
+        ("B=2", (x1w, j_real, x2, state[2], owner)),
+        ("B=1", (x1w[:1].contiguous(), j_real[:1].contiguous(), x2[:1],
+                 state[2][:1].contiguous(), owner[:1].contiguous())),
+        ("B=2, 5 lanes", (x1w, tail_j, x2, state[2], owner))]
+    for what, inputs in windows:
+        bb = inputs[0].shape[0]
+        args = inputs + (3000, eps, m)
+        got = pe.auction_window(*args, rounds_cap=64)
+        *plain, bids = pe.auction_window_plain(*args, rounds_cap=64,
+                                               return_bids=True)
+        again = pe.auction_window(*args, rounds_cap=64)
+        for name, k, c, p in zip(("price", "owner", "used"), got, again,
+                                 plain):
+            if not (torch.equal(k, p) and torch.equal(c, p)):
+                raise AssertionError(
+                    f"auction_window {what} {name}: "
+                    f"{int((k != p).sum())} elements differ from the plain "
+                    f"version, {int((c != p).sum())} in a second call")
+
+        def window():
+            return pe.auction_window(*args, rounds_cap=64)
+        rows["auction_window"].append(dict(
+            shape=f"{what} W={w} M={m}", calls=0.0, max_abs_err=0.0,
+            rounds_before=rounds, used=got[2].tolist(), bids=bids,
+            unassigned_before=unassigned,
+            plan=pe.auction_window_plan(bb, w, m)._asdict(),
+            ms=cuda_ms(window), device_ms=graph_ms(window),
+            host_ms=host_ms(window),
+            plain_ms=cuda_ms(lambda: pe.auction_window_plain(
+                *args, rounds_cap=64), iters=2, warmup=0),
+            library_ms=None,
+            # the bids the data needed, each over M targets
+            bound=bound_top2(bids * m, bb * (w * 16 + m * 28))))
+        r = rows["auction_window"][-1]
+        log(f"auction_window {r['shape']}: used {r['used']} rounds, {bids} "
+            f"bids, {r['ms']:.4f} ms ({r['device_ms']:.4f} on the device, "
+            f"{r['host_ms']:.4f} on the host), plain {r['plain_ms']:.1f} "
+            f"ms, bit-equal over two calls")
     return rows
 
 
@@ -1808,14 +1824,32 @@ def completion_phase(wrappers, smi, profile_dir, exp_root):
         switched_launches
 
 
+def kernel_device_ms(run, part):
+    """Device time of the kernels whose names hold ``part`` that ``run()``
+    launches, summed, and their count, from a torch.profiler trace of the
+    card (no synchronisation a call; the trace's own cost falls on the
+    host).  -> (ms, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    hit = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and part in e.key]
+    return (sum(e.self_device_time_total for e in hit) / 1e3,
+            sum(e.count for e in hit))
+
+
 def window_tail_phase(wrappers):
     """The EMD once more with the window tail switched on (the module
     switch, set and restored here): a pair that converges (uniform clouds,
     the first a permutation of the second plus noise of 0.01, B=2 x 16384,
     eps 0.004, up to 3000 rounds) through the staged tail and through the
-    window tail.  The synthetic ShapeNet pairs do not converge within 3000
-    rounds under either tail (their clipped corners hold exact duplicates),
-    so they cannot show that the window tail ends.
+    window tail, then the window tail again under the profiler for the
+    device time of its ``auction_window`` kernels.  The synthetic ShapeNet
+    pairs do not converge within 3000 rounds under either tail (their
+    clipped corners hold exact duplicates), so they cannot show that the
+    window tail ends.
     -> (result dict, launches)."""
     from cloud_transformers_tpu_torch.losses import emd
 
@@ -1847,9 +1881,18 @@ def window_tail_phase(wrappers):
     one_to_one = all(int(torch.unique(w_asg[i]).numel()) == n
                      for i in range(w_asg.shape[0]))
     rel = abs(w_cost - s_cost) / s_cost
+    emd._WINDOW_TAIL = True
+    try:
+        k_ms, k_launches = kernel_device_ms(
+            lambda: emd.emd_auction_with_rounds(x1, x2, eps=0.004,
+                                                iters=3000),
+            "auction_window_kernel")
+    finally:
+        emd._WINDOW_TAIL = False
     log(f"window tail: {w_rounds} rounds in {w_sec:.3f} s, "
-        f"{w_launches['auction_window']} window launches, cost {w_cost:.6f}; "
-        f"staged tail: {s_rounds} rounds in {s_sec:.3f} s, cost "
+        f"{w_launches['auction_window']} window launches, cost {w_cost:.6f}"
+        f"; their kernels {k_ms:.3f} ms on the device ({k_launches} "
+        f"profiled); staged tail: {s_rounds} rounds in {s_sec:.3f} s, cost "
         f"{s_cost:.6f}; rel diff {rel:.3e}")
     if not (w_rounds < 3000 and one_to_one and rel <= 0.02
             and w_launches["auction_window"] > 0
@@ -1860,6 +1903,8 @@ def window_tail_phase(wrappers):
     return ({"window_tail_rounds": w_rounds, "window_tail_seconds": w_sec,
              "window_tail_launches": w_launches["auction_window"],
              "window_tail_top2_launches": w_launches["top2"],
+             "window_tail_kernel_device_ms": k_ms,
+             "window_tail_kernel_profiled_launches": k_launches,
              "window_tail_cost": w_cost, "staged_tail_rounds": s_rounds,
              "staged_tail_seconds": s_sec, "staged_tail_cost": s_cost,
              "staged_tail_top2_launches": s_launches["top2"],
@@ -2104,9 +2149,10 @@ def main():
     # 9. the window tail, a path of its own
     torch.cuda.empty_cache()
     windowed, window_launches = window_tail_phase(wrappers)
-    # the window's times are of the one checked call, from a mid-auction
-    # state with every lane bidding; the tail's own calls mostly have a few
-    # lanes left and cost less (window_tail_seconds has their sum)
+    # the window's times are of the one checked call (B=2), from a
+    # mid-auction state with every lane bidding; the tail's own calls
+    # mostly have a few lanes left and cost less (the 5-lane shape;
+    # window_tail_kernel_device_ms has their sum)
     rows["auction_window"][0]["calls"] = 1.0
     completed.update(windowed)
 

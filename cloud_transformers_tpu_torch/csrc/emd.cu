@@ -74,39 +74,72 @@
 // the top-two update several more; the skip takes the square root and the
 // update off most pairs at the price of 5 slots each.
 //
-// auction_window replaces pallas_auction_window of the same file: up to
-// rounds_cap whole auction rounds {bid, resolve, assign with eviction} for a
-// fixed window of W bidders, with the price and owner state of all M targets
-// kept on the chip between the rounds.
+// auction_window replaces pallas_auction_window of the same file
+// (cloud_transformers_tpu/ops/pallas_emd.py:373, pallas_call at :417): up
+// to rounds_cap whole auction rounds {bid, resolve, assign with eviction}
+// for a fixed window of W bidders (the points still unassigned), with the
+// price and owner state of all M targets kept on the chip between rounds.
+// A lane that wins stops bidding, a lane evicted by another lane of the
+// window bids again, an owner outside the window just loses its target;
+// per target the highest increment wins, ties to the lowest point id; the
+// window ends when no lane is active, after rem rounds or after rounds_cap.
 //
-// Design: one block of 1024 threads per batch row, the rounds loop inside.
-// price and owner (8 bytes a target) live in dynamic shared memory when they
-// fit beside the lane arrays (M = 16384 takes 128 KiB of the 227 KiB), else
-// they stay in the output arrays in device memory: larger M is slower, never
-// wrong.  A pre-pass packs the targets as (x, y, z, |x2|^2) into scratch.
-//   bid      a warp per active lane walks all M targets (the same value and
-//            the same top-2 merge as top2); lanes that are assigned are
-//            skipped, so a round costs what its active lanes cost.
-//   resolve  a thread per lane looks at every other active lane that bid for
-//            the same target: it wins unless one of them has a higher
-//            increment, or the same one and a lower original point id.  No
-//            atomics and no per-target key array: the result is the same in
-//            every run, and exactly one lane per target adds to its price.
-//   apply    the winner adds its increment to the price, takes the target,
-//            and, if the previous owner is a lane of this window, sets that
-//            lane bidding again.  An owner outside the window just loses the
-//            target and waits for a later window.
-// The __syncthreads() between the three phases and before the next round's
-// bid are what keeps a round from reading a half-updated state.  The window
-// ends when no lane is active, when rem rounds are spent or after
-// rounds_cap rounds; used[b] is the number of rounds row b ran.
+// Bound on the H100: operations, the bids the data needs times M pairs of
+// top2's cost (the square roots at the special-function rate); for the
+// checked call of chip_smoke.py (B = 2, W = 512, M = 16384, 3 rounds from
+// a mid-auction state) about 0.004 ms on 132 SMs.  A cluster a row can
+// use B * C SMs, so its own ceiling there is about 0.016 ms at C = 16.
 //
-// Bound on the H100: operations, used * active * M pairs of the same cost as
-// top2 plus the resolve pass (at most W * W comparisons a round).  One block
-// per row on a card of 132 SMs cannot come near it with B = 1 or 2.
+// Design: a thread-block cluster of C = 16 CTAs (512 threads) per batch
+// row, the rounds loop inside, launched with cudaLaunchKernelEx.  CTA r
+// owns a slice of L = ceil(M / C) targets and keeps its state in its own
+// shared memory: packed (x, y, z, |t|^2), the skip terms with the price,
+// a 64-bit bid key and the owner, 44 bytes a target (L = 1024 at M =
+// 16384), packed once a launch from the slice alone.  Where a slice does
+// not fit beside the lane arrays it stays in scratch in device memory,
+// slower and the same.  CTA r also owns W / C lanes (point id, target or
+// -1, bid target, increment).  Five phases a round, a cluster.sync() after
+// each:
+//   bid      every CTA searches its slice for every active lane with
+//            top2_kernel's loop (BidderSet: four bidders a lane group,
+//            each target read serving four, the exact square-root skip
+//            where a lane has 32 targets or more, its threshold shared
+//            after the slice's first 64, 128, 256, 512 targets) and
+//            writes one partial top two a lane;
+//   merge    a warp per own active lane reads the C partials by
+//            cluster.map_shared_rank and merges them order-free (bit-equal
+//            to one sweep over all M targets); the increment's bits go to
+//            the high half of the target's key in its home CTA by a 32-bit
+//            distributed shared-memory max;
+//   tie      the lanes whose increment stands put the complement of their
+//            point id into the low half (max: the lowest id), so the key is
+//            the largest (increment, -id) of the target's bidders, the same
+//            in every run;
+//   apply    the lane whose key stands won and is the target's only writer:
+//            price += inc (one __fadd_rn), owner = its id;
+//   evict    winners clear their keys; an assigned lane reads its target's
+//            owner once and bids again if another lane of the window took
+//            it (the window's lanes own nothing when it starts, so this is
+//            the JAX kernel's eviction by point id); the own lanes still
+//            bidding form the next round's list, and each CTA gathers the
+//            cluster's lists (their counts end the window).
+// One 64-bit max in place of the two halves loses updates on the card
+// (red.shared::cluster.max.u64, and atomicMax through the mapped pointer:
+// a contested target can go to a lower increment; splat_variants.py
+// --kernel auction_window --variants runs both as key64red and key64).
+// What this does about the one-block kernel it replaces: a row spreads over
+// C SMs, not one; each target read serves four bidders and most pairs skip
+// the square root; the only fixed cost a launch is packing the CTA's own
+// slice (no M x 16-byte scratch, no copy of a row's state in and out of
+// one block); resolve is O(1) a lane (no scan of the window) and eviction
+// one read a lane (no search for the evicted id).  Owner, used and price
+// are bit-equal to the plain version on the card.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -119,7 +152,17 @@ constexpr int kTop2Tile = 256;      // targets a staged tile (8 KiB)
 constexpr float kSkipRel = 1.52587890625e-05f;   // 2^-16
 constexpr float kSkipSq = 0.999992370605f;       // 1 - 2^-17
 constexpr float kSkipTh = 1.00000095367f;        // 1 + 2^-20
-constexpr int kWindowThreads = 1024;
+// the window kernel: threads a CTA, CTAs a batch row's cluster (above 8: a
+// non-portable size), the shared memory a CTA can have on an H100
+constexpr int kWindowThreads = 512;
+constexpr int kWindowCluster = 16;
+constexpr int64_t kWindowSmem = 232448;
+// targets of a slice between the bid's threshold sharings (after tiles 0,
+// 1, 3, 7, ...): a quarter of top2's tile, since a slice is short and the
+// first tile goes without a threshold
+constexpr int kWindowTile = 64;
+// the square-root skip pays where a lane has this many targets or more
+constexpr int kTop2SkipMin = 32;
 constexpr float kNeg = -1e9f;       // "no second-best", as in the JAX package
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -172,19 +215,127 @@ __device__ __forceinline__ float skip_bidder(float better) {
   return (better - kSkipRel * fabsf(better)) * (1.0f + kSkipRel);
 }
 
-// A target as the search reads it from shared memory: p = (x, y, z,
-// |t|^2) and q = ((1 - 2^-17) |t|^2 - (1 + 2^-20) c^2, price, c, 0) with c
-// the skip threshold's target half, ((3 - price) + 2^-16 (8 + |price|))
-// (1 + 2^-16).
+// The square-root skip's per-target terms of a target with |t|^2 = sq at
+// price p: ((1 - 2^-17) |t|^2 - (1 + 2^-20) c^2, p, c, 0), with c the skip
+// threshold's target half, ((3 - p) + 2^-16 (8 + |p|)) (1 + 2^-16).
+__device__ __forceinline__ float4 skip_terms(float sq, float p) {
+  const float c = ((3.0f - p) + kSkipRel * (8.0f + fabsf(p)))
+                  * (1.0f + kSkipRel);
+  return make_float4(sq * kSkipSq - c * c * kSkipTh, p, c, 0.0f);
+}
+
+// A target as the search reads it: p = (x, y, z, |t|^2) and q =
+// skip_terms(|t|^2, price), which holds the price in q.y.
 __device__ __forceinline__ void pack_target(float x, float y, float z,
                                             float p, float4* dp,
                                             float4* dq) {
   const float sq = sq_norm(x, y, z);
-  const float c = ((3.0f - p) + kSkipRel * (8.0f + fabsf(p)))
-                  * (1.0f + kSkipRel);
   *dp = make_float4(x, y, z, sq);
-  *dq = make_float4(sq * kSkipSq - c * c * kSkipTh, p, c, 0.0f);
+  *dq = skip_terms(sq, p);
 }
+
+// top2_kernel's inner loop as the window's bid takes it: four bidders that
+// a group of kG neighbouring lanes holds in all its lanes (coordinates,
+// |a|^2, a running top two each and the square-root skip's bidder half).
+// The group's lanes split the targets; each target a lane reads serves the
+// four bidders.  A bidder's skip threshold is the group's second-best (the
+// order-free merge of its lanes' top twos, by shuffles after tiles 0, 1,
+// 3, 7, 15, ...) or the lane's own second-best, whichever is higher:
+// either is backed by two targets that stay in the group's result, so a
+// pair below it cannot change the bidder's top two.  (top2_kernel keeps
+// the loop written out: called through this struct it compiled to a
+// longer kernel that ran slower on the card.)
+template <bool kSkip, int kG>
+struct BidderSet {
+  static_assert(kG >= 8 && kG <= 32, "the merge takes kG / 4 lanes a bidder");
+  float ax[kTop2Bidders], ay[kTop2Bidders], az[kTop2Bidders];
+  float asq[kTop2Bidders], nx[kTop2Bidders], ny[kTop2Bidders];
+  float nz[kTop2Bidders], asq_s[kTop2Bidders], shared_b[kTop2Bidders];
+  float b2[kTop2Bidders], bq[kTop2Bidders];
+  Top2 s[kTop2Bidders];
+
+  // the skip threshold's bidder half from the second-best it stands for:
+  // b = skip_bidder(value), kept as 2 b and (1 - 2^-17) |a|^2 - (1 +
+  // 2^-20) b^2
+  __device__ __forceinline__ void set_threshold(int q, float value) {
+    const float bb = skip_bidder(value);
+    b2[q] = 2.0f * bb;
+    bq[q] = asq_s[q] - bb * bb * kSkipTh;
+  }
+
+  __device__ __forceinline__ void init(int q, const float* a) {
+    ax[q] = a[0];
+    ay[q] = a[1];
+    az[q] = a[2];
+    asq[q] = sq_norm(ax[q], ay[q], az[q]);
+    nx[q] = -2.0f * ax[q];
+    ny[q] = -2.0f * ay[q];
+    nz[q] = -2.0f * az[q];
+    asq_s[q] = asq[q] * kSkipSq;
+    s[q] = Top2{kNeg, kNeg, 0};
+    shared_b[q] = kNeg;
+    set_threshold(q, kNeg);
+  }
+
+  // the packed targets i = sub, sub + kG, ... < cnt of (cp, cq), in rising
+  // order; target i has the index k0 + i
+  __device__ __forceinline__ void search(const float4* cp, const float4* cq,
+                                         int cnt, int k0, int sub) {
+#pragma unroll 2
+    for (int i = sub; i < cnt; i += kG) {
+      const float4 t = cp[i];
+      const float4 u = cq[i];
+      const int k = k0 + i;
+      if (kSkip) {
+        // per bidder a lower bound of d^2 less the threshold's square,
+        // (c - b)^2: where it is >= 0 the value is below a second-best the
+        // group holds and would change nothing; the four tests first, then
+        // one branch for the target
+        bool skip_all = true;
+        bool keep[kTop2Bidders];
+#pragma unroll
+        for (int q = 0; q < kTop2Bidders; ++q) {
+          float e = __fmaf_rn(b2[q], u.z, u.x + bq[q]);
+          e = __fmaf_rn(nx[q], t.x, e);
+          e = __fmaf_rn(ny[q], t.y, e);
+          e = __fmaf_rn(nz[q], t.z, e);
+          keep[q] = !(e >= 0.0f);
+          skip_all &= !keep[q];
+        }
+        if (skip_all) continue;
+#pragma unroll
+        for (int q = 0; q < kTop2Bidders; ++q) {
+          if (!keep[q]) continue;
+          top2_push(s[q], bid_value(ax[q], ay[q], az[q], asq[q], t, u.y), k);
+          set_threshold(q, fmaxf(shared_b[q], s[q].better));
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kTop2Bidders; ++q)
+          top2_push(s[q], bid_value(ax[q], ay[q], az[q], asq[q], t, u.y), k);
+      }
+    }
+  }
+
+  // after tile `tile` of a search: the group's second-best raises the
+  // thresholds after tiles 0, 1, 3, 7, ... (every lane of the warp comes)
+  __device__ __forceinline__ void share(int tile) {
+    if (!kSkip || (tile & (tile + 1)) != 0) return;
+#pragma unroll
+    for (int q = 0; q < kTop2Bidders; ++q) {
+      float v1 = s[q].best, v2 = s[q].better;
+#pragma unroll
+      for (int off = kG >> 1; off > 0; off >>= 1) {
+        const float o1 = __shfl_xor_sync(kFull, v1, off);
+        const float o2 = __shfl_xor_sync(kFull, v2, off);
+        v2 = fmaxf(fminf(v1, o1), fmaxf(v2, o2));
+        v1 = fmaxf(v1, o1);
+      }
+      shared_b[q] = fmaxf(shared_b[q], v2);
+      set_threshold(q, fmaxf(shared_b[q], s[q].better));
+    }
+  }
+};
 
 // Block (bx, chunk, b): a group of kG neighbouring lanes holds the 4
 // bidders (bx * (256 / kG) + g) * 4 + q of group g, the same in all its
@@ -400,123 +551,304 @@ void launch_top2_search(dim3 grid, cudaStream_t s, int skip, const float* x1,
         chunk_len);
 }
 
-// Dynamic shared memory: jr, la, bi [W] int, inc [W] float, win [W] int,
-// then, if state_in_smem, price [M] float and owner [M] int.
-__global__ void __launch_bounds__(kWindowThreads)
-auction_window_kernel(const float* __restrict__ x1w,
-                      const int* __restrict__ j_real,
-                      const float* __restrict__ x2, float4* x2p,
-                      float* price, int* owner, int* __restrict__ used,
-                      int W, int M, int n, int rem, int rounds_cap,
-                      float eps, int state_in_smem) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int warp = tid >> 5, lid = tid & 31, nwarps = nthreads >> 5;
-  int* jr = reinterpret_cast<int*>(smem);   // original point id, n = padding
-  int* la = jr + W;                         // the lane's target, -1 = bidding
-  int* bi = la + W;                         // this round's bid target
-  float* inc = reinterpret_cast<float*>(bi + W);   // this round's increment
-  int* win = reinterpret_cast<int*>(inc + W);
-  float* pr = price + (int64_t)b * M;
-  int* ow = owner + (int64_t)b * M;
-  float* pr_g = pr;
-  int* ow_g = ow;
-  if (state_in_smem) {
-    pr = reinterpret_cast<float*>(win + W);
-    ow = reinterpret_cast<int*>(pr + M);
-    for (int k = tid; k < M; k += nthreads) {
-      pr[k] = pr_g[k];
-      ow[k] = ow_g[k];
+// ---- the auction window on a thread-block cluster per batch row -------
+
+// A window CTA's arguments (one struct: a cluster launch takes them by
+// cudaLaunchKernelEx).  The state of a slice is in the CTA's shared memory
+// (in_smem) or in `scratch`: [B * C * L] packed targets, then as many skip
+// terms, keys and owners.
+struct WindowArgs {
+  const float* x1w;
+  const int* j_real;
+  const float* x2;
+  const float* price;
+  const int* owner;
+  float* price_out;
+  int* owner_out;
+  int* used;
+  unsigned char* scratch;
+  int B, W, M, C, L, WL, n, rem, rounds_cap, in_smem;
+  float eps;
+};
+
+// A bid's key: the increment's bits above (they sort as unsigned integers,
+// the increment being >= 0), the point id's complement below, so that the
+// largest key is the highest increment and, among equal ones, the lowest
+// id.  The kernel takes the max in two 32-bit passes, the high half first.
+__device__ __forceinline__ unsigned long long bid_key(float inc, int j) {
+  return ((unsigned long long)__float_as_uint(inc) << 32)
+         | (unsigned long long)(0xffffffffu - (unsigned)j);
+}
+
+// max(*w, v) into the 32-bit word at w of CTA r's shared memory (w: the
+// word's address in this CTA's), a distributed shared-memory reduction
+// addressed in the cluster's shared window
+__device__ __forceinline__ void cluster_max(unsigned* w, int r, unsigned v) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"((unsigned)__cvta_generic_to_shared(w)), "r"(r));
+  asm volatile("red.shared::cluster.max.u32 [%0], %1;" ::"r"(remote), "r"(v)
+               : "memory");
+}
+
+// Phase 1 of a round in one CTA: the top two of every active lane (act[0,
+// total)) over the CTA's slice (nk packed targets from index k0), four
+// lanes a group of kG threads (a BidderSet), the slice cut into tiles of
+// kWindowTile for the threshold's sharing; part[lane] = (best, better,
+// index).
+// The loops are the same in the whole CTA, so every warp meets its shuffles.
+template <bool kSkip, int kG>
+__device__ __forceinline__ void window_bid(const WindowArgs& a, int b,
+                                           const float4* tp,
+                                           const float4* tq, int k0, int nk,
+                                           const int* act, int total,
+                                           int4* part) {
+  constexpr int kGroups = kWindowThreads / kG;
+  const int sub = threadIdx.x % kG;
+  const int sets = (total + kTop2Bidders - 1) / kTop2Bidders;
+  const int tiles = (nk + kWindowTile - 1) / kWindowTile;
+  for (int s0 = 0; s0 < sets; s0 += kGroups) {
+    const int set = s0 + threadIdx.x / kG;
+    const bool busy = set < sets;   // the same in the whole group
+    BidderSet<kSkip, kG> bs;
+    int lane[kTop2Bidders];
+#pragma unroll
+    for (int q = 0; q < kTop2Bidders; ++q) {
+      lane[q] = act[min(set * kTop2Bidders + q, total - 1)];
+      bs.init(q, a.x1w + ((int64_t)b * a.W + lane[q]) * 3);
+    }
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int base = tile * kWindowTile;
+      bs.search(tp + base, tq + base,
+                busy ? min(kWindowTile, nk - base) : 0, k0 + base, sub);
+      bs.share(tile);
+    }
+#pragma unroll
+    for (int q = 0; q < kTop2Bidders; ++q) {
+      top2_merge_lanes(bs.s[q], kG);
+      if (sub == 0 && busy && set * kTop2Bidders + q < total)
+        part[lane[q]] = make_int4(__float_as_int(bs.s[q].best),
+                                  __float_as_int(bs.s[q].better),
+                                  bs.s[q].idx, 0);
     }
   }
-  const float* x2b = x2 + (int64_t)b * M * 3;
-  float4* tp = x2p + (int64_t)b * M;
-  for (int k = tid; k < M; k += nthreads) {
-    const float x = x2b[3 * k], y = x2b[3 * k + 1], z = x2b[3 * k + 2];
-    tp[k] = make_float4(x, y, z, sq_norm(x, y, z));
+}
+
+// Batch row b on the cluster of C CTAs blockIdx.x / C.  CTA `rank` owns the
+// targets [rank * L, min(M, (rank + 1) * L)) (its slice: packed target,
+// skip terms with the price, bid key, owner) and the lanes [rank * WL,
+// min(W, (rank + 1) * WL)) (point id, target or -1, bid target,
+// increment).  Dynamic shared memory: part [W] int4, the slice's state if
+// in_smem (L x 44 bytes), act [W], jr, la, bi, inc [WL], the own lanes
+// still bidding as two lists [2][WL] (a round reads one and writes the
+// other), their counts [2] and the cluster's list offsets [C + 1].
+__global__ void __launch_bounds__(kWindowThreads, 1)
+auction_window_kernel(const WindowArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = a.C, L = a.L, WL = a.WL, W = a.W, M = a.M;
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const int tid = threadIdx.x, warp = tid >> 5, lid = tid & 31;
+  int4* part = reinterpret_cast<int4*>(smem);
+  unsigned char* rest = smem + (size_t)16 * W;
+  float4 *tp, *tq;
+  unsigned long long* key;
+  int* ow;
+  if (a.in_smem) {
+    tp = reinterpret_cast<float4*>(rest);
+    tq = tp + L;
+    key = reinterpret_cast<unsigned long long*>(tq + L);
+    ow = reinterpret_cast<int*>(key + L);
+    rest = reinterpret_cast<unsigned char*>(ow + L);
+  } else {
+    const int64_t all = (int64_t)a.B * C * L;
+    const int64_t at = ((int64_t)b * C + rank) * L;
+    tp = reinterpret_cast<float4*>(a.scratch) + at;
+    tq = reinterpret_cast<float4*>(a.scratch) + all + at;
+    key = reinterpret_cast<unsigned long long*>(
+              reinterpret_cast<float4*>(a.scratch) + 2 * all) + at;
+    ow = reinterpret_cast<int*>(
+             reinterpret_cast<unsigned long long*>(
+                 reinterpret_cast<float4*>(a.scratch) + 2 * all) + all) + at;
   }
-  int any = 0;
-  for (int i = tid; i < W; i += nthreads) {
-    const int j = j_real[(int64_t)b * W + i];
+  int* act = reinterpret_cast<int*>(rest);
+  int* jr = act + W;
+  int* la = jr + WL;
+  int* bi = la + WL;
+  float* inc = reinterpret_cast<float*>(bi + WL);
+  int* lst = reinterpret_cast<int*>(inc + WL);
+  int* cnt = lst + 2 * WL;
+  int* off = cnt + 2;
+  // rank r's copy of a slice array: another CTA's shared memory, or its
+  // part of the scratch
+  auto slice = [&](auto* p, int r) {
+    return a.in_smem ? cluster.map_shared_rank(p, r)
+                     : p + (int64_t)(r - rank) * L;
+  };
+  // max(half, v) into half `hi` of target t's key in its home CTA
+  auto key_half = [&](int t, int hi, unsigned v) {
+    const int h = t / L;
+    unsigned* w = reinterpret_cast<unsigned*>(key + (t - h * L)) + hi;
+    if (a.in_smem)
+      cluster_max(w, h, v);
+    else
+      atomicMax(w + (int64_t)(h - rank) * L * 2, v);
+  };
+  const int k0 = rank * L;
+  const int nk = max(0, min(M, k0 + L) - k0);
+  const int l0 = rank * WL;
+  const int nl = max(0, min(W, l0 + WL) - l0);
+  {
+    const float* xs = a.x2 + ((int64_t)b * M + k0) * 3;
+    const float* ps = a.price + (int64_t)b * M + k0;
+    const int* os = a.owner + (int64_t)b * M + k0;
+    for (int i = tid; i < nk; i += kWindowThreads) {
+      pack_target(xs[3 * i], xs[3 * i + 1], xs[3 * i + 2], ps[i], tp + i,
+                  tq + i);
+      ow[i] = os[i];
+      key[i] = 0ull;
+    }
+  }
+  if (tid < 2) cnt[tid] = 0;
+  __syncthreads();
+  for (int i = tid; i < nl; i += kWindowThreads) {
+    const int j = a.j_real[(int64_t)b * W + l0 + i];
     jr[i] = j;
     la[i] = -1;
-    any |= (j < n);
+    if (j < a.n) lst[atomicAdd(cnt, 1)] = l0 + i;
   }
-  // also makes the packed targets visible to the whole block
-  bool done = !__syncthreads_or(any);
+  // after a cluster.sync(): the window's active lanes, from every CTA's
+  // list `par`, into act (in rank order); -> their number
+  auto gather = [&](int par) {
+    if (warp == 0) {
+      const int c = lid < C ? *cluster.map_shared_rank(cnt + par, lid) : 0;
+      int sum = c;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(kFull, sum, d);
+        if (lid >= d) sum += o;
+      }
+      if (lid < C) off[lid + 1] = sum;
+      if (lid == 0) off[0] = 0;
+    }
+    __syncthreads();
+    const int total = off[C];
+    for (int i = tid; i < total; i += kWindowThreads) {
+      int r = 0;
+      while (off[r + 1] <= i) ++r;
+      act[i] = *cluster.map_shared_rank(lst + par * WL + (i - off[r]), r);
+    }
+    __syncthreads();
+    return total;
+  };
+  cluster.sync();   // the slices are loaded, the first lists written
+  int total = gather(0);
   int rounds = 0;
-  for (int r = 0; r < rounds_cap; ++r) {
-    if (done || r >= rem) break;   // the same in every thread
-    // bid: a warp per active lane
-    for (int lane = warp; lane < W; lane += nwarps) {
-      if (la[lane] >= 0 || jr[lane] >= n) continue;
-      const float* a = x1w + ((int64_t)b * W + lane) * 3;
-      const float ax = a[0], ay = a[1], az = a[2];
-      const float asq = sq_norm(ax, ay, az);
-      Top2 s = {kNeg, kNeg, 0};
-#pragma unroll 4
-      for (int k = lid; k < M; k += 32)
-        top2_push(s, bid_value(ax, ay, az, asq, tp[k], pr[k]), k);
-      top2_merge_lanes(s, 32);
+  for (int r = 0; r < a.rounds_cap && r < a.rem && total > 0; ++r) {
+    const int par = r & 1;
+    const int own = cnt[par];
+    const int* mine = lst + par * WL;
+    // 1. bid: every CTA searches its slice for every active lane, with the
+    // lane group that takes the fewest steps: passes over the lane sets
+    // times targets a lane
+    {
+      const int sets = (total + kTop2Bidders - 1) / kTop2Bidders;
+      int g = 8, steps = 0x7fffffff;
+      for (int t = 8; t <= 32; t *= 2) {
+        const int cost = (sets + kWindowThreads / t - 1) / (kWindowThreads / t)
+                         * ((nk + t - 1) / t);
+        if (cost < steps) {
+          steps = cost;
+          g = t;
+        }
+      }
+      const bool skip = nk >= kTop2SkipMin * g;
+#define CT_WINDOW_BID(S, G) \
+  window_bid<S, G>(a, b, tp, tq, k0, nk, act, total, part)
+      if (g == 8) {
+        if (skip) CT_WINDOW_BID(true, 8); else CT_WINDOW_BID(false, 8);
+      } else if (g == 16) {
+        if (skip) CT_WINDOW_BID(true, 16); else CT_WINDOW_BID(false, 16);
+      } else {
+        if (skip) CT_WINDOW_BID(true, 32); else CT_WINDOW_BID(false, 32);
+      }
+#undef CT_WINDOW_BID
+    }
+    cluster.sync();
+    // 2. a warp per own active lane merges the C partial results (lane c
+    // reads CTA c's; the merge is order-free), and the increment's bits go
+    // to the high half of its target's key in the target's home CTA (max)
+    for (int e = warp; e < own; e += kWindowThreads / 32) {
+      const int lane = mine[e];
+      Top2 m = {kNeg, kNeg, 0x7fffffff};
+      if (lid < C) {
+        const int4 v = *cluster.map_shared_rank(part + lane, lid);
+        m = Top2{__int_as_float(v.x), __int_as_float(v.y), v.z};
+      }
+      top2_merge_lanes(m, 32);
       if (lid == 0) {
-        bi[lane] = s.idx;
-        inc[lane] = __fadd_rn(__fsub_rn(s.best, s.better), eps);
+        const int i = lane - l0;
+        const float d = __fadd_rn(__fsub_rn(m.best, m.better), a.eps);
+        bi[i] = m.idx;
+        inc[i] = d;
+        key_half(m.idx, 1, __float_as_uint(d));
       }
     }
-    __syncthreads();
-    // resolve: highest increment per target, ties to the lowest point id
-    for (int i = tid; i < W; i += nthreads) {
-      int w = 0;
-      if (la[i] < 0 && jr[i] < n) {
-        w = 1;
-        const int t = bi[i];
-        const float my_inc = inc[i];
-        const int my_j = jr[i];
-        for (int i2 = 0; i2 < W; ++i2) {
-          if (i2 == i || la[i2] >= 0 || jr[i2] >= n || bi[i2] != t) continue;
-          if (inc[i2] > my_inc || (inc[i2] == my_inc && jr[i2] < my_j)) {
-            w = 0;
-            break;
-          }
-        }
-      }
-      win[i] = w;
-    }
-    __syncthreads();
-    // apply: one winner per target, so no two threads touch one target or
-    // one evicted lane; a winner was bidding, so it is nobody's owner
-    for (int i = tid; i < W; i += nthreads) {
-      if (!win[i]) continue;
+    cluster.sync();
+    // 3. the lanes whose increment stands put their id's complement into
+    // the low half (max: the lowest id)
+    for (int e = tid; e < own; e += kWindowThreads) {
+      const int i = mine[e] - l0;
       const int t = bi[i];
-      const int prev = ow[t];
-      pr[t] = __fadd_rn(pr[t], inc[i]);
-      ow[t] = jr[i];
-      la[i] = t;
-      if (prev >= 0) {
-        for (int i2 = 0; i2 < W; ++i2) {
-          if (jr[i2] == prev) {
-            la[i2] = -1;
-            break;
-          }
-        }
+      const unsigned* high =
+          reinterpret_cast<const unsigned*>(slice(key, t / L) + t % L) + 1;
+      if (*high == __float_as_uint(inc[i]))
+        key_half(t, 0, 0xffffffffu - (unsigned)jr[i]);
+    }
+    if (tid == 0) cnt[par ^ 1] = 0;
+    cluster.sync();
+    // 4. resolve and apply: the lane whose key stands at its target won;
+    // it is the target's only writer this round
+    for (int e = tid; e < own; e += kWindowThreads) {
+      const int i = mine[e] - l0;
+      const int t = bi[i], h = t / L, k = t % L;
+      if (slice(key, h)[k] == bid_key(inc[i], jr[i])) {
+        float4* q = slice(tq, h) + k;
+        *q = skip_terms(slice(tp, h)[k].w, __fadd_rn(q->y, inc[i]));
+        slice(ow, h)[k] = jr[i];
+        la[i] = t;
       }
     }
-    __syncthreads();
-    any = 0;
-    for (int i = tid; i < W; i += nthreads) any |= (la[i] < 0 && jr[i] < n);
-    const bool all_done = !__syncthreads_or(any);
+    cluster.sync();
+    // 5. the winners clear their targets' keys; an assigned lane whose
+    // target has another owner now was evicted by a lane of the window and
+    // bids again; the own lanes still bidding form the next list
+    for (int e = tid; e < own; e += kWindowThreads) {
+      const int t = la[mine[e] - l0];
+      if (t >= 0) slice(key, t / L)[t % L] = 0ull;
+    }
+    for (int i = tid; i < nl; i += kWindowThreads) {
+      int t = la[i];
+      if (t >= 0 && slice(ow, t / L)[t % L] != jr[i]) la[i] = t = -1;
+      if (t < 0 && jr[i] < a.n)
+        lst[(par ^ 1) * WL + atomicAdd(cnt + (par ^ 1), 1)] = l0 + i;
+    }
+    cluster.sync();
     ++rounds;
-    done = all_done || (r + 1 >= rem);
+    total = gather(par ^ 1);
   }
-  if (state_in_smem) {
-    for (int k = tid; k < M; k += nthreads) {
-      pr_g[k] = pr[k];
-      ow_g[k] = ow[k];
+  {
+    float* po = a.price_out + (int64_t)b * M + k0;
+    int* oo = a.owner_out + (int64_t)b * M + k0;
+    for (int i = tid; i < nk; i += kWindowThreads) {
+      po[i] = tq[i].y;
+      oo[i] = ow[i];
     }
   }
-  if (tid == 0) used[b] = rounds;
+  if (rank == 0 && tid == 0) a.used[b] = rounds;
+  cluster.sync();   // no CTA leaves while another may read its lists
 }
 
 }  // namespace
@@ -574,29 +906,65 @@ extern "C" int ct_emd_top2(const float* x1, const float* x2,
   return (int)cudaGetLastError();
 }
 
-// Bytes of dynamic shared memory the window kernel asks for.
-static size_t window_smem(int W, int M, int state_in_smem) {
-  return (size_t)W * 20 + (state_in_smem ? (size_t)M * 8 : 0);
+// Shared memory of a window CTA: the lane arrays (W lanes, WL of its own)
+// and a slice's state (L targets).
+static int64_t window_lane_bytes(int W, int WL) {
+  return (int64_t)20 * W + (int64_t)24 * WL + 4 * (2 + kWindowCluster + 1);
 }
+static int64_t window_state_bytes(int L) { return (int64_t)44 * L; }
 
-// price and owner are updated in place; x2p is scratch of B * M * 4 floats.
-// state_in_smem is the caller's choice and must fit: W * 20 + M * 8 bytes
-// within the 232448 a block can have.
+// The window on the caller's plan (auction_window_plan), one cluster launch.
+// Its integers come as one host array p, cached per shape by the wrapper:
+// B, W, M, then the cluster's CTAs C (kWindowCluster), its threads, the
+// slice length L = ceil(M / C), the lanes a CTA owns WL = ceil(W / C), the
+// dynamic shared memory and whether the state is in it (else `scratch`
+// holds B * C * L * 44 bytes).  price and owner are read, price_out and
+// owner_out written (no two of them alias).  The entry point recomputes the
+// plan's arithmetic and launches nothing when it disagrees; a cluster
+// launch that the card refuses returns its error.
 extern "C" int ct_emd_auction_window(const float* x1w, const int* j_real,
-                                     const float* x2, float* x2p,
-                                     float* price, int* owner, int* used,
-                                     int B, int W, int M, int n, int rem,
-                                     int rounds_cap, float eps,
-                                     int state_in_smem, void* stream) {
+                                     const float* x2, const float* price,
+                                     const int* owner, float* price_out,
+                                     int* owner_out, int* used,
+                                     void* scratch, const int* p, int n,
+                                     int rem, int rounds_cap, float eps,
+                                     void* stream) {
+  const int B = p[0], W = p[1], M = p[2], C = p[3], threads = p[4],
+            L = p[5], WL = p[6], smem = p[7], in_smem = p[8];
   if (B <= 0) return 0;
-  const size_t smem = window_smem(W, M, state_in_smem);
-  cudaError_t err = cudaFuncSetAttribute(
+  if (W <= 0 || M <= 0 || C != kWindowCluster || threads != kWindowThreads ||
+      L != (M + C - 1) / C || WL != (W + C - 1) / C ||
+      (in_smem != 0 && in_smem != 1))
+    return (int)cudaErrorInvalidValue;
+  const int64_t lane = window_lane_bytes(W, WL);
+  const int64_t state = window_state_bytes(L);
+  if (lane > kWindowSmem || (in_smem && lane + state > kWindowSmem) ||
+      smem != lane + in_smem * state || (!in_smem && scratch == nullptr) ||
+      (int64_t)B * C > 0x7fffffff || (int64_t)B * M * 3 >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(
       auction_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  auction_window_kernel<<<(unsigned int)B, kWindowThreads, smem,
-                          (cudaStream_t)stream>>>(
-      x1w, j_real, x2, reinterpret_cast<float4*>(x2p), price, owner, used, W,
-      M, n, rem, rounds_cap, eps, state_in_smem);
-  return (int)cudaGetLastError();
+      smem);
+  if (err == 0 && C > 8)
+    err = (int)cudaFuncSetAttribute(
+        auction_window_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1);
+  if (err != 0) return err;
+  const WindowArgs a = {x1w, j_real, x2, price, owner, price_out, owner_out,
+                        used, static_cast<unsigned char*>(scratch), B, W, M,
+                        C, L, WL, n, rem, rounds_cap, in_smem, eps};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * C));
+  cfg.blockDim = dim3(kWindowThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = (int)cudaLaunchKernelEx(&cfg, auction_window_kernel, a);
+  return err != 0 ? err : (int)cudaGetLastError();
 }

@@ -51,7 +51,7 @@ SIGNATURES = {
     },
     "emd": {
         "ct_emd_top2": [_P] * 10,
-        "ct_emd_auction_window": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+        "ct_emd_auction_window": [_P] * 10 + [_I] * 3 + [_F, _P],
     },
 }
 

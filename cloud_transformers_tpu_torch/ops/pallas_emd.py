@@ -50,6 +50,20 @@ TOP2_SKIP_MIN = 32
 Top2Plan = collections.namedtuple("Top2Plan", (
     "threads", "group", "bidders_per_block", "bidder_blocks", "chunks",
     "chunk_len", "blocks", "merge", "skip", "scratch_floats"))
+# the window kernel: CTAs of a batch row's cluster, threads a CTA (csrc:
+# kWindowCluster, kWindowThreads); shared memory per window lane (a
+# partial top two and a list slot), per own lane (id, target, bid target,
+# increment, two list slots), per target of a slice (packed target, skip
+# terms with the price, bid key, owner), and a few counts and offsets
+WINDOW_CLUSTER = 16
+WINDOW_THREADS = 512
+WINDOW_LANE_BYTES = 20
+WINDOW_OWN_LANE_BYTES = 24
+WINDOW_TARGET_BYTES = 44
+WINDOW_FIXED_BYTES = 4 * (2 + WINDOW_CLUSTER + 1)
+WindowPlan = collections.namedtuple("WindowPlan", (
+    "cluster", "threads", "slice_len", "lanes_per_cta", "lane_bytes",
+    "state_bytes", "state_in_smem", "smem_bytes", "scratch_bytes", "ctas"))
 
 
 def _sq_norm(x):
@@ -292,6 +306,102 @@ def auction_window_plain(x1w, j_real, x2, price, owner, rem, eps, n,
     return out + (int(bids),) if return_bids else out
 
 
+def auction_window_plan(b, w, m, state_in_smem=None):
+    """Launch arithmetic of the window kernel (``csrc/emd.cu``) for ``b``
+    rows of a ``w``-lane window over ``m`` targets: a cluster of
+    ``cluster`` CTAs of ``threads`` a row (``ctas`` in all); CTA r owns the
+    targets [r * slice_len, (r + 1) * slice_len) and the lanes
+    [r * lanes_per_cta, (r + 1) * lanes_per_cta), both cut at the end (a
+    CTA may own none).  ``lane_bytes`` of shared memory a CTA for the lane
+    arrays, ``state_bytes`` for its slice's state, which goes to shared
+    memory where both fit in one CTA's 232448 bytes (``state_in_smem``;
+    False forces device memory, the card tests' way to reach it), else to
+    ``scratch_bytes`` of device memory.  Raises where the lane arrays alone
+    do not fit.  Cached per shape, as are the entry point's integers."""
+    return _window_plan(b, w, m, state_in_smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_plan(b, w, m, state_in_smem):
+    if b < 1 or w < 1 or m < 1:
+        raise ValueError(f"auction_window needs B, W, M >= 1, got "
+                         f"{(b, w, m)}")
+    c = WINDOW_CLUSTER
+    slice_len = -(-m // c)
+    lanes = -(-w // c)
+    lane_bytes = (WINDOW_LANE_BYTES * w + WINDOW_OWN_LANE_BYTES * lanes
+                  + WINDOW_FIXED_BYTES)
+    state_bytes = WINDOW_TARGET_BYTES * slice_len
+    if lane_bytes > _SMEM_BYTES:
+        raise ValueError(f"auction_window: a window of {w} lanes does not "
+                         "fit in a CTA's shared memory")
+    fits = lane_bytes + state_bytes <= _SMEM_BYTES
+    if state_in_smem is None:
+        state_in_smem = fits
+    elif state_in_smem and not fits:
+        raise ValueError("auction_window: the state does not fit in shared "
+                         "memory")
+    state_in_smem = bool(state_in_smem)
+    return WindowPlan(
+        cluster=c, threads=WINDOW_THREADS, slice_len=slice_len,
+        lanes_per_cta=lanes, lane_bytes=lane_bytes, state_bytes=state_bytes,
+        state_in_smem=state_in_smem,
+        smem_bytes=lane_bytes + state_bytes * state_in_smem,
+        scratch_bytes=0 if state_in_smem else b * c * state_bytes,
+        ctas=b * c)
+
+
+def auction_window_cluster_order(x1w, j_real, x2, price, owner, rem, eps, n,
+                                 rounds_cap=64):
+    """Plain mirror of the window kernel's order of work, a row at a time:
+    each round every slice of ``auction_window_plan``'s cluster gives the
+    active lanes' top two (``top2_plain``), merged order-free
+    (``top2_merge``); per target the largest 64-bit key (the increment's
+    bits over 2^32 - 1 - point id) wins; a winner adds its increment and
+    takes the target; an assigned lane whose target has another owner now
+    bids again.  Equal to ``auction_window_plain`` where the window's lanes
+    own no target when it starts (the unassigned points, as the window
+    tail gives them)."""
+    b, w, _ = x1w.shape
+    m = x2.shape[1]
+    plan = auction_window_plan(b, w, m)
+    cuts = [(k0, min(m, k0 + plan.slice_len))
+            for k0 in range(0, m, plan.slice_len)]
+    price = price.clone()
+    owner = owner.clone()
+    used = torch.zeros(b, dtype=torch.int32, device=x1w.device)
+    for row in range(b):
+        p, o, j = price[row], owner[row], j_real[row].to(torch.int64)
+        valid = j < n
+        la = torch.full((w,), -1, dtype=torch.int64, device=x1w.device)
+        for _ in range(min(rounds_cap, rem)):
+            lanes = torch.nonzero((la < 0) & valid)[:, 0]
+            if lanes.numel() == 0:
+                break
+            x = x1w[row, lanes][None]
+            parts = []
+            for k0, k1 in cuts:
+                best, better, idx = top2_plain(x, x2[row, k0:k1][None],
+                                               p[k0:k1][None])
+                parts.append((best, better, idx + k0))
+            best, better, idx = (t[0] for t in top2_merge(parts))
+            idx = idx.to(torch.int64)
+            inc = (best - better) + eps
+            key = ((inc.view(torch.int32).to(torch.int64) << 32)
+                   | (0xFFFFFFFF - j[lanes]))
+            stands = torch.zeros(m, dtype=torch.int64,
+                                 device=x1w.device).scatter_reduce_(
+                0, idx, key, "amax")
+            won = stands[idx] == key
+            t = idx[won]
+            p[t] = p[t] + inc[won]
+            o[t] = j[lanes][won].to(o.dtype)
+            la[lanes[won]] = t
+            la = torch.where((la >= 0) & (o[la.clamp(min=0)] != j), -1, la)
+            used[row] += 1
+    return price, owner, used
+
+
 def auction_window(x1w, j_real, x2, price, owner, rem, eps, n,
                    rounds_cap=64):
     """Up to ``rounds_cap`` auction rounds for a fixed window of bidders.
@@ -303,6 +413,8 @@ def auction_window(x1w, j_real, x2, price, owner, rem, eps, n,
     the bid slack.  A lane that wins a target stops bidding, a lane whose
     target is taken by another lane of the window bids again, an owner
     outside the window that loses its target waits for a later window.
+    The window's lanes own no target when it starts (they are points still
+    unassigned).
 
     -> (price', owner', used [B] int32: rounds each row ran).  The inputs
     are left as they were."""
@@ -318,24 +430,50 @@ def auction_window(x1w, j_real, x2, price, owner, rem, eps, n,
     if not x1w.is_cuda:
         return auction_window_plain(x1w, j_real, x2, price, owner, rem, eps,
                                     n, rounds_cap)
-    if w * 20 > _SMEM_BYTES:
-        raise ValueError(f"auction_window: a window of {w} lanes does not "
-                         "fit in one block's shared memory")
-    in_smem = int(w * 20 + m * 8 <= _SMEM_BYTES)
-    x1w, j_real, x2 = x1w.contiguous(), j_real.contiguous(), x2.contiguous()
-    price = price.clone(memory_format=torch.contiguous_format)
-    owner = owner.clone(memory_format=torch.contiguous_format)
-    scratch = torch.empty(b, m, 4, dtype=torch.float32, device=dev)
-    used = torch.empty(b, dtype=torch.int32, device=dev)
-    lib = cuda_build.libraries()["emd"]
-    err = lib.ct_emd_auction_window(
-        x1w.data_ptr(), j_real.data_ptr(), x2.data_ptr(), scratch.data_ptr(),
-        price.data_ptr(), owner.data_ptr(), used.data_ptr(), b, w, m, int(n),
-        rem, rounds_cap, eps, in_smem,
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "auction_window")
+    out = _launch_window(x1w, j_real, x2, price, owner, rem, eps, n,
+                         rounds_cap)
     auction_window.launches += 1
-    return price, owner, used
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _window_params(b, w, m, state_in_smem):
+    """(plan, ``ct_emd_auction_window``'s integers for one shape as
+    ``cuda_build.int_params``); ``state_in_smem`` None takes the plan's."""
+    plan = _window_plan(b, w, m, state_in_smem)
+    return plan, cuda_build.int_params(
+        b, w, m, plan.cluster, plan.threads, plan.slice_len,
+        plan.lanes_per_cta, plan.smem_bytes, int(plan.state_in_smem))
+
+
+def _launch_window(x1w, j_real, x2, price, owner, rem, eps, n, rounds_cap,
+                   state_in_smem=None, params=None):
+    """The kernel behind ``auction_window`` on checked CUDA inputs, with the
+    state where the plan puts it (``state_in_smem=None``) or forced to
+    device memory (False); ``params`` replaces the entry point's integers
+    (the card tests hand it a plan it must refuse).  Counts nothing."""
+    b, w, _ = x1w.shape
+    m = x2.shape[1]
+    dev = x1w.device
+    if w == 0:
+        return (price.clone(), owner.clone(),
+                torch.zeros(b, dtype=torch.int32, device=dev))
+    plan, (_, ints) = _window_params(b, w, m, state_in_smem)
+    x1w, j_real, x2 = x1w.contiguous(), j_real.contiguous(), x2.contiguous()
+    price, owner = price.contiguous(), owner.contiguous()
+    price_out = torch.empty_like(price)
+    owner_out = torch.empty_like(owner)
+    used = torch.empty(b, dtype=torch.int32, device=dev)
+    scratch = (None if plan.state_in_smem else
+               torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev))
+    err = cuda_build.libraries()["emd"].ct_emd_auction_window(
+        x1w.data_ptr(), j_real.data_ptr(), x2.data_ptr(), price.data_ptr(),
+        owner.data_ptr(), price_out.data_ptr(), owner_out.data_ptr(),
+        used.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        ints if params is None else params, int(n), rem, rounds_cap, eps,
+        cuda_build.current_stream(dev))
+    cuda_build.check(err, "auction_window")
+    return price_out, owner_out, used
 
 
 auction_window.launches = 0

@@ -155,6 +155,32 @@ def test_auction_window_plain_matches_pallas(rem, cap):
         np.asarray(jemd._assignment_from_inv(jnp.asarray(want_inv), n)))
 
 
+def test_auction_window_cluster_order_matches_pallas():
+    """The card kernel's order of work (per-slice top twos merged
+    order-free, a 64-bit key max per target, eviction by an owner check)
+    against the JAX kernel: owners and rounds equal, prices within TOL."""
+    b, n, w, eps, rem = 2, 512, 128, 0.02, 64
+    x1, x2, (assignment, inv, price) = _mid_state(
+        np.random.RandomState(1), b, n, eps)
+    idx = jemd._compact_unassigned(assignment, w)
+    j_real = jnp.where(idx < n, idx, n).astype(jnp.int32)
+    x1w = jnp.take_along_axis(x1, jnp.minimum(idx, n - 1)[..., None], 1)
+    m_tile = jpe._window_m_tile(w, n)
+    prb, invb, used = jpe.pallas_auction_window(
+        x1w, j_real, jpe.pack_targets(x2, m_tile),
+        jpe.pack_col(price, m_tile), jpe.pack_col(inv, m_tile, fill=-1),
+        rem, eps, n=n, rounds_cap=rem, interpret=True)
+    got_price, got_owner, got_used = tpe.auction_window_cluster_order(
+        _t(x1w), _t(j_real), _t(x2), _t(price), _t(inv), rem, eps, n,
+        rounds_cap=rem)
+    np.testing.assert_array_equal(got_owner.numpy(),
+                                  np.asarray(jpe.unpack_col(invb, n)))
+    np.testing.assert_array_equal(got_used.numpy(), np.asarray(used))
+    assert int(got_used.min()) >= 2
+    np.testing.assert_allclose(got_price.numpy(),
+                               np.asarray(jpe.unpack_col(prb, n)), atol=TOL)
+
+
 def test_auction_window_plain_counts_bids_and_stops():
     """No valid lane: no round runs.  ``return_bids`` counts the active
     lanes over the rounds."""

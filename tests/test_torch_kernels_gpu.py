@@ -274,27 +274,122 @@ def _window_inputs(gen, b, n, w, eps):
     return (x1w, idx.int().contiguous(), x2, state[2], state[1].int())
 
 
+def _synthetic_window(gen, b, m, w, valid, own=0.6):
+    """A window as the tail gives one, made on the card: ``valid`` lanes a
+    row that own no target (unsorted), the rest padding (id m), a share
+    ``own`` of the targets owned by points outside the window, prices in
+    [0, 0.05)."""
+    x1 = torch.rand(b, m, 3, generator=gen, device="cuda")
+    x2 = torch.rand(b, m, 3, generator=gen, device="cuda")
+    price = torch.rand(b, m, generator=gen, device="cuda") * 0.05
+    owner = torch.full((b, m), -1, dtype=torch.int32, device="cuda")
+    j_real = torch.full((b, w), m, dtype=torch.int32, device="cuda")
+    for row in range(b):
+        ids = torch.randperm(m, generator=gen, device="cuda")
+        inside, outside = ids[:valid], ids[valid:]
+        k = min(int(own * m), outside.numel())
+        where = torch.randperm(m, generator=gen, device="cuda")[:k]
+        owner[row, where] = outside[:k].int()
+        lanes = torch.cat([inside, torch.full((w - valid,), m,
+                                              device="cuda")])
+        j_real[row] = lanes[torch.randperm(w, generator=gen,
+                                           device="cuda")].int()
+    x1w = torch.gather(x1, 1, j_real.long().clamp(max=m - 1)[..., None]
+                       .expand(-1, -1, 3)).contiguous()
+    return x1w, j_real, x2, price, owner
+
+
+def _window_equal(args, rem, eps, n, state_in_smem=None, calls=2):
+    """The kernel ``calls`` times against the plain version: owner, used
+    and price bit for bit, the inputs untouched; -> the kernel's result."""
+    price_in, owner_in = args[3].clone(), args[4].clone()
+    ref = tpe.auction_window_plain(*args, rem, eps, n, rounds_cap=64)
+    got = None
+    for _ in range(calls):
+        again = tpe._launch_window(*args, rem, eps, n, 64, state_in_smem)
+        for a, r in zip(again, ref):
+            assert torch.equal(a, r)
+        got = again
+    assert torch.equal(args[3], price_in) and torch.equal(args[4], owner_in)
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,w,rem", [(2048, 128, 64), (2048, 128, 3),
-                                     (40000, 256, 8)])
+                                     (2048, 512, 64), (40000, 256, 8)])
 def test_auction_window_kernel_matches_plain(gen, n, w, rem):
-    """Owner map and rounds used equal, prices bit for bit; the same over
-    two calls; the inputs untouched.  n=40000 keeps the state in device
-    memory (it does not fit in one block's shared memory)."""
+    """From a mid-auction state: owner map, rounds used and prices bit for
+    bit, the same over two calls, the inputs untouched, one count a
+    call."""
     eps = 0.01
     args = _window_inputs(gen, 2, n, w, eps)
-    price_in, owner_in = args[3].clone(), args[4].clone()
     count = tpe.auction_window.launches
     got = tpe.auction_window(*args, rem, eps, n, rounds_cap=64)
     assert tpe.auction_window.launches == count + 1
-    ref = tpe.auction_window_plain(*args, rem, eps, n, rounds_cap=64)
-    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
-    assert float((got[0] - ref[0]).abs().max()) <= 2e-5
+    for a, r in zip(got, _window_equal(args, rem, eps, n)):
+        assert torch.equal(a, r)
     assert 1 <= int(got[2].max()) <= min(rem, 64)
-    again = tpe.auction_window(*args, rem, eps, n, rounds_cap=64)
-    for a, c in zip(got, again):
-        assert torch.equal(a, c)
-    assert torch.equal(args[3], price_in) and torch.equal(args[4], owner_in)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("w", [1, 128, 512])
+@pytest.mark.parametrize("m", [2048, 3001, 40000])
+def test_auction_window_kernel_shapes(gen, b, w, m):
+    """Unsorted lanes with padding over M a multiple of the cluster, of
+    nothing, and with the state forced to device memory (M = 40000)."""
+    valid = max(1, w - w // 8)
+    args = _synthetic_window(gen, b, m, w, valid)
+    in_smem = None if m != 40000 else False
+    got = _window_equal(args, 64, 0.01, m, in_smem)
+    assert int(got[2].min()) >= 1
+    assert tpe.auction_window_plan(b, w, m, in_smem).state_in_smem == (
+        m != 40000)
+
+
+@pytest.mark.gpu
+def test_auction_window_kernel_state_in_device_memory_by_the_plan(gen):
+    """M = 100000: the plan itself puts the slices in device memory."""
+    m, w = 100000, 256
+    assert not tpe.auction_window_plan(1, w, m).state_in_smem
+    args = _synthetic_window(gen, 1, m, w, 200)
+    _window_equal(args, 64, 0.01, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2])
+def test_auction_window_kernel_tail_like(gen, b):
+    """A handful of lanes in a 512-lane window, most targets owned; and
+    duplicated targets (tied increments, the lowest id wins)."""
+    m = 16384
+    args = _synthetic_window(gen, b, m, 512, 5, own=0.95)
+    got = _window_equal(args, 3000, 0.004, m)
+    assert int(got[2].min()) >= 1
+    x2 = args[2].clone()
+    x2[:, m // 2:] = x2[:, :m // 2]
+    _window_equal((args[0], args[1], x2, args[3], args[4]), 3000, 0.004, m)
+
+
+@pytest.mark.gpu
+def test_auction_window_entry_point_refuses_a_plan_it_does_not_recompute(
+        gen):
+    from cloud_transformers_tpu_torch.ops import cuda_build
+    args = _synthetic_window(gen, 1, 2048, 64, 60)
+    plan = tpe.auction_window_plan(1, 64, 2048)
+    good = [1, 64, 2048, plan.cluster, plan.threads, plan.slice_len,
+            plan.lanes_per_cta, plan.smem_bytes, int(plan.state_in_smem)]
+    for at, value in [(3, 8), (4, 1024), (5, plan.slice_len + 1),
+                      (6, plan.lanes_per_cta - 1), (7, plan.smem_bytes + 16),
+                      (8, 2)]:
+        bad = list(good)
+        bad[at] = value
+        arr, addr = cuda_build.int_params(*bad)
+        with pytest.raises(RuntimeError):
+            tpe._launch_window(*args, 64, 0.01, 2048, 64, params=addr)
+    # and the plan as it is launches
+    arr, addr = cuda_build.int_params(*good)
+    tpe._launch_window(*args, 64, 0.01, 2048, 64, params=addr)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
