@@ -32,7 +32,10 @@
    splat backward, the winner-tracking splat, the routing pass and the
    slice backward also at the completion decoder's rows (B = 2 clouds x 16
    heads, K = 16384 points) at every head group's shape, with the same
-   gates;
+   gates; and the splat, the slice, the splat backward, the winner-tracking
+   splat, the routing pass and the slice backward at the S3DIS segmenter's
+   rows (B = 8 x 16 heads, K = 4096 points: a row's chunk over two scans of
+   the splat, the slice backward's fixed point one bit lower);
 4. serves 100 full-width ScanObjectNN classifier requests (random weights
    from a seed, clouds of 1024 to 3000 points) through
    ``InferenceEngine.classify`` in the B=8 x 2048 bucket, with the launch
@@ -93,11 +96,30 @@
    inpainter with one stage each side, B=1, same weights and noise
    (cosine > 0.999, median error <= 1e-3), and ``loss_emd`` at N=2048
    within 2%;
-11. prints ms/forward and clouds/s, then the training line (ms/step,
+11. the segmenter path: trains the full-width ``s3dis_segmenter`` of
+   ``configs/s3dis.yaml`` through ``Trainer`` (synthetic S3DIS blocks,
+   B=8 x 4096 x 6, the config's Adam and StepLR, loader workers and
+   augmentations, ``grad_stats`` on): one warm-up step, then 20 timed
+   steps with the counters set to 0 just before and read just after: per
+   step 24 splat, 24 slice, 16 conv, 24 splat-backward, 24 slice-backward
+   and 8 weight-gradient launches (the classifier's less its two pools);
+   every loss and gradient norm finite, the last 10 losses lower on average
+   than the first 10; 10 steps of ``Trainer.fit`` in one logging window
+   (its ``data_time`` and ``batch_time``); one step under
+   ``set_sync_debug_mode("error")``; ``Trainer.validate`` with
+   ``SegEvalAccumulator`` (24/24/8 launches per forward; OA, mAcc and mIoU
+   finite and in [0, 1]); one step under each set with its launches and
+   finite gradients; then the one-stage segmenter at B=2 x 4096 on the
+   card against the CPU (logits and gradients: cosine > 0.999, median
+   error <= 1e-3);
+12. prints ms/forward and clouds/s, then the training line (ms/step,
    clouds/s, peak memory), then the completion line (ms/step, clouds/s,
    peak memory, the EMD's share of a step, the evaluation's table values,
    rounds and seconds per cloud, both tails), then the ``{"switched":
-   ...}`` line (both sets' serving, training and parity numbers), then one
+   ...}`` line (both sets' serving, training and parity numbers), then the
+   segmenter line (ms/step, clouds/s, peak memory, the data wait,
+   Trainer.fit's ``data_time``/``batch_time``, OA/mAcc/mIoU, the
+   card-vs-CPU cosines and the launches of each of its runs), then one
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
    2D and 3D convs, their weight gradients, the slice, ``top2``, the
@@ -109,7 +131,8 @@
    device and host times, and per shape their launch plan; the fused
    block also beside the three separate kernels, by the loop and on the
    device; those six also per completion decoder step, from the
-   decoder's rows; ``top2`` also per evaluated
+   decoder's rows, and #1-#6 per segmenter step from its rows;
+   ``top2`` also per evaluated
    cloud, from the bid searches the evaluation ran at each width), then
    the ``{"ok": true, "device": ...}`` line last.
 
@@ -146,7 +169,8 @@ device's idle share (one window, both clocks) to the result line, and
 writes the torch.profiler table by kernel to ``DIR/profile_forward.txt``;
 it does the same for 5 more training steps of the classifier
 (``DIR/profile_train.txt``) and of the completion model
-(``DIR/profile_completion.txt``), and for the classify calls and training
+(``DIR/profile_completion.txt``) and of the segmenter
+(``DIR/profile_segmenter.txt``), and for the classify calls and training
 steps under each set (``DIR/profile_{forward,train}_set_{a,b}.txt``).
 """
 
@@ -202,6 +226,10 @@ TOP2_SHAPES = [(b, w, 16384) for b in (2, 1)
 WINDOW_SHAPE = (2, 512, 16384)   # (B, W, M) of the auction_window check
 COMPLETION_STEPS = 20   # timed optimizer steps, after one warm-up step
 EVAL_CLOUDS = 4
+SEG_K = 4096   # the S3DIS segmenter's points a block (configs/s3dis.yaml)
+SEG_STEPS = 20   # timed segmenter steps, after one warm-up step
+SEG_FIT_STEPS = 10   # steps of Trainer.fit, one window of its own timing
+SEG_PARITY_B = 2   # blocks in the card-vs-CPU segmenter comparison
 REPLACES = {
     "splat_max": "cloud_transformers_tpu/ops/pallas_splat.py:528",
     "slice_gather": "cloud_transformers_tpu/ops/pallas_splat.py:780",
@@ -249,6 +277,13 @@ SETS = ("set_a", "set_b")
 PER_STEP_COMPLETION = {
     "splat_max": 50, "slice_gather": 48, "grid_conv3d": 32,
     "splat_max_bwd": 50, "slice_bwd": 48, "grid_conv3d_dw": 16}
+# the S3DIS segmenter: the classifier's 12-block trunk without its pools (24
+# head groups; 8 of them 3D with X >= 16), per forward and per training step
+PER_FORWARD_SEGMENTER = {"splat_max": 24, "slice_gather": 24,
+                         "grid_conv3d": 8}
+PER_STEP_SEGMENTER = {"splat_max": 24, "slice_gather": 24, "grid_conv3d": 16,
+                      "splat_max_bwd": 24, "slice_bwd": 24,
+                      "grid_conv3d_dw": 8}
 # where ``library_ms`` is not the time of one PyTorch call
 LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
                       "library calls, not one"}
@@ -566,6 +601,43 @@ def check_splat_backward(ps, gen, mapping, values, grid, sizes, f, calls,
     return bwd_row, route_row, winner
 
 
+def check_slice(ps, mapping, grid, keys, sizes, f, calls, touched):
+    """``slice_gather`` at one shape, on a grid of the forward's kind (the
+    splat's output): within TOL of the plain version; timed by the loop,
+    by graph replay and on the host, beside one ``grid_sample`` call on
+    layouts made outside the timing (held to the plain version).  -> its
+    entry."""
+    r, k = mapping[0].shape
+    shape = shape_name(sizes, f, r, k)
+    cells = ps.kernel_grid_dims(sizes)[2]
+    out = ps.slice_gather(*mapping, grid, sizes)
+    plain = ps.slice_plain(*mapping, grid, sizes)
+    err = held(f"slice {shape}", out, plain, TOL)
+    inp, pts = grid_sample_inputs(grid, keys, sizes)
+    lib = grid_sample_slice(inp, pts).reshape(r, f, k).transpose(1, 2)
+    lib_err = held(f"grid_sample {shape}", lib, plain, LIB_TOL)
+    del plain, out, lib
+
+    def slice_():
+        return ps.slice_gather(*mapping, grid, sizes)
+
+    def library():
+        return grid_sample_slice(inp, pts)
+    return dict(
+        shape=shape, calls=calls, max_abs_err=err, library_err=lib_err,
+        grid_rows_read=touched, grid_rows=r * cells,
+        plan=ps.slice_plan(r, k, f, sizes)._asdict(),
+        ms=cuda_ms(slice_), device_ms=graph_ms(slice_),
+        host_ms=host_ms(slice_),
+        plain_ms=cuda_ms(lambda: ps.slice_plain(*mapping, grid, sizes),
+                         iters=5),
+        library_ms=cuda_ms(library), library_device_ms=graph_ms(library),
+        library_host_ms=host_ms(library),
+        # reads the mapping and the touched grid rows; writes the points
+        bound=bound(r * k * 40 + touched * f * 4 + r * k * f * 4,
+                    r * k * 2 ** len(sizes) * f * 2))
+
+
 def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
                           n_splat, n_slice, touched):
     """The splat and slice backward kernels at one main-path shape.  The
@@ -646,38 +718,11 @@ def check_kernels(gen):
     rows = {name: [] for name in REPLACES}
     for sizes, f, n_splat, n_slice in POINT_SHAPES:
         mapping, values, keys = mapping_inputs(sizes, f, gen)
-        cells = ps.kernel_grid_dims(sizes)[2]
-        n_vert = 2 ** len(sizes)
-        map_bytes = R * K * 40
         splat_row, grid = check_splat(ps, mapping, values, sizes, f, n_splat)
         rows["splat_max"].append(splat_row)
-        # slice reads a grid of the forward's kind: splat output
-        out = ps.slice_gather(*mapping, grid, sizes)
-        plain = ps.slice_plain(*mapping, grid, sizes)
-        err = held(f"slice {sizes} F={f}", out, plain, TOL)
-        # the library yardstick: one grid_sample call, layouts made outside
-        # the timing; it must compute the same function
-        inp, pts = grid_sample_inputs(grid, keys, sizes)
-        lib = grid_sample_slice(inp, pts).reshape(R, f, K).transpose(1, 2)
-        lib_err = held(f"grid_sample {sizes} F={f}", lib, plain, LIB_TOL)
         touched = touched_rows(ps, mapping, sizes)
-        rows["slice_gather"].append(dict(
-            shape=shape_name(sizes, f), calls=n_slice,
-            max_abs_err=err, library_err=lib_err,
-            grid_rows_read=touched, grid_rows=R * cells,
-            plan=ps.slice_plan(R, K, f, sizes)._asdict(),
-            ms=cuda_ms(lambda: ps.slice_gather(*mapping, grid, sizes)),
-            device_ms=graph_ms(
-                lambda: ps.slice_gather(*mapping, grid, sizes)),
-            host_ms=host_ms(lambda: ps.slice_gather(*mapping, grid, sizes)),
-            plain_ms=cuda_ms(lambda: ps.slice_plain(*mapping, grid, sizes),
-                             iters=5),
-            library_ms=cuda_ms(lambda: grid_sample_slice(inp, pts)),
-            library_device_ms=graph_ms(lambda: grid_sample_slice(inp, pts)),
-            library_host_ms=host_ms(lambda: grid_sample_slice(inp, pts)),
-            bound=bound(map_bytes + touched * f * 4 + R * K * f * 4,
-                        R * K * n_vert * f * 2)))
-        del plain, out, inp, pts, lib
+        rows["slice_gather"].append(check_slice(ps, mapping, grid, keys,
+                                                sizes, f, n_slice, touched))
         # the backward kernels run 4 times per shape in a step (the pools'
         # fifth splat has no slice)
         check_point_backwards(ps, rows, gen, mapping, values, grid, sizes,
@@ -849,6 +894,37 @@ def check_completion_rows(gen):
             ps, gen, mapping, grid, sizes, f, calls, touched))
         del mapping, values, grid, winner
         torch.cuda.empty_cache()
+    return out
+
+
+def check_segmenter_rows(gen, rows):
+    """Kernels #1-#6 at the S3DIS segmenter's rows (B = 8 clouds x 16
+    heads, K = 4096 points) at each head group's shape, with the gates of
+    the classifier's shapes; the winner-tracking splat and the routing
+    pass beside them (set A).  The grid convs take the same grids at any
+    K, so their entries are the classifier's (``rows``), with the
+    segmenter's calls.  -> {kernel: [entry per shape]}, ``calls`` per
+    segmenter training step."""
+    from cloud_transformers_tpu_torch.ops import pallas_splat as ps
+    out = {name: [] for name in ("splat_max", "slice_gather", "splat_max_bwd",
+                                 "splat_route", "splat_max_winner",
+                                 "slice_bwd")}
+    for sizes, f, _, calls in POINT_SHAPES:
+        mapping, values, keys = mapping_inputs(sizes, f, gen, B, SEG_K)
+        splat_row, grid = check_splat(ps, mapping, values, sizes, f, calls)
+        out["splat_max"].append(splat_row)
+        touched = touched_rows(ps, mapping, sizes)
+        out["slice_gather"].append(check_slice(ps, mapping, grid, keys,
+                                               sizes, f, calls, touched))
+        check_point_backwards(ps, out, gen, mapping, values, grid, sizes, f,
+                              calls, calls, touched)
+        del mapping, values, keys, grid
+        torch.cuda.empty_cache()
+    # a forward and an input gradient a 3D head group at X >= 16 (4 each a
+    # shape), one weight gradient
+    for fwd, per in (("grid_conv3d", 2), ("grid_conv3d_dw", 1)):
+        out[fwd] = [dict(r, calls=r["calls"] * per) for r in rows[fwd]
+                    if r["calls"]]
     return out
 
 
@@ -1062,14 +1138,33 @@ def per_shape(name, s, per):
             "separate_kernels_device_ms") if k in s}}
 
 
-def kernel_line(rows, launches, completion_rows):
+def per_pass(name, done, per):
+    """The sum over shapes of one pass at other rows than the classifier's
+    (a completion decoder step, a segmenter step), and its shapes."""
+    out = {"ms": sum(c["ms"] * c["calls"] for c in done),
+           "plain_ms": sum(c["plain_ms"] * c["calls"] for c in done),
+           "bound_ms": sum(c["bound"][0] * c["calls"] for c in done)}
+    if all("device_ms" in c for c in done):
+        out["device_ms"] = sum(c["device_ms"] * c["calls"] for c in done)
+    if all(c["library_ms"] is not None for c in done):
+        out["library_ms"] = sum(c["library_ms"] * c["calls"] for c in done)
+    if name == "fused_block":
+        out["separate_kernels_ms"] = sum(
+            c["separate_kernels_ms"] * c["calls"] for c in done)
+    out["per_shape"] = [per_shape(name, c, per) for c in done]
+    return out
+
+
+def kernel_line(rows, launches, completion_rows, segmenter_rows):
     """Per kernel: times summed over the calls of one pass of its path
     (each shape times its calls): one forward for the three kernels of the
     serving path, one training step of the classifier for the three
     backward kernels, one training step of the completion model for
-    ``top2``, the one checked call for ``auction_window``.  ``launches``
-    is {path: {kernel: count}}: a kernel's ``launches`` is the count of its
-    path's run (``MAIN_PATH``), and every path's count stands beside it."""
+    ``top2``, the one checked call for ``auction_window``; beside them, a
+    completion decoder step and a segmenter step (``completion_rows``,
+    ``segmenter_rows``).  ``launches`` is {path: {kernel: count}}: a
+    kernel's ``launches`` is the count of its path's run (``MAIN_PATH``),
+    and every path's count stands beside it."""
     times_are = {"serving": "per_forward", "training": "per_step",
                  "completion": "per_completion_step",
                  "window": "per_call_from_the_checked_state",
@@ -1118,16 +1213,12 @@ def kernel_line(rows, launches, completion_rows):
             **({"library_device_ms": total("library_device_ms")}
                if "library_device_ms" in shapes[0] else {}),
             "per_shape": [per_shape(name, s, per) for s in shapes],
-            **({"per_completion_decoder_step": {
-                "ms": sum(c["ms"] * c["calls"] for c in done),
-                "device_ms": sum(c["device_ms"] * c["calls"] for c in done),
-                "bound_ms": sum(c["bound"][0] * c["calls"] for c in done),
-                **({"separate_kernels_ms": sum(
-                    c["separate_kernels_ms"] * c["calls"] for c in done)}
-                   if name == "fused_block" else {}),
-                "per_shape": [per_shape(name, c, "per_completion_step")
-                              for c in done]}}
+            **({"per_completion_decoder_step": per_pass(
+                name, done, "per_completion_step")}
                if (done := completion_rows.get(name)) else {}),
+            **({"per_segmenter_step": per_pass(
+                name, seg, "per_segmenter_step")}
+               if (seg := segmenter_rows.get(name)) else {}),
         })
     return {"kernels": out}
 
@@ -1147,6 +1238,7 @@ def parity(card, cpu, what):
         f"max err {float((a - b).abs().max()):.3e}")
     if not (cos > 0.999 and p50 <= 1e-3):
         raise AssertionError(f"{what}: card vs CPU cosine {cos}, p50 {p50}")
+    return cos, p50
 
 
 def device_ms(events):
@@ -1437,31 +1529,9 @@ def train_phase(wrappers, smi, profile_dir, exp_root, steps=TRAIN_STEPS,
               "key_bn_bias_grad_max": key_grad, "batch": B, "points": K}
 
     if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_STEPS):
-                trainer.train_step(next(batches))
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        busy = device_ms(events)
-        profiled = {"train_profiled_steps": PROFILE_STEPS,
-                    "train_profiled_wall_ms_per_step":
-                        wall_ms / PROFILE_STEPS,
-                    "train_profiled_device_ms_per_step":
-                        busy / PROFILE_STEPS,
-                    "train_profiled_device_idle_share": 1 - busy / wall_ms}
-        table = events.table(sort_by="cuda_time_total", row_limit=40)
-        with open(os.path.join(profile_dir, profile_name), "w") as fh:
-            fh.write(f"{smi}\n{json.dumps(profiled)}\n"
-                     f"device kernels, per training step:\n"
-                     f"{device_table(events, PROFILE_STEPS)}\n"
-                     f"(totals over {PROFILE_STEPS} training steps)\n{table}")
-        log(json.dumps(profiled))
-        result.update(profiled)
+        result.update(profiled_steps(
+            trainer, batches, smi, os.path.join(profile_dir, profile_name),
+            "train_"))
     return result, launches
 
 
@@ -1478,8 +1548,6 @@ def gradient_parity():
     (size - 1) / 2, up to 63.5, and the two devices' float32 gradients then
     agree only to a cosine of about 0.98, on the CPU alone as well."""
     from cloud_transformers_tpu_torch.data import ScanObjectNN
-    from cloud_transformers_tpu_torch.models import get_model
-    from cloud_transformers_tpu_torch.nn.init import init_model_
     from cloud_transformers_tpu_torch.tasks import classification
 
     ds = ScanObjectNN(None, train=True, synthetic_items=PARITY_B,
@@ -1487,27 +1555,43 @@ def gradient_parity():
     batch = {k: torch.as_tensor(np.stack([ds[i][k] for i in range(PARITY_B)]))
              for k in ("pcd", "label", "mask")}
     batch["label"] = batch["label"].long()
-    loss_fn = classification.make_loss_fn(0.5)
-    runs = {}
+    result, _ = card_cpu_gradients(
+        "scanobject_classifier", dict(repeats=1, dropout=0.0), batch,
+        classification.make_loss_fn(0.5), "gradient parity")
+    return {"parity_batch": PARITY_B,
+            **{f"parity_{k}": v for k, v in result.items()}}
+
+
+def card_cpu_gradients(model_name, model_kw, batch, loss_fn, what):
+    """One forward + backward of the model ``model_name`` (``model_kw``,
+    weights from seed 1, train mode) on ``batch`` on the card and on the
+    CPU: the loss within 1e-4 (relative), the concatenated gradient with
+    cosine > 0.999 and median error <= 1e-3 of its scale.  -> (result
+    dict, {device: the loss function's aux outputs})."""
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.nn.init import init_model_
+
+    runs, aux = {}, {}
     for device in ("cuda", "cpu"):
-        model = get_model("scanobject_classifier", repeats=1, dropout=0.0)
+        model = get_model(model_name, **model_kw)
         init_model_(model, torch.Generator().manual_seed(1))
         model = model.to(device).train()
         t0 = time.perf_counter()
-        loss, _ = loss_fn(model, {k: v.to(device) for k, v in batch.items()})
+        loss, aux[device] = loss_fn(
+            model, {k: v.to(device) for k, v in batch.items()})
         loss.backward()
         loss = loss.detach()
         runs[device] = (float(loss),
                         {n: p.grad.detach().cpu().double()
                          for n, p in model.named_parameters()})
-        log(f"gradient parity: {device} forward + backward in "
+        log(f"{what}: {device} forward + backward in "
             f"{time.perf_counter() - t0:.1f} s, loss {float(loss):.6f}")
     (card_loss, card), (cpu_loss, cpu) = runs["cuda"], runs["cpu"]
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     a = torch.cat([card[n].reshape(-1) for n in cpu])
     b = torch.cat([cpu[n].reshape(-1) for n in cpu])
     if not bool(torch.isfinite(a).all()):
-        raise AssertionError("non-finite gradient on the card")
+        raise AssertionError(f"{what}: non-finite gradient on the card")
     cos = float(torch.dot(a, b) / (a.norm() * b.norm()))
     scale = float(b.abs().max())
     p50 = float((a - b).abs().median()) / scale
@@ -1517,16 +1601,15 @@ def gradient_parity():
         ((float(torch.dot(card[n].reshape(-1), cpu[n].reshape(-1))
                 / (card[n].norm() * cpu[n].norm())), n)
          for n in cpu if float(cpu[n].abs().max()) > 1e-6 * scale))
-    log(f"gradient parity: loss rel diff {loss_rel:.3e}, cosine {cos:.7f}, "
+    log(f"{what}: loss rel diff {loss_rel:.3e}, cosine {cos:.7f}, "
         f"p50 err {p50:.3e} of scale {scale:.3e}, worst tensor cosine "
         f"{worst[0]:.7f} ({worst[1]})")
     if not (loss_rel <= 1e-4 and cos > 0.999 and p50 <= 1e-3):
-        raise AssertionError(f"card vs CPU gradients: loss rel diff "
+        raise AssertionError(f"{what}: card vs CPU gradients: loss rel diff "
                              f"{loss_rel}, cosine {cos}, p50 {p50}")
-    return {"parity_batch": PARITY_B, "parity_loss_rel_diff": loss_rel,
-            "parity_grad_cosine": cos, "parity_grad_p50_of_scale": p50,
-            "parity_worst_tensor_cosine": worst[0],
-            "parity_worst_tensor": worst[1]}
+    return {"loss_rel_diff": loss_rel, "grad_cosine": cos,
+            "grad_p50_of_scale": p50, "worst_tensor_cosine": worst[0],
+            "worst_tensor": worst[1]}, aux
 
 
 class EmdRecorder:
@@ -1723,33 +1806,10 @@ def completion_phase(wrappers, smi, profile_dir, exp_root):
     widths_per_step = {k: v / COMPLETION_STEPS for k, v in rec.widths.items()}
 
     if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_STEPS):
-                trainer.train_step(next(batches))
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        busy = device_ms(events)
-        profiled = {"completion_profiled_steps": PROFILE_STEPS,
-                    "completion_profiled_wall_ms_per_step":
-                        wall_ms / PROFILE_STEPS,
-                    "completion_profiled_device_ms_per_step":
-                        busy / PROFILE_STEPS,
-                    "completion_profiled_device_idle_share":
-                        1 - busy / wall_ms}
-        table = events.table(sort_by="cuda_time_total", row_limit=40)
-        with open(os.path.join(profile_dir, "profile_completion.txt"),
-                  "w") as fh:
-            fh.write(f"{smi}\n{json.dumps(profiled)}\n"
-                     f"device kernels, per completion training step:\n"
-                     f"{device_table(events, PROFILE_STEPS)}\n"
-                     f"(totals over {PROFILE_STEPS} training steps)\n{table}")
-        log(json.dumps(profiled))
-        result.update(profiled)
+        result.update(profiled_steps(
+            trainer, batches, smi,
+            os.path.join(profile_dir, "profile_completion.txt"),
+            "completion_"))
 
     # one training step under each set: the AdaIN blocks take the same
     # branches as the classifier's
@@ -1963,6 +2023,261 @@ def completion_parity():
     return {"completion_parity_loss_emd_rel_diff": rel}
 
 
+def segmenter_phase(wrappers, smi, profile_dir, exp_root):
+    """The fourth path: the full-width ``s3dis_segmenter`` of
+    ``configs/s3dis.yaml`` trained through the Trainer on synthetic blocks
+    (B=8 x 4096, the config's optimizer, loader workers and augmentations,
+    ``grad_stats`` on): one warm-up step, SEG_STEPS timed and counted
+    steps, SEG_FIT_STEPS steps of ``Trainer.fit`` (one window of its
+    ``data_time``/``batch_time``), a step under
+    ``set_sync_debug_mode("error")``, ``Trainer.validate`` with
+    ``SegEvalAccumulator`` (its forwards counted), and a step under each
+    set.  -> (result dict, {path: launches})."""
+    from cloud_transformers_tpu_torch.tasks import segmentation
+    from cloud_transformers_tpu_torch.train.config import (
+        load_config,
+        model_from_config,
+    )
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs", "s3dis.yaml"))
+    d = cfg["data"]
+    if (d["batch_size"], d["num_points"]) != (B, SEG_K):
+        raise AssertionError("configs/s3dis.yaml is not B=8 x 4096")
+    cfg["experiment"] = {"root": exp_root}
+    cfg["train"].update(grad_stats=True, save=False)
+    n_classes = int(cfg["model"]["n_classes"])
+    trainer = Trainer(
+        model_from_config(cfg), cfg, "chip_smoke_segmenter",
+        segmentation.make_loss_fn(
+            n_classes, 0.1 if cfg["train"].get("label_smooth") else 0.0),
+        device="cuda", seed=0)
+    model = trainer.model
+    if (len(model.trunk.stages), model.stem.in_features,
+            model.stem.out_features, model.final_conv2.out_features) \
+            != (4, 6, 512, n_classes):
+        raise AssertionError("the segmenter is not the full-width one")
+    train_loader, val_loader = segmentation.make_datasets(cfg, synthetic=True)
+    if train_loader.num_workers != d["num_workers"]:
+        raise AssertionError("the loader does not use the config's workers")
+    batches = endless(train_loader)
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(next(batches))            # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    step_ms, data_ms, losses, norms = [], [], [], []
+    for _ in range(SEG_STEPS):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        data_ms.append((t1 - t0) * 1e3)
+        losses.append(metrics["loss"])
+        norms.append(metrics["grad_norm"])
+    launches = {"segmenter": read_launches(wrappers)}
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(launches["segmenter"], PER_STEP_SEGMENTER, SEG_STEPS,
+                   "segmenter training steps")
+    log(f"launches in {SEG_STEPS} segmenter steps: {launches['segmenter']}")
+
+    losses = torch.stack(losses).cpu().numpy()
+    norms = torch.stack(norms).cpu().numpy()
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()
+            and (norms > 0).all()):
+        raise AssertionError(f"segmenter: losses {losses}, gradient norms "
+                             f"{norms}")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    if not last < first:
+        raise AssertionError(f"the segmenter's loss did not fall: first 10 "
+                             f"steps {first}, last 10 steps {last}")
+    named = dict(model.named_parameters())
+    per_param = {k for k in metrics if k.startswith("grad_norm/")}
+    if per_param != {f"grad_norm/{n}" for n in named}:
+        raise AssertionError("grad_stats does not name every parameter")
+    key_grad = 0.0
+    for name, param in named.items():
+        if param.grad is None or not bool(torch.isfinite(param.grad).all()):
+            raise AssertionError(f"{name}: missing or non-finite gradient")
+        if name.endswith("key_bn.bias"):
+            key_grad = max(key_grad, float(param.grad.abs().max()))
+    if not key_grad > 0:
+        raise AssertionError("segmenter: every key_bn.bias gradient is zero")
+    if trainer.global_step != SEG_STEPS + 1 or \
+            trainer.optimizer.lrs != [1e-3]:
+        raise AssertionError("the segmenter's step count or learning rate "
+                             f"is off: {trainer.global_step}, "
+                             f"{trainer.optimizer.lrs}")
+
+    # Trainer.fit for one show_each window of its own: its data_time (host
+    # seconds a step waiting for the loader) and batch_time (in train_step,
+    # which does not wait for the device) reach metrics.jsonl
+    batches.close()
+    end = trainer.global_step + SEG_FIT_STEPS
+    cfg["train"]["show_each"] = end
+    t0 = time.perf_counter()
+    trainer.fit(train_loader, max_steps=end)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    with open(os.path.join(trainer.writer_dir, "metrics.jsonl")) as fh:
+        logged = [json.loads(line) for line in fh]
+    window = [m for m in logged if "train/data_time" in m]
+    if len(window) != 1 or window[0]["step"] != end or \
+            "train/grad_norm" not in window[0]:
+        raise AssertionError(f"Trainer.fit logged {logged}")
+    window = window[0]
+    log(f"Trainer.fit: {SEG_FIT_STEPS} steps in {fit_s:.3f} s, data_time "
+        f"{window['train/data_time']:.6f} s, batch_time "
+        f"{window['train/batch_time']:.6f} s a step")
+
+    # forward, backward, the gradient norms and the optimizer step never
+    # make the host wait
+    batches = endless(train_loader)
+    batch = trainer.to_device(next(batches))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("segmenter step (grad_stats on): no host-device synchronisation")
+
+    # validation: OA, mAcc, mIoU through the eval hook
+    hook = segmentation.SegEvalAccumulator(n_classes)
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    val = trainer.validate(val_loader, hook)
+    val_s = time.perf_counter() - t0
+    launches["segmenter_validation"] = read_launches(wrappers)
+    check_launches(launches["segmenter_validation"], PER_FORWARD_SEGMENTER,
+                   len(val_loader), "segmenter validation forwards")
+    scores = {k: float(val[k]) for k in ("oa", "macc", "miou", "loss")}
+    if not all(np.isfinite(v) for v in scores.values()) or \
+            not all(0.0 <= scores[k] <= 1.0 for k in ("oa", "macc", "miou")):
+        raise AssertionError(f"segmenter validation: {val}")
+    log(f"segmenter validation ({len(val_loader)} batches, {val_s:.2f} s): "
+        f"{scores}")
+
+    result = {
+        "segmenter_ms_per_step": float(np.median(step_ms)),
+        "segmenter_clouds_per_s": B * 1e3 / float(np.median(step_ms)),
+        "segmenter_ms_mean": float(np.mean(step_ms)),
+        "segmenter_ms_p10": float(np.percentile(step_ms, 10)),
+        "segmenter_ms_p90": float(np.percentile(step_ms, 90)),
+        "segmenter_data_wait_ms_median": float(np.median(data_ms)),
+        "segmenter_data_wait_ms_max": float(np.max(data_ms)),
+        "segmenter_steps": SEG_STEPS,
+        "segmenter_peak_memory_bytes": int(peak),
+        "segmenter_loss_first10": first, "segmenter_loss_last10": last,
+        "segmenter_grad_norm_first": float(norms[0]),
+        "segmenter_grad_norm_last": float(norms[-1]),
+        "segmenter_key_bn_bias_grad_max": key_grad,
+        "segmenter_fit_steps": SEG_FIT_STEPS,
+        "segmenter_fit_seconds": fit_s,
+        "segmenter_fit_data_time": window["train/data_time"],
+        "segmenter_fit_batch_time": window["train/batch_time"],
+        "segmenter_fit_steps_per_sec": window["train/steps_per_sec"],
+        "segmenter_loader_workers": train_loader.num_workers,
+        "segmenter_val_batches": len(val_loader),
+        "segmenter_val_seconds": val_s,
+        **{f"segmenter_val_{k}": v for k, v in scores.items()},
+        "batch": B, "points": SEG_K}
+
+    if profile_dir:
+        result.update(profiled_steps(
+            trainer, batches, smi,
+            os.path.join(profile_dir, "profile_segmenter.txt"),
+            "segmenter_"))
+
+    # one training step under each set
+    for name in SETS:
+        with switches(name):
+            zero_launches(wrappers)
+            metrics = trainer.train_step(next(batches))
+            torch.cuda.synchronize()
+            got = read_launches(wrappers)
+        check_launches(got, set_counts(
+            name, PER_STEP_SEGMENTER["splat_max"],
+            PER_STEP_SEGMENTER["slice_gather"], True), 1,
+            f"segmenter step under {name}")
+        loss = float(metrics["loss"])
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        if not np.isfinite(loss) or bad:
+            raise AssertionError(f"segmenter step under {name}: loss {loss}, "
+                                 f"missing or non-finite gradients {bad[:5]}")
+        result[f"segmenter_{name}_loss"] = loss
+        result[f"segmenter_{name}_grad_norm"] = float(metrics["grad_norm"])
+        launches[f"segmenter_{name}"] = got
+        log(f"segmenter step under {name}: loss {loss:.6f}, launches {got}")
+    batches.close()
+    return result, launches
+
+
+def segmenter_parity():
+    """The segmenter on the card against the CPU: the full-width model with
+    one stage, B=2 x 4096 synthetic blocks, train mode, the same weights;
+    its logits and its concatenated gradients by the PARITY.md criteria,
+    its cross-entropy within 1e-4."""
+    import torch.nn.functional as F
+
+    from cloud_transformers_tpu_torch.data import Indoor3DSemSeg
+
+    ds = Indoor3DSemSeg(None, train=True, num_points=SEG_K,
+                        synthetic_items=SEG_PARITY_B)
+    batch = {k: torch.as_tensor(np.stack([ds[i][k]
+                                          for i in range(SEG_PARITY_B)]))
+             for k in ("pcd", "label")}
+    batch["label"] = batch["label"].long()
+
+    def loss_fn(model, batch):
+        logits, _ = model(batch["pcd"])
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               batch["label"].reshape(-1)), logits.detach()
+    result, logits = card_cpu_gradients(
+        "s3dis_segmenter", dict(repeats=1), batch, loss_fn,
+        "segmenter gradient parity")
+    cos, p50 = parity(logits["cuda"].cpu(), logits["cpu"],
+                      f"segmenter logits {list(logits['cpu'].shape)}")
+    return {"segmenter_parity_batch": SEG_PARITY_B,
+            "segmenter_parity_logits_cosine": cos,
+            "segmenter_parity_logits_p50": p50,
+            **{f"segmenter_parity_{k}": v for k, v in result.items()}}
+
+
+def profiled_steps(trainer, batches, smi, path, prefix):
+    """PROFILE_STEPS more training steps under torch.profiler: the device
+    kernels by group in ``path``.  -> {prefix + profiled_...}: the host
+    wall time, the device busy time and the idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            trainer.train_step(next(batches))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy = device_ms(events)
+    profiled = {f"{prefix}profiled_steps": PROFILE_STEPS,
+                f"{prefix}profiled_wall_ms_per_step": wall_ms / PROFILE_STEPS,
+                f"{prefix}profiled_device_ms_per_step": busy / PROFILE_STEPS,
+                f"{prefix}profiled_device_idle_share": 1 - busy / wall_ms}
+    table = events.table(sort_by="cuda_time_total", row_limit=40)
+    with open(path, "w") as fh:
+        fh.write(f"{smi}\n{json.dumps(profiled)}\n"
+                 f"device kernels, per training step:\n"
+                 f"{device_table(events, PROFILE_STEPS)}\n"
+                 f"(totals over {PROFILE_STEPS} training steps)\n{table}")
+    log(json.dumps(profiled))
+    return profiled
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -1970,7 +2285,8 @@ def main():
                          f"{PROFILE_STEPS} training steps of each model: "
                          "device idle share, and the tables in "
                          "DIR/profile_forward.txt, DIR/profile_train.txt, "
-                         "DIR/profile_completion.txt and, under each set, "
+                         "DIR/profile_completion.txt, "
+                         "DIR/profile_segmenter.txt and, under each set, "
                          "DIR/profile_{forward,train}_set_{a,b}.txt")
     args = ap.parse_args()
 
@@ -2022,6 +2338,7 @@ def main():
     rows = check_kernels(gen)
     rows.update(check_emd_kernels(gen))
     completion_rows = check_completion_rows(gen)
+    segmenter_rows = check_segmenter_rows(gen, rows)
     torch.cuda.empty_cache()
     log(f"kernel checks done in {time.perf_counter() - t0:.1f} s")
 
@@ -2159,7 +2476,19 @@ def main():
     # 10. the completion path on the card and on the CPU
     completed.update(completion_parity())
 
-    # 11. results
+    # 11. the fourth path: the S3DIS segmenter's training at B=8 x 4096,
+    # validation, both sets, and the card against the CPU
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as exp_root:
+        segmented, segmenter_launches = segmenter_phase(
+            wrappers, smi, args.profile, exp_root)
+    torch.cuda.empty_cache()
+    segmented.update(segmenter_parity())
+    all_launches.update(segmenter_launches)
+    log(f"segmenter phase done in {time.perf_counter() - t0:.1f} s")
+
+    # 12. results
     log(f"{ms_fwd:.3f} ms/forward (median) at B={B} x {K} points, "
         f"{B * 1e3 / ms_fwd:.2f} clouds/s "
         f"({len(batches)} classify calls, host clock, synchronised)")
@@ -2188,10 +2517,24 @@ def main():
             f"(default {ms_fwd:.3f}), {res['train_ms_per_step']:.3f} ms/step "
             f"(default {trained['train_ms_per_step']:.3f})")
     print(json.dumps({"switched": switched}), flush=True)
+    log(f"{segmented['segmenter_ms_per_step']:.3f} ms/step (median) for the "
+        f"S3DIS segmenter at B={B} x {SEG_K} points, "
+        f"{segmented['segmenter_clouds_per_s']:.2f} clouds/s, peak memory "
+        f"{segmented['segmenter_peak_memory_bytes'] / 2 ** 30:.2f} GiB; "
+        f"Trainer.fit data_time {segmented['segmenter_fit_data_time']:.6f} "
+        f"s, batch_time {segmented['segmenter_fit_batch_time']:.6f} s; "
+        f"OA {segmented['segmenter_val_oa']:.4f}, mAcc "
+        f"{segmented['segmenter_val_macc']:.4f}, mIoU "
+        f"{segmented['segmenter_val_miou']:.4f}; card vs CPU cosine "
+        f"{segmented['segmenter_parity_logits_cosine']:.7f} (logits), "
+        f"{segmented['segmenter_parity_grad_cosine']:.7f} (gradients)")
+    print(json.dumps({"segmenter": segmented, "segmenter_launches": {
+        path: {k: v for k, v in counts.items() if v}
+        for path, counts in segmenter_launches.items()}}), flush=True)
     all_launches.update(completion=completion_launches,
                         evaluation=eval_launches, window=window_launches)
-    print(json.dumps(kernel_line(rows, all_launches, completion_rows)),
-          flush=True)
+    print(json.dumps(kernel_line(rows, all_launches, completion_rows,
+                                 segmenter_rows)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,6 +3,8 @@
 
 from cloud_transformers_tpu_torch.data.completion import ShapeNetCompletion
 from cloud_transformers_tpu_torch.data.loader import DataLoader, item_rng
+from cloud_transformers_tpu_torch.data.s3dis import Indoor3DSemSeg
 from cloud_transformers_tpu_torch.data.scanobjectnn import ScanObjectNN
 
-__all__ = ["DataLoader", "ScanObjectNN", "ShapeNetCompletion", "item_rng"]
+__all__ = ["DataLoader", "Indoor3DSemSeg", "ScanObjectNN",
+           "ShapeNetCompletion", "item_rng"]

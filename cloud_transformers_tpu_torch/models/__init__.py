@@ -1,6 +1,6 @@
 """Model registry of the port (counterpart of
-``cloud_transformers_tpu/models/__init__.py``): the ScanObjectNN classifier
-and the ShapeNet completion inpainter."""
+``cloud_transformers_tpu/models/__init__.py``): the ScanObjectNN classifier,
+the ShapeNet completion inpainter and the S3DIS 1x1 segmenter."""
 
 from typing import Any, Dict
 
@@ -42,3 +42,4 @@ def get_model(name, **kwargs):
 # import for side-effect registration
 from cloud_transformers_tpu_torch.models import classifier  # noqa: E402,F401
 from cloud_transformers_tpu_torch.models import inpainter  # noqa: E402,F401
+from cloud_transformers_tpu_torch.models import segmenter  # noqa: E402,F401

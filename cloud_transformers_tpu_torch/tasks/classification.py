@@ -49,9 +49,11 @@ def make_datasets(cfg, synthetic=False):
     val_ds = ScanObjectNN(path_val, center=d.get("center", True),
                           normalize=d.get("normalize", True), train=False,
                           num_points=d.get("num_points", 2048), seed=1)
-    train_loader = DataLoader(train_ds, d["batch_size"], shuffle=True)
+    workers = int(d.get("num_workers", 0))
+    train_loader = DataLoader(train_ds, d["batch_size"], shuffle=True,
+                              num_workers=workers)
     val_loader = DataLoader(val_ds, d.get("batch_size_val", d["batch_size"]),
-                            shuffle=False)
+                            shuffle=False, num_workers=workers)
     return train_loader, val_loader
 
 

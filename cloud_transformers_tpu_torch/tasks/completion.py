@@ -5,9 +5,8 @@ Counterpart of ``cloud_transformers_tpu/tasks/completion.py``: the ground
 truth is scaled by 2, the partial cloud becomes the labeled sphere-noise
 decoder input (``partial_postprocess``), and the loss is
 mean(sqrt(EMD(recon, gt, eps 0.005, 50 rounds))) + ``chamfer_weight`` *
-Chamfer; validation uses the EMD at eps 0.004 and up to 3000 rounds.  The
-periodic point-cloud summaries of the JAX trainer (``make_mesh_hook``) are
-not ported.
+Chamfer; validation uses the EMD at eps 0.004 and up to 3000 rounds.
+``make_mesh_hook`` gives ``Trainer.fit`` the periodic point-cloud summaries.
 """
 
 import torch
@@ -43,6 +42,33 @@ def make_loss_fn(generator, chamfer_weight=0.0, emd_eps=0.005, emd_iters=50,
     return loss_fn
 
 
+def make_mesh_hook(gt_scale=2.0, max_clouds=4):
+    """-> ``hook(trainer, batch)`` for ``Trainer.fit``'s ``mesh_hook``: an
+    eval-mode forward of the first ``max_clouds`` clouds of the batch, the
+    decoder's noise drawn from a generator seeded with the global step,
+    and the reconstruction, the ground truth and the partial input logged
+    as meshes (``train/recon``, ``train/gt``, ``train/partial_input``).
+    The model goes back to training mode afterwards."""
+    def hook(trainer, batch):
+        model = trainer.model
+        dev = trainer.device
+        gt = torch.as_tensor(batch["gt"][:max_clouds]).to(dev) * gt_scale
+        partial = torch.as_tensor(batch["partial"][:max_clouds]).to(dev)
+        gen = torch.Generator(dev).manual_seed(trainer.global_step)
+        parts, noise = partial_postprocess(gen, partial, gt.shape[1])
+        was_training = model.training
+        model.eval()
+        with torch.no_grad():
+            recon, _ = model(noise, parts)
+        model.train(was_training)
+        step = trainer.global_step
+        trainer.metrics.mesh(step, "train/recon", recon.cpu().numpy())
+        trainer.metrics.mesh(step, "train/gt", gt.cpu().numpy())
+        trainer.metrics.mesh(step, "train/partial_input",
+                             parts[..., :3].cpu().numpy())
+    return hook
+
+
 def make_datasets(cfg, synthetic=False):
     """-> (train_loader, val_loader) from a config's ``data:`` section."""
     d = cfg["data"]
@@ -53,7 +79,9 @@ def make_datasets(cfg, synthetic=False):
     train_ds = ShapeNetCompletion(*paths, split="train",
                                   n_renders=d.get("n_renders", 8), **common)
     val_ds = ShapeNetCompletion(*paths, split="val", **common)
-    train_loader = DataLoader(train_ds, d["batch_size"], shuffle=True)
+    workers = int(d.get("num_workers", 0))
+    train_loader = DataLoader(train_ds, d["batch_size"], shuffle=True,
+                              num_workers=workers)
     val_loader = DataLoader(val_ds, d.get("batch_size_val", d["batch_size"]),
-                            shuffle=False)
+                            shuffle=False, num_workers=workers)
     return train_loader, val_loader

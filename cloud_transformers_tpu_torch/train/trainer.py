@@ -31,13 +31,34 @@ first key and ``ckpt_<key>_best`` for the others (``m_acc`` written
 ``macc``), unless ``train.save`` is false.  The bests start at ``-inf``
 when ``fit`` starts and are not restored on resume.
 
-TensorBoard/CSV logging, gradient statistics, profiling hooks, mesh
-summaries and the device mesh of the JAX trainer are not ported yet: a
-config that sets one of their keys gets a warning.
+Logging, as in the JAX trainer: a ``MetricLogger`` (TensorBoard where
+tensorboardX imports, always ``metrics.jsonl`` in the writer directory, and
+a copy of ``config_path`` in the experiment directory) takes the window
+means of the ``train/`` scalars every ``show_each`` steps, with
+``steps_per_sec`` and the ``data_time``/``batch_time`` split (host seconds
+a step waiting for the loader and in ``train_step``, which launches the
+step's work and does not wait for the device), and the ``val/`` metrics of
+every validation and of ``epoch_hook(epoch)``, which ``fit`` calls after
+each validation epoch.  ``train.grad_stats`` adds ``grad_norm`` (the norm
+of all gradients) and ``grad_norm/<name>`` per parameter to each step's
+metrics, computed on the device without waiting for it.
+``train.profile_step`` starts a ``torch.profiler`` trace at that global
+step for ``train.profile_steps`` steps (default 5), written as a Chrome
+trace under ``{exp_dir}/profile``.  ``mesh_hook(trainer, batch)`` runs
+every ``train.mesh_each`` steps (default 100).
+
+An auto-resume that fails is tried once more.  If it fails again on a file
+that cannot be this run's checkpoint (torn or foreign, a missing key, a
+state that does not fit the model or the optimizer; see
+``unreadable_checkpoint``), ``ckpt_latest`` is moved to
+``ckpt_latest_unreadable_<time>`` and the run starts fresh; any other error
+(I/O, out of memory) is raised.
 """
 
-import logging
+import os
+import pickle
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -49,48 +70,78 @@ from cloud_transformers_tpu_torch.train.checkpoint import (
     restore_params_only,
 )
 from cloud_transformers_tpu_torch.train.config import experiment_dirs
+from cloud_transformers_tpu_torch.train.logging import (
+    MetricLogger,
+    setup_logger,
+)
 from cloud_transformers_tpu_torch.train.optim import make_optimizer
 
-logger = logging.getLogger("cloud_transformers_tpu_torch")
+logger = setup_logger()
 
-# ``train:`` keys the JAX trainer reads and this one does not yet
-IGNORED_TRAIN_KEYS = ("grad_stats", "profile_step", "profile_steps",
-                      "mesh_each")
+# what ``torch.load`` and ``load_state_dict`` raise on a file that is torn,
+# foreign or of another model
+_UNREADABLE = (pickle.UnpicklingError, EOFError, KeyError, ValueError,
+               TypeError)
+_UNREADABLE_RUNTIME = ("PytorchStreamReader", "Invalid magic number",
+                       "Error(s) in loading state_dict",
+                       "Weights only load failed")
+
+
+def _torn_archive(path):
+    """Whether the file at ``path`` is there but is no whole zip archive
+    (the format ``torch.save`` writes); False where it cannot be read."""
+    try:
+        with zipfile.ZipFile(path) as archive:
+            return archive.testzip() is not None
+    except zipfile.BadZipFile:
+        return True
+    except OSError:
+        return False
+
+
+def unreadable_checkpoint(err, path=None):
+    """Whether ``err``, raised while the checkpoint at ``path`` was loaded,
+    says that the file cannot be this run's checkpoint, rather than that
+    reading it failed (I/O, out of memory).  Torch's zip reader reports
+    some torn files as ``OSError`` (EINVAL): an ``OSError`` counts only
+    where the file is no whole zip archive."""
+    if isinstance(err, torch.cuda.OutOfMemoryError):
+        return False
+    if isinstance(err, _UNREADABLE):
+        return True
+    if isinstance(err, OSError):
+        return path is not None and os.path.isfile(path) and \
+            _torn_archive(path)
+    return isinstance(err, RuntimeError) and any(
+        m in str(err) for m in _UNREADABLE_RUNTIME)
 
 
 class Trainer:
     def __init__(self, model, cfg, exp_name, loss_fn, eval_fn=None,
-                 device="cuda", seed=0, generators=None):
+                 device="cuda", seed=0, generators=None, config_path=None):
         """``generators``: {name: torch.Generator} of the task (the noise
-        of a loss function, say), saved and restored with a checkpoint."""
+        of a loss function, say), saved and restored with a checkpoint.
+        ``config_path``: the config file, copied into the experiment
+        directory."""
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn or loss_fn
         self.device = torch.device(device)
         if self.device.type == "cuda":
             strict_f32()
-        self.generator = torch.Generator().manual_seed(seed)
-        torch.manual_seed(seed)
-        init_model_(model, self.generator)
-        self.model = model.to(self.device)
-        self.exp_dir, self.writer_dir = experiment_dirs(cfg, exp_name)
-        self.optimizer = make_optimizer(cfg["train"],
-                                        self.model.named_parameters())
-        self.global_step = 0
-        self.epoch = 0
+        self.logger = logger
+        self.seed = seed
+        self.model = model
         self.generators = dict(generators or {})
+        self._initial_generators = {k: g.get_state()
+                                    for k, g in self.generators.items()}
+        self._fresh_start()
+        self.exp_dir, self.writer_dir = experiment_dirs(cfg, exp_name)
+        self.metrics = MetricLogger(self.writer_dir, self.exp_dir,
+                                    config_path)
         self.ckpt = CheckpointManager(self.exp_dir)
-        for key in IGNORED_TRAIN_KEYS:
-            if key in cfg.get("train", {}):
-                logger.warning("train.%s is set but not ported: ignored",
-                               key)
         resumed = (bool(cfg.get("train", {}).get("auto_resume", True))
-                   and self.ckpt.exists("latest"))
-        if resumed:
-            self.load_checkpoint(self.ckpt.restore("latest"))
-            logger.info("resumed from %s (step %d, epoch %d)",
-                        self.ckpt.path("latest"), self.global_step,
-                        self.epoch)
+                   and self.ckpt.exists("latest") and self._auto_resume())
         restore = cfg.get("restore") or {}
         if restore.get("generator"):
             if resumed:
@@ -98,6 +149,51 @@ class Trainer:
                             "from ckpt_latest", restore["generator"])
             else:
                 self.restore(restore["generator"], restore.get("new_lr"))
+
+    def _fresh_start(self):
+        """Weights, optimizer, counters and generators as a new run has
+        them."""
+        self.generator = torch.Generator().manual_seed(self.seed)
+        torch.manual_seed(self.seed)
+        for k, g in self.generators.items():
+            g.set_state(self._initial_generators[k])
+        init_model_(self.model, self.generator)
+        self.model = self.model.to(self.device)
+        self.optimizer = make_optimizer(self.cfg["train"],
+                                        self.model.named_parameters())
+        self.global_step = 0
+        self.epoch = 0
+
+    def _auto_resume(self):
+        """Resume from ``ckpt_latest``, with one retry.  -> whether it
+        resumed; quarantines an unreadable checkpoint and starts fresh, and
+        raises any other error."""
+        for attempt in (0, 1):
+            try:
+                self.load_checkpoint(self.ckpt.restore("latest"))
+            except Exception as e:
+                err = e
+                if attempt == 0:
+                    logger.warning("auto-resume attempt failed (%s); "
+                                   "retrying", e)
+                continue
+            logger.info("resumed from %s (step %d, epoch %d)",
+                        self.ckpt.path("latest"), self.global_step,
+                        self.epoch)
+            return True
+        if not unreadable_checkpoint(err, self.ckpt.path("latest")):
+            raise err
+        quarantine = self.ckpt.path(f"latest_unreadable_{int(time.time())}")
+        try:
+            os.rename(self.ckpt.path("latest"), quarantine)
+        except OSError:
+            quarantine = "<rename failed>"
+        logger.error("AUTO-RESUME FAILED: ckpt_latest could not be restored "
+                     "(%s). It was moved to %s; training restarts from "
+                     "scratch.", err, quarantine)
+        # a load that failed part of the way may have changed some state
+        self._fresh_start()
+        return False
 
     def restore(self, path, new_lr=None):
         """Load the parameters at ``path`` (any file
@@ -165,9 +261,28 @@ class Trainer:
         self.optimizer.zero_grad()
         loss, aux = self.loss_fn(self.model, batch)
         loss.backward()
+        metrics = {"loss": loss.detach(), **aux}
+        if self.cfg.get("train", {}).get("grad_stats"):
+            metrics.update(self.grad_stats())
         self.optimizer.step()
         self.global_step += 1
-        return {"loss": loss.detach(), **aux}
+        return metrics
+
+    @torch.no_grad()
+    def grad_stats(self):
+        """{``grad_norm``: the norm of all gradients, ``grad_norm/<name>``:
+        each parameter's}, 0-dim tensors on the device (no wait for it); a
+        parameter without a gradient counts 0."""
+        named = [(n, p.grad) for n, p in self.model.named_parameters()
+                 if p.requires_grad]
+        grads = [g for _, g in named if g is not None]
+        norms = iter(torch._foreach_norm(grads)) if grads else iter(())
+        zero = torch.zeros((), device=self.device)
+        out = {f"grad_norm/{n}": (next(norms) if g is not None else zero)
+               for n, g in named}
+        out["grad_norm"] = torch.linalg.vector_norm(
+            torch.stack(list(out.values()))) if out else zero
+        return out
 
     @torch.no_grad()
     def eval_step(self, batch):
@@ -177,11 +292,15 @@ class Trainer:
 
     # --- loop ------------------------------------------------------------
     def fit(self, train_loader, val_loader=None, eval_hook=None,
-            num_epochs=None, max_steps=None):
+            num_epochs=None, max_steps=None, epoch_hook=None,
+            mesh_hook=None):
         """The epoch loop: a host-side metric window every ``show_each``
-        steps, ``ckpt_latest`` every ``save_each`` steps and
+        steps (logged under ``train/``), ``mesh_hook(self, batch)`` every
+        ``mesh_each`` steps, ``ckpt_latest`` every ``save_each`` steps and
         ``save_each_epoch`` epochs, validation every ``val_step`` epochs
-        with the best-metric checkpoints, stop (and save) after
+        with the best-metric checkpoints (logged under ``val/``), then
+        ``epoch_hook(epoch)``, whose metrics are logged under ``val/`` too;
+        a profiler trace from ``profile_step``; stop (and save) after
         ``max_steps`` optimizer steps if given.  -> the model."""
         tcfg = self.cfg["train"]
         num_epochs = num_epochs or int(tcfg.get("num_epochs", 1))
@@ -190,44 +309,107 @@ class Trainer:
         save_each = int(tcfg.get("save_each", 0))
         save_each_epoch = int(tcfg.get("save_each_epoch", 1))
         save = bool(tcfg.get("save", True))
+        profile_at = tcfg.get("profile_step")
+        profile_end = (None if profile_at is None
+                       else int(profile_at) + int(tcfg.get("profile_steps",
+                                                           5)))
+        mesh_each = int(tcfg.get("mesh_each", 100))
         keys = [tcfg.get("best_metric") or "loss"]
         keys += [k for k in tcfg.get("best_metrics") or [] if k not in keys]
         best = dict.fromkeys(keys, -np.inf)
-        for epoch in range(self.epoch, num_epochs):
-            self.epoch = epoch
-            train_loader.set_epoch(epoch)
-            t0 = time.time()
-            window = []
-            for batch in train_loader:
-                window.append(self.train_step(batch))
-                if self.global_step % show_each == 0:
-                    host = _window_mean(window)
-                    host["steps_per_sec"] = len(window) / (time.time() - t0)
-                    window, t0 = [], time.time()
-                    logger.info("epoch %d step %d: %s", epoch,
-                                self.global_step,
-                                {k: round(v, 4) for k, v in host.items()})
-                if save and save_each and self.global_step % save_each == 0:
-                    self.save()
-                if max_steps and self.global_step >= max_steps:
-                    if save:
+        profiler = None
+        try:
+            for epoch in range(self.epoch, num_epochs):
+                self.epoch = epoch
+                train_loader.set_epoch(epoch)
+                t0 = time.time()
+                window = []
+                data_t = step_t = 0.0
+                t_fetch = time.time()
+                for batch in train_loader:
+                    data_t += time.time() - t_fetch
+                    if profile_at is not None and \
+                            self.global_step == int(profile_at):
+                        profiler = self._profiler()
+                        profiler.start()
+                    t_step = time.time()
+                    window.append(self.train_step(batch))
+                    step_t += time.time() - t_step
+                    if profiler is not None and \
+                            self.global_step >= profile_end:
+                        profiler = self._stop_profile(profiler)
+                    if self.global_step % show_each == 0:
+                        host = _window_mean(window)
+                        n = len(window)
+                        host["steps_per_sec"] = n / (time.time() - t0)
+                        host["data_time"] = data_t / n
+                        host["batch_time"] = step_t / n
+                        window, t0 = [], time.time()
+                        data_t = step_t = 0.0
+                        self.metrics.scalars(self.global_step, host,
+                                             prefix="train/")
+                        logger.info("epoch %d step %d: %s", epoch,
+                                    self.global_step,
+                                    {k: round(v, 4) for k, v in host.items()
+                                     if "/" not in k})
+                    if mesh_hook is not None and mesh_each and \
+                            self.global_step % mesh_each == 0:
+                        mesh_hook(self, batch)
+                    if save and save_each and \
+                            self.global_step % save_each == 0:
                         self.save()
-                    return self.model
-            self.epoch = epoch + 1   # a resumed run starts the next epoch
-            if save and (epoch + 1) % save_each_epoch == 0:
-                self.save()
-            if val_loader is not None and (epoch + 1) % val_step == 0:
-                val = self.validate(val_loader, eval_hook)
-                logger.info("epoch %d val: %s", epoch,
-                            {k: round(float(v), 4) for k, v in val.items()})
-                for key in keys:
-                    score = (-float(val.get("loss", np.inf)) if key == "loss"
-                             else float(val.get(key, -np.inf)))
-                    if save and score > best[key]:
-                        best[key] = score
-                        self.save("best" if key == keys[0] else
-                                  f"{key.replace('m_acc', 'macc')}_best")
+                    if max_steps and self.global_step >= max_steps:
+                        if save:
+                            self.save()
+                        return self.model
+                    t_fetch = time.time()
+                self.epoch = epoch + 1   # a resumed run starts the next epoch
+                if save and (epoch + 1) % save_each_epoch == 0:
+                    self.save()
+                if val_loader is not None and (epoch + 1) % val_step == 0:
+                    val = self.validate(val_loader, eval_hook)
+                    self.metrics.scalars(self.global_step, val,
+                                         prefix="val/")
+                    logger.info("epoch %d val: %s", epoch,
+                                {k: round(float(v), 4)
+                                 for k, v in val.items()})
+                    for key in keys:
+                        score = (-float(val.get("loss", np.inf))
+                                 if key == "loss"
+                                 else float(val.get(key, -np.inf)))
+                        if save and score > best[key]:
+                            best[key] = score
+                            self.save("best" if key == keys[0] else
+                                      f"{key.replace('m_acc', 'macc')}_best")
+                if epoch_hook is not None and (epoch + 1) % val_step == 0:
+                    hook_metrics = epoch_hook(epoch) or {}
+                    if hook_metrics:
+                        self.metrics.scalars(self.global_step, hook_metrics,
+                                             prefix="val/")
+        finally:
+            if profiler is not None:
+                self._stop_profile(profiler)
         return self.model
+
+    def _profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities)
+
+    def _stop_profile(self, profiler):
+        """Wait for the device, stop the trace and write it to
+        ``{exp_dir}/profile``.  -> None."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        out = os.path.join(self.exp_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"trace_step{self.global_step}.json")
+        profiler.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
+        return None
 
     def validate(self, val_loader, eval_hook=None):
         """Average the eval metrics over the loader.  ``eval_hook(batch,
@@ -251,6 +433,11 @@ class Trainer:
 
 
 def _window_mean(window):
-    """Mean of each scalar metric over a window of steps, on the host."""
-    return {k: float(np.mean([float(m[k]) for m in window]))
-            for k in window[0] if window[0][k].dim() == 0}
+    """Mean of each scalar metric over a window of steps, on the host (one
+    copy from the device for the whole window)."""
+    keys = [k for k, v in window[0].items() if v.dim() == 0]
+    if not keys:
+        return {}
+    values = torch.stack([torch.stack([m[k].float() for k in keys])
+                          for m in window]).cpu().double().mean(0)
+    return dict(zip(keys, values.tolist()))

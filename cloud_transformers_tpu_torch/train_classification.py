@@ -38,7 +38,7 @@ def main(argv=None):
     loss_fn = classification.make_loss_fn(
         seg_weight=float(cfg["train"].get("seg_weight", 0.5)))
     trainer = Trainer(model, cfg, args.exp_name, loss_fn,
-                      device=args.device)
+                      device=args.device, config_path=args.config)
     hook = classification.ClassEvalAccumulator(
         int(cfg.get("model", {}).get("n_classes", 15)))
     # the hook's pooled accuracy and mean class accuracy gate ckpt_best and

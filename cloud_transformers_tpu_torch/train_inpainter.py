@@ -7,7 +7,9 @@ The command line of the JAX package's ``train_inpainter.py`` without its
 multi-host flags.  Runs on ``cuda`` unless ``--device`` says otherwise.
 The loss is the auction EMD (eps 0.005, 50 rounds) plus ``chamfer_weight``
 times the Chamfer loss; validation uses the EMD at eps 0.004 with
-``val_emd_iters`` rounds.  A run resumes from its ``ckpt_latest``.
+``val_emd_iters`` rounds.  Every ``train.mesh_each`` steps the
+reconstruction of a few clouds of the batch goes to TensorBoard as a mesh.
+A run resumes from its ``ckpt_latest``.
 """
 
 import argparse
@@ -49,8 +51,12 @@ def main(argv=None):
         gens["val"], chamfer_weight, emd_eps=0.004,
         emd_iters=int(cfg["train"].get("val_emd_iters", 3000)))
     trainer = Trainer(model, cfg, args.exp_name, loss_fn, eval_fn=eval_fn,
-                      device=args.device, seed=0, generators=gens)
-    trainer.fit(train_loader, val_loader, max_steps=args.steps)
+                      device=args.device, seed=0, generators=gens,
+                      config_path=args.config)
+    # point-cloud summaries of the reconstruction, the ground truth and the
+    # partial input every train.mesh_each steps
+    trainer.fit(train_loader, val_loader, max_steps=args.steps,
+                mesh_hook=completion.make_mesh_hook())
     logging.getLogger("cloud_transformers_tpu_torch").info(
         "done: %d steps", trainer.global_step)
 

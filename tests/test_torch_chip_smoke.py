@@ -88,3 +88,39 @@ def test_expected_launches_are_the_full_width_classifiers(monkeypatch, name):
             name, per["splat_max"], per["slice_gather"], training)
             for per, training in ((forward, False), (step, True)))
     assert runs == {"forward": forward, "step": step}
+
+
+@pytest.mark.parametrize("name", (None,) + chip_smoke.SETS)
+def test_expected_launches_are_the_full_width_segmenters(monkeypatch, name):
+    """The same for the S3DIS segmenter: the classifier's trunk without its
+    pools, per forward (``PER_FORWARD_SEGMENTER``, which its validation
+    runs) and per training step (``PER_STEP_SEGMENTER``), on the default
+    path and under each set; counted on the CPU with one block of a few
+    points."""
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.tasks import segmentation
+    model = get_model("s3dis_segmenter")
+    rs = np.random.RandomState(0)
+    batch = {"pcd": torch.from_numpy(np.concatenate(
+                 [rs.uniform(-1, 1, (1, 32, 3)), rs.uniform(0, 1, (1, 32, 3))],
+                 -1).astype(np.float32)),
+             "label": torch.from_numpy(rs.randint(0, 13, (1, 32)))}
+    runs = {}
+    with chip_smoke.switches(name) if name else contextlib.nullcontext():
+        calls = _spy_launches(monkeypatch)
+        with torch.no_grad():
+            model.eval()(batch["pcd"])
+        runs["forward"] = dict(calls)
+        calls.clear()
+        loss, _ = segmentation.make_loss_fn(13)(model.train(), batch)
+        loss.backward()
+        runs["step"] = dict(calls)
+    forward = chip_smoke.PER_FORWARD_SEGMENTER
+    step = chip_smoke.PER_STEP_SEGMENTER
+    if name:
+        forward, step = (chip_smoke.set_counts(
+            name, per["splat_max"], per["slice_gather"], training)
+            for per, training in ((forward, False), (step, True)))
+        forward = {k: v for k, v in forward.items() if v}
+        step = {k: v for k, v in step.items() if v}
+    assert runs == {"forward": forward, "step": step}

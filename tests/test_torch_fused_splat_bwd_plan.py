@@ -23,8 +23,9 @@ from cloud_transformers_tpu_torch.ops import pallas_splat as tps
 MODEL_SHAPES = [((128, 128), 4), ((32, 32, 32), 4), ((64, 64), 16),
                 ((16, 16, 16), 16), ((16, 16), 16), ((8, 8, 8), 32)]
 # (rows, points a row): the classifier's B = 8 x 16 heads x 2048 points,
-# the completion decoder's B = 2 x 16 heads x 16384
-MODEL_ROWS = [(128, 2048), (32, 16384)]
+# the completion decoder's B = 2 x 16 heads x 16384, the S3DIS segmenter's
+# B = 8 x 16 heads x 4096
+MODEL_ROWS = [(128, 2048), (32, 16384), (128, 4096)]
 RAGGED = [(16, 16), (9, 7), (8, 8, 8), (5, 6, 7), (2, 3), (33, 5, 4)]
 
 
@@ -263,8 +264,8 @@ def test_splat_bwd_plan_covers_every_point_and_quad_once(sizes, points):
 def test_splat_bwd_plan_at_the_model_shapes(sizes, feat, rows, points):
     """float4 rows at every head group, one point a lane group, a feature
     a lane in the winner pass on the sparse grids (128^2, 32^3, 64^2 and
-    16^3 of the classifier; 128^2 and 32^3 of the decoder), and launches
-    that fill the card."""
+    16^3 of the classifier and of the segmenter; 128^2 and 32^3 of the
+    decoder), and launches that fill the card."""
     plan = tps.splat_bwd_plan(rows, points, feat, sizes)
     assert plan.vec and plan.points_per_thread == 1
     sparse = points * 2 ** len(sizes) < 16 * np.prod(sizes)
@@ -276,6 +277,19 @@ def test_splat_bwd_plan_at_the_model_shapes(sizes, feat, rows, points):
     n = rows * points
     assert (plan.blocks - 1) * plan.points_per_block < n \
         <= plan.blocks * plan.points_per_block
+
+
+def test_winner_pass_covers_the_segmenters_128_squared_rows():
+    """At the segmenter's rows (R = 128, K = 4096) the winner splat leaves
+    the winners at 128^2 x 4 to the winner pass (its block lists a chunk
+    in two scans); that pass takes every (point, feature) of the 128 rows
+    once, a feature a lane."""
+    rows, points, feat, sizes = 128, 4096, 4, (128, 128)
+    assert not tps.winners_in_splat(tps.splat_plan(rows, points, feat,
+                                                   sizes))
+    plan = tps.splat_bwd_plan(rows, points, feat, sizes)
+    assert plan.winner_features and plan.winner_group == feat
+    assert (_winner_cover(plan, rows * points, feat) == 1).all()
 
 
 def test_plans_refuse_the_index_limit():

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``cloud_transformers_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX, flax, optax, orbax, the JAX package or
-``tools``: the training modules (trainer, optimizer, checkpoints, data,
-tasks, command lines) and the completion path's modules too."""
+``tools``: the training modules (trainer, logger, optimizer, checkpoints,
+data, tasks, command lines), the completion path's modules and the S3DIS
+segmenter's too."""
 
 import os
 import subprocess
@@ -27,7 +28,9 @@ missing = [m for m in ("train.trainer", "train.optim", "train.config",
                        "nn.multihead_adain", "models.inpainter",
                        "data.completion", "data.pointcloud_io",
                        "tasks.completion", "train.checkpoint",
-                       "train_inpainter", "eval_inpainting")
+                       "train_inpainter", "eval_inpainting",
+                       "train.logging", "data.s3dis", "models.segmenter",
+                       "tasks.segmentation", "train_segmentation")
            if "cloud_transformers_tpu_torch." + m not in mods]
 print(len(mods), bad + missing)
 """
@@ -41,5 +44,5 @@ def test_port_imports_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) > 43
+    assert int(n) > 48
     assert bad == "[]", bad

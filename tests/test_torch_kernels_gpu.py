@@ -445,11 +445,13 @@ def _slice_inputs(gen, sizes, f, b, h, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [2048, 4096])
 @pytest.mark.parametrize("sizes,f", SLICE_SHAPES)
-def test_slice_kernel_at_the_classifier_shapes(gen, sizes, f):
-    """R = 128 rows of K = 2048 points, as a forward gives them: within
-    1e-5 of the plain version, and two calls equal."""
-    mapping, grid = _slice_inputs(gen, sizes, f, 8, 16, 2048)
+def test_slice_kernel_at_the_classifier_shapes(gen, sizes, f, k):
+    """R = 128 rows of K = 2048 points (the classifier's) and 4096 (the
+    S3DIS segmenter's), as a forward gives them: within 1e-5 of the plain
+    version, and two calls equal."""
+    mapping, grid = _slice_inputs(gen, sizes, f, 8, 16, k)
     out = tps.slice_gather(*mapping, grid, sizes)
     _close(out, tps.slice_plain(*mapping, grid, sizes), 1e-5)
     assert torch.equal(out, tps.slice_gather(*mapping, grid, sizes))
@@ -1231,11 +1233,13 @@ def _splat_both(gen, mapping, values, sizes):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,k", [(8, 2048), (2, 16384)])
+@pytest.mark.parametrize("b,k", [(8, 2048), (2, 16384), (8, 4096)])
 @pytest.mark.parametrize("sizes,f", SLICE_SHAPES)
 def test_splat_kernels_at_the_model_shapes(gen, sizes, f, b, k):
-    """The classifier's rows (B = 8 x 16 heads x 2048 points) and the
-    completion decoder's (B = 2 x 16 x 16384) at every head group."""
+    """The classifier's rows (B = 8 x 16 heads x 2048 points), the
+    completion decoder's (B = 2 x 16 x 16384) and the S3DIS segmenter's
+    (B = 8 x 16 x 4096, where every row's chunk takes two scans or more
+    chunks) at every head group."""
     mapping, values = _mapping(gen, sizes, b, 16, k, f, ties=False)
     _splat_both(gen, mapping, values, sizes)
 
@@ -1388,12 +1392,13 @@ def _slice_bwd_check(mapping, g_pts, grid, sizes, runs=5):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,k", [(8, 2048), (2, 16384)])
+@pytest.mark.parametrize("b,k", [(8, 2048), (2, 16384), (8, 4096)])
 @pytest.mark.parametrize("sizes,f", SLICE_SHAPES)
 def test_slice_bwd_at_the_model_shapes(gen, sizes, f, b, k):
-    """The classifier's rows (B = 8 x 16 heads x 2048 points) and the
-    completion decoder's (B = 2 x 16 x 16384) at every head group, on a
-    grid of the forward's kind."""
+    """The classifier's rows (B = 8 x 16 heads x 2048 points), the
+    completion decoder's (B = 2 x 16 x 16384) and the S3DIS segmenter's
+    (B = 8 x 16 x 4096, one bit less fixed-point headroom) at every head
+    group, on a grid of the forward's kind."""
     mapping, values = _mapping(gen, sizes, b, 16, k, f, ties=False)
     grid = tps.splat_max(*mapping, values, sizes)
     g_pts = torch.randn(values.shape, generator=gen, device="cuda")

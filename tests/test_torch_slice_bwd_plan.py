@@ -28,8 +28,9 @@ MODEL_SHAPES = [(128, 128), (32, 32, 32), (64, 64), (16, 16, 16), (16, 16),
                 (8, 8, 8)]
 MODEL_F = (4, 4, 16, 16, 16, 32)
 # (rows, points a row): the classifier's B = 8 x 16 heads x 2048 points,
-# the completion decoder's B = 2 x 16 heads x 16384
-MODEL_ROWS = [(128, 2048), (32, 16384)]
+# the completion decoder's B = 2 x 16 heads x 16384, the S3DIS segmenter's
+# B = 8 x 16 heads x 4096
+MODEL_ROWS = [(128, 2048), (32, 16384), (128, 4096)]
 FEATURES = [1, 3, 4, 16, 32]
 # csrc: kListP, kScanPoints (as the splat's)
 LIST_P = 2
@@ -187,7 +188,9 @@ def _fixed_point_d_grid(x0, lane0, w_lo, w_hi, g_pts, sizes):
 @pytest.mark.parametrize("sizes,f,k", [((16, 16), 4, 2048),
                                        ((8, 8, 8), 5, 1500),
                                        ((4, 4), 3, 700),
-                                       ((8, 8, 8), 32, 3000)])
+                                       ((8, 8, 8), 32, 3000),
+                                       ((16, 16), 16, 4096),
+                                       ((128, 128), 4, 4096)])
 @pytest.mark.parametrize("magnitude", [1e-30, 1.0, 1e30])
 def test_fixed_point_d_grid_holds_to_the_plain_version(sizes, f, k,
                                                        magnitude):
@@ -213,6 +216,45 @@ def test_fixed_point_d_grid_holds_to_the_plain_version(sizes, f, k,
     assert np.abs(got - plain).max() <= 1e-6 * scale
     # the scale follows the magnitude: about 2^-100 apart per 1e30
     assert abs(scales[0] + np.log2(magnitude)) < 70
+
+
+@pytest.mark.parametrize("k", [2048, 4096])
+def test_fixed_point_headroom_with_every_point_on_one_cell(k):
+    """The worst case for the sum's headroom: a row's K points on the same
+    cell with |w * g| at the bound of its d_w block (keys on the grid's
+    corner: a vertex weight of about 1, the same cotangent), so that one
+    word sums K terms of about 2^(S + e).  At the segmenter's K = 4096 the
+    scale S = 61 - bits(K) - e is one bit lower than at 2048, and the sum
+    stays below 2^61 (2^63 is the int64 limit).  Row by row, d_grid is
+    within 1e-7 of the largest word of the sums taken in float64."""
+    sizes, f, r = (8, 8, 8), 4, 2
+    # keys on a vertex: weight 1 on the base cell, 0 on the others
+    keys = np.full((1, k, r, 3), -1.0, np.float32)
+    mapping = [a.contiguous() for a in _flatten_mapping(
+        grid_mapping(torch.from_numpy(keys), sizes, 3))]
+    g_pts = np.full((r, k, f), -3.0, np.float32)
+    g_pts[1] = 1e20
+    got, peak, scales = _fixed_point_d_grid(
+        *(a.numpy() for a in mapping), g_pts, sizes)
+    for row in range(r):
+        e = int(np.frexp(np.abs(g_pts[row]).max())[1])
+        assert scales[row] == 61 - k.bit_length() - e
+    assert 2 ** 59 <= peak < 2 ** 61
+    # against the sums in float64: the fixed point rounds each term at
+    # 2^-S; the plain version's float32 sums, which round at every add, are
+    # off by up to 1.6e-5 here (K equal terms round the same way)
+    x0, lane0, w_lo, w_hi = (a.numpy() for a in mapping)
+    w = np.concatenate([w_lo[..., :4], w_hi[..., :4]], -1).astype(np.float64)
+    lane_extent = tps.kernel_grid_dims(sizes)[1]
+    offs = np.array(tps.lane_offsets(sizes)[:4])
+    cells = x0.astype(np.int64)[..., None] * lane_extent + lane0[..., None] \
+        + np.concatenate([offs, lane_extent + offs])
+    exact = np.zeros(got.shape, np.float64)
+    for row in range(r):
+        np.add.at(exact[row], cells[row],
+                  w[row, :, :, None] * g_pts[row, :, None, :])
+        scale = np.abs(exact[row]).max()
+        assert np.abs(got[row] - exact[row]).max() <= 1e-7 * scale
 
 
 def test_slice_bwd_plan_refuses_the_index_limit():

@@ -57,14 +57,18 @@ def test_slice_plan_reaches_every_point_and_feature_once(sizes, points):
 
 
 def test_slice_plan_at_the_model_shapes():
-    """At the classifier's launches (R = 128, K = 2048) a thread takes 2
-    to 4 points and the launch fills the card; every head group of the
-    completion model (and so of the classifier) reads float4 rows."""
+    """At the classifier's launches (R = 128, K = 2048) and the S3DIS
+    segmenter's (K = 4096) a thread takes 2 to 4 points and the launch
+    fills the card, every (point, feature) of the segmenter's rows reached
+    once; every head group of the completion model (and so of the
+    classifier) reads float4 rows."""
     for sizes, feat in [((128, 128), 4), ((32, 32, 32), 4), ((64, 64), 16),
                         ((16, 16, 16), 16), ((16, 16), 16), ((8, 8, 8), 32)]:
-        plan = tps.slice_plan(128, 2048, feat, sizes)
-        assert plan.vec and plan.points_per_thread >= 2
-        assert plan.blocks * plan.threads >= tps.SLICE_FILL_THREADS
+        for points in (2048, 4096):
+            plan = tps.slice_plan(128, points, feat, sizes)
+            assert plan.vec and 2 <= plan.points_per_thread <= 4
+            assert plan.blocks * plan.threads >= tps.SLICE_FILL_THREADS
+        assert (_slice_cover(plan, 128 * 4096, feat) == 1).all()
     for feats, _, sizes, dims in DEFAULT_STAGE_PLAN:
         for feat, size, dim in zip(feats, sizes, dims):
             assert tps.slice_plan(16, 2048, feat, (size,) * dim).vec

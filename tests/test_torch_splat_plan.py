@@ -22,12 +22,14 @@ from cloud_transformers_tpu_torch.ops import pallas_splat as tps
 MODEL_SHAPES = [(128, 128), (32, 32, 32), (64, 64), (16, 16, 16), (16, 16),
                 (8, 8, 8)]
 # (rows, points a row): the classifier's B = 8 x 16 heads x 2048 points,
-# the completion decoder's B = 2 x 16 heads x 16384
-MODEL_ROWS = [(128, 2048), (32, 16384)]
+# the completion decoder's B = 2 x 16 heads x 16384, the S3DIS segmenter's
+# B = 8 x 16 heads x 4096
+MODEL_ROWS = [(128, 2048), (32, 16384), (128, 4096)]
 FEATURES = [1, 3, 4, 16, 32]
-# csrc: kListP (the scan's kScanPoints lists in any order, which the
-# deposits do not depend on)
+# csrc: kListP, kScanPoints (a block lists a chunk's points kScanPoints at
+# a time, each list in any order, which the deposits do not depend on)
 LIST_P = 2
+SCAN = tps.SPLAT_SCAN_POINTS
 
 
 def _bases(sizes, points, seed=0):
@@ -56,12 +58,17 @@ def _mirror(plan, sizes, feat, base):
     for s in range(plan.slabs):
         wb = s * plan.slab_words
         n_words = min(plan.slab_words, words - wb)
-        for c in range(plan.chunks):
-            written[wb:wb + n_words] += 1
-            ks = np.arange(c * plan.chunk, min(points, (c + 1) * plan.chunk))
+        for c, k0 in ((c, k0) for c in range(plan.chunks)
+                      for k0 in range(c * plan.chunk,
+                                      min(points, (c + 1) * plan.chunk),
+                                      SCAN)):
+            if k0 == c * plan.chunk:
+                written[wb:wb + n_words] += 1
+            ks = np.arange(k0, min(points, (c + 1) * plan.chunk, k0 + SCAN))
             listed = ks[(base[ks] * feat < wb + n_words)
                         & ((base[ks] + reach) * feat > wb)]
             n = len(listed)
+            assert n <= SCAN                     # the block's list
             passes = -(-n // (groups * LIST_P))
             j = ((t // plan.group)[:, None, None]
                  + np.arange(passes)[None, :, None] * groups * LIST_P
@@ -132,7 +139,8 @@ def test_splat_plan_at_the_model_shapes(rows, points):
     """Every model shape fills the card (at least ``SPLAT_FILL_BLOCKS``
     blocks), and a row is one chunk where its slabs alone fill it, so that
     the wrapper leaves the grid unfilled.  The winner splat records the
-    winners in its splat kernel at the classifier's four large grids."""
+    winners in its splat kernel at the classifier's four large grids, and
+    nowhere at the segmenter's 4096 points (a chunk over two lists)."""
     for sizes, feat in zip(MODEL_SHAPES, (4, 4, 16, 16, 16, 32)):
         plan = tps.splat_plan(rows, points, feat, sizes)
         assert plan.blocks >= tps.SPLAT_FILL_BLOCKS
@@ -140,6 +148,21 @@ def test_splat_plan_at_the_model_shapes(rows, points):
             rows * plan.slabs >= tps.SPLAT_FILL_BLOCKS)
         assert tps.winners_in_splat(plan) == (
             points == 2048 and sizes in MODEL_SHAPES[:4])
+
+
+def test_segmenter_rows_list_their_chunks_in_two_scans():
+    """At the segmenter's 4096 points a row the four large grids keep one
+    chunk a row, now of 4096 points: a block lists it in two scans, so the
+    winner splat leaves the winners to the winner pass.  16^2 x 16 and
+    8^3 x 32 keep their chunk counts, with chunks twice the classifier's."""
+    for sizes, feat in zip(MODEL_SHAPES, (4, 4, 16, 16, 16, 32)):
+        plan = tps.splat_plan(128, 4096, feat, sizes)
+        classifier = tps.splat_plan(128, 2048, feat, sizes)
+        assert not tps.winners_in_splat(plan)
+        assert plan.chunks == classifier.chunks
+        assert plan.chunk == 2 * classifier.chunk
+        if sizes in MODEL_SHAPES[:4]:
+            assert plan.chunks == 1 and -(-plan.chunk // SCAN) == 2
 
 
 def test_splat_plan_refuses_the_index_limit():

@@ -58,6 +58,12 @@ def _fit(tmp_path, val, epochs=3, name="run", **train):
     return trainer
 
 
+def _checkpoints(path):
+    """The checkpoint files in an experiment directory (which also holds
+    the run's logs and its config copy)."""
+    return sorted(f for f in os.listdir(path) if f.startswith("ckpt_"))
+
+
 def _saved_step(trainer, tag):
     return trainer.ckpt.restore(tag)["meta"]["global_step"]
 
@@ -71,7 +77,7 @@ def test_best_follows_the_lowest_validation_loss(tmp_path):
     assert latest["meta"]["global_step"] == 3 * STEPS_PER_EPOCH
     assert not torch.equal(payload["model"]["weight"],
                            latest["model"]["weight"])
-    assert sorted(os.listdir(trainer.exp_dir)) == ["ckpt_best.pt",
+    assert _checkpoints(trainer.exp_dir) == ["ckpt_best.pt",
                                                    "ckpt_latest.pt"]
 
 
@@ -83,7 +89,7 @@ def test_classification_keys_write_best_and_macc_best(tmp_path):
     assert _saved_step(trainer, "best") == 2 * STEPS_PER_EPOCH
     assert _saved_step(trainer, "macc_best") == 3 * STEPS_PER_EPOCH
     # the loss is no key once best_metric names another
-    assert sorted(os.listdir(trainer.exp_dir)) == [
+    assert _checkpoints(trainer.exp_dir) == [
         "ckpt_best.pt", "ckpt_latest.pt", "ckpt_macc_best.pt"]
 
 
@@ -97,7 +103,7 @@ def test_a_missing_key_never_saves(tmp_path):
 def test_save_false_writes_no_checkpoint(tmp_path):
     trainer = _fit(tmp_path, {"loss": [3.0, 1.0, 2.0], "m_acc": [1, 2, 3]},
                    best_metrics=["m_acc"], save=False)
-    assert os.listdir(trainer.exp_dir) == []
+    assert _checkpoints(trainer.exp_dir) == []
 
 
 def test_bests_start_afresh_when_a_run_resumes(tmp_path):
@@ -143,7 +149,7 @@ def test_classification_cli_leaves_best_and_macc_best(tmp_path):
     train_classification.main(["x", "-c", path, "--synthetic", "--device",
                                "cpu"])
     exp = tmp_path / "exp" / "x"
-    assert sorted(os.listdir(exp)) == ["ckpt_best.pt", "ckpt_latest.pt",
+    assert _checkpoints(exp) == ["ckpt_best.pt", "ckpt_latest.pt",
                                        "ckpt_macc_best.pt"]
 
 
@@ -165,7 +171,7 @@ def test_inpainter_cli_leaves_the_best_its_eval_config_restores(tmp_path):
                    pool_sizes=[4, 8], trunk_width=8),
         train=dict(num_epochs=1, show_each=100, val_emd_iters=5))
     train_inpainter.main(["x", "-c", path, "--synthetic", "--device", "cpu"])
-    assert sorted(os.listdir(tmp_path / "exp" / "x")) == [
+    assert _checkpoints(tmp_path / "exp" / "x") == [
         "ckpt_best.pt", "ckpt_latest.pt"]
 
 
