@@ -35,7 +35,9 @@
    gates; and the splat, the slice, the splat backward, the winner-tracking
    splat, the routing pass and the slice backward at the S3DIS segmenter's
    rows (B = 8 x 16 heads, K = 4096 points: a row's chunk over two scans of
-   the splat, the slice backward's fixed point one bit lower);
+   the splat, the slice backward's fixed point one bit lower), and again at
+   the single-view reconstructor decoder's rows (B = 4 x 16 heads,
+   K = 8192 points);
 4. serves 100 full-width ScanObjectNN classifier requests (random weights
    from a seed, clouds of 1024 to 3000 points) through
    ``InferenceEngine.classify`` in the B=8 x 2048 bucket, with the launch
@@ -112,14 +114,34 @@
    finite gradients; then the one-stage segmenter at B=2 x 4096 on the
    card against the CPU (logits and gradients: cosine > 0.999, median
    error <= 1e-3);
-12. prints ms/forward and clouds/s, then the training line (ms/step,
+12. the reconstructor path: trains the full-width ``image_reconstructor``
+   of ``configs/reconstruction.yaml`` (a ResNet-50 on cuDNN, the 12-block
+   AdaIN decoder) through ``Trainer`` (synthetic images, B=4 x 128^2, 8192
+   sphere-noise and ground-truth points, the EMD loss at eps 0.005 and 50
+   rounds, the config's loader workers): one warm-up step, then 20 timed
+   steps with the counters set to 0 just before and read just after: per
+   step 24 splat, 24 slice, 16 conv, 24 splat-backward, 24 slice-backward
+   and 8 weight-gradient launches and one ``top2`` launch per auction
+   round; every loss and gradient finite, every decoder key ``scale`` and
+   the ResNet's stem with a nonzero gradient; the model's forward,
+   backward and update under ``set_sync_debug_mode("error")``; one step
+   under each set with its launches; the F-score protocol on 4 synthetic
+   test images (two merged passes of 8192 points against 10000, 24/24/8
+   launches a pass); then the full ResNet-50 with one decoder stage at B=1
+   x 8192 on the card against the CPU (output and the gradients of a loss
+   without the auction: cosine > 0.999, median error <= 1e-3; the EMD of
+   2048 points of each device's output within 2%);
+13. prints ms/forward and clouds/s, then the training line (ms/step,
    clouds/s, peak memory), then the completion line (ms/step, clouds/s,
    peak memory, the EMD's share of a step, the evaluation's table values,
    rounds and seconds per cloud, both tails), then the ``{"switched":
    ...}`` line (both sets' serving, training and parity numbers), then the
    segmenter line (ms/step, clouds/s, peak memory, the data wait,
    Trainer.fit's ``data_time``/``batch_time``, OA/mAcc/mIoU, the
-   card-vs-CPU cosines and the launches of each of its runs), then one
+   card-vs-CPU cosines and the launches of each of its runs), then the
+   reconstructor line (ms/step, images/s, peak memory, the EMD's share of
+   a step, F-score, precision and recall and seconds per evaluated image,
+   the card-vs-CPU numbers and the launches of each of its runs), then one
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
    2D and 3D convs, their weight gradients, the slice, ``top2``, the
@@ -133,12 +155,14 @@
    device; those six also per completion decoder step, from the
    decoder's rows, and #1-#6 per segmenter step from its rows;
    ``top2`` also per evaluated
-   cloud, from the bid searches the evaluation ran at each width), then
+   cloud, from the bid searches the evaluation ran at each width; #1-#6,
+   #9 and ``top2`` also per reconstructor step from its rows), then
    the ``{"ok": true, "device": ...}`` line last.
 
 In phase 3 the auction's two kernels are held too: ``top2`` against
 ``top2_plain`` at every (B, W, M) the staged schedule gives it at N = 16384
-(B = 2 in training, 1 in evaluation; W = 16384, 2048, 1024, 512, 256), at a
+(B = 2 in training, 1 in evaluation; W = 16384, 2048, 1024, 512, 256) and
+at N = 8192 (the reconstructor's B = 4; W = 8192, 1024, 512, 256), at a
 shape that is a multiple of nothing, with duplicated targets, with one
 target and on a mid-auction state: values and indices bit for bit, with
 its square-root skip on and off; ``auction_window`` against
@@ -169,8 +193,9 @@ device's idle share (one window, both clocks) to the result line, and
 writes the torch.profiler table by kernel to ``DIR/profile_forward.txt``;
 it does the same for 5 more training steps of the classifier
 (``DIR/profile_train.txt``) and of the completion model
-(``DIR/profile_completion.txt``) and of the segmenter
-(``DIR/profile_segmenter.txt``), and for the classify calls and training
+(``DIR/profile_completion.txt``), of the segmenter
+(``DIR/profile_segmenter.txt``) and of the reconstructor
+(``DIR/profile_reconstructor.txt``), and for the classify calls and training
 steps under each set (``DIR/profile_{forward,train}_set_{a,b}.txt``).
 """
 
@@ -223,6 +248,9 @@ SFU_OP_PER_S = 132 * 16 * 1.98e9   # H100 SXM: 16 special-function results
 # shape that is a multiple of nothing
 TOP2_SHAPES = [(b, w, 16384) for b in (2, 1)
                for w in (16384, 2048, 1024, 512, 256)] + [(2, 777, 3001)]
+# the reconstructor's training batch (B = 4) at N = 8192: W = 8192, then
+# the staged widths N/8, N/16, N/32
+TOP2_SHAPES += [(4, w, 8192) for w in (8192, 1024, 512, 256)]
 WINDOW_SHAPE = (2, 512, 16384)   # (B, W, M) of the auction_window check
 COMPLETION_STEPS = 20   # timed optimizer steps, after one warm-up step
 EVAL_CLOUDS = 4
@@ -230,6 +258,12 @@ SEG_K = 4096   # the S3DIS segmenter's points a block (configs/s3dis.yaml)
 SEG_STEPS = 20   # timed segmenter steps, after one warm-up step
 SEG_FIT_STEPS = 10   # steps of Trainer.fit, one window of its own timing
 SEG_PARITY_B = 2   # blocks in the card-vs-CPU segmenter comparison
+# the single-view reconstructor (configs/reconstruction.yaml): B images of
+# IM^2, REC_K sphere-noise and ground-truth points a cloud
+REC_B, REC_K, REC_IM = 4, 8192, 128
+REC_STEPS = 20   # timed reconstructor steps, after one warm-up step
+REC_EVAL_POINTS = 10000   # ground-truth points an evaluated image
+REC_PARITY_EMD_N = 2048   # points of the card-vs-CPU EMD comparison
 REPLACES = {
     "splat_max": "cloud_transformers_tpu/ops/pallas_splat.py:528",
     "slice_gather": "cloud_transformers_tpu/ops/pallas_splat.py:780",
@@ -284,6 +318,11 @@ PER_FORWARD_SEGMENTER = {"splat_max": 24, "slice_gather": 24,
 PER_STEP_SEGMENTER = {"splat_max": 24, "slice_gather": 24, "grid_conv3d": 16,
                       "splat_max_bwd": 24, "slice_bwd": 24,
                       "grid_conv3d_dw": 8}
+# the reconstructor's AdaIN decoder: 4 stages x 3 unions x 2 head groups
+# (8 of them 3D with X >= 16), per forward and per training step; its
+# ResNet-50 runs on cuDNN, and the EMD adds one top2 launch a round
+PER_FORWARD_RECONSTRUCTOR = dict(PER_FORWARD_SEGMENTER)
+PER_STEP_RECONSTRUCTOR = dict(PER_STEP_SEGMENTER)
 # where ``library_ms`` is not the time of one PyTorch call
 LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
                       "library calls, not one"}
@@ -897,20 +936,22 @@ def check_completion_rows(gen):
     return out
 
 
-def check_segmenter_rows(gen, rows):
-    """Kernels #1-#6 at the S3DIS segmenter's rows (B = 8 clouds x 16
-    heads, K = 4096 points) at each head group's shape, with the gates of
+def check_trunk_rows(gen, rows, b, k):
+    """Kernels #1-#6 at the rows of a model whose head groups are the
+    classifier trunk's without its pools (``b`` clouds x 16 heads, ``k``
+    points: the S3DIS segmenter's B = 8 x 4096, the reconstructor
+    decoder's B = 4 x 8192) at each head group's shape, with the gates of
     the classifier's shapes; the winner-tracking splat and the routing
     pass beside them (set A).  The grid convs take the same grids at any
-    K, so their entries are the classifier's (``rows``), with the
-    segmenter's calls.  -> {kernel: [entry per shape]}, ``calls`` per
-    segmenter training step."""
+    K, so their entries are the classifier's (``rows``), with the model's
+    calls.  -> {kernel: [entry per shape]}, ``calls`` per training
+    step."""
     from cloud_transformers_tpu_torch.ops import pallas_splat as ps
     out = {name: [] for name in ("splat_max", "slice_gather", "splat_max_bwd",
                                  "splat_route", "splat_max_winner",
                                  "slice_bwd")}
     for sizes, f, _, calls in POINT_SHAPES:
-        mapping, values, keys = mapping_inputs(sizes, f, gen, B, SEG_K)
+        mapping, values, keys = mapping_inputs(sizes, f, gen, b, k)
         splat_row, grid = check_splat(ps, mapping, values, sizes, f, calls)
         out["splat_max"].append(splat_row)
         touched = touched_rows(ps, mapping, sizes)
@@ -997,7 +1038,7 @@ def check_emd_kernels(gen):
                            lib.values[..., 1], plain[1], LIB_TOL))
         del lib
         rows["top2"].append(dict(
-            shape=f"B={b} W={w} M={m}", b=b, w=w, calls=0.0,
+            shape=f"B={b} W={w} M={m}", b=b, w=w, m=m, calls=0.0,
             max_abs_err=err, library_err=lib_err,
             plan=pe.top2_plan(b, w, m)._asdict(),
             ms=cuda_ms(lambda: pe.top2(x1, x2, price)),
@@ -1140,7 +1181,8 @@ def per_shape(name, s, per):
 
 def per_pass(name, done, per):
     """The sum over shapes of one pass at other rows than the classifier's
-    (a completion decoder step, a segmenter step), and its shapes."""
+    (a completion decoder step, a segmenter step, a reconstructor step),
+    and its shapes."""
     out = {"ms": sum(c["ms"] * c["calls"] for c in done),
            "plain_ms": sum(c["plain_ms"] * c["calls"] for c in done),
            "bound_ms": sum(c["bound"][0] * c["calls"] for c in done)}
@@ -1155,16 +1197,18 @@ def per_pass(name, done, per):
     return out
 
 
-def kernel_line(rows, launches, completion_rows, segmenter_rows):
+def kernel_line(rows, launches, completion_rows, segmenter_rows,
+                reconstructor_rows):
     """Per kernel: times summed over the calls of one pass of its path
     (each shape times its calls): one forward for the three kernels of the
     serving path, one training step of the classifier for the three
     backward kernels, one training step of the completion model for
     ``top2``, the one checked call for ``auction_window``; beside them, a
-    completion decoder step and a segmenter step (``completion_rows``,
-    ``segmenter_rows``).  ``launches`` is {path: {kernel: count}}: a
-    kernel's ``launches`` is the count of its path's run (``MAIN_PATH``),
-    and every path's count stands beside it."""
+    completion decoder step, a segmenter step and a reconstructor step
+    (``completion_rows``, ``segmenter_rows``, ``reconstructor_rows``).
+    ``launches`` is {path: {kernel: count}}: a kernel's ``launches`` is the
+    count of its path's run (``MAIN_PATH``), and every path's count stands
+    beside it."""
     times_are = {"serving": "per_forward", "training": "per_step",
                  "completion": "per_completion_step",
                  "window": "per_call_from_the_checked_state",
@@ -1219,6 +1263,9 @@ def kernel_line(rows, launches, completion_rows, segmenter_rows):
             **({"per_segmenter_step": per_pass(
                 name, seg, "per_segmenter_step")}
                if (seg := segmenter_rows.get(name)) else {}),
+            **({"per_reconstructor_step": per_pass(
+                name, rec, "per_reconstructor_step")}
+               if (rec := reconstructor_rows.get(name)) else {}),
         })
     return {"kernels": out}
 
@@ -1562,18 +1609,22 @@ def gradient_parity():
             **{f"parity_{k}": v for k, v in result.items()}}
 
 
-def card_cpu_gradients(model_name, model_kw, batch, loss_fn, what):
+def card_cpu_gradients(model_name, model_kw, batch, loss_fn, what,
+                       cut=None):
     """One forward + backward of the model ``model_name`` (``model_kw``,
-    weights from seed 1, train mode) on ``batch`` on the card and on the
-    CPU: the loss within 1e-4 (relative), the concatenated gradient with
-    cosine > 0.999 and median error <= 1e-3 of its scale.  -> (result
-    dict, {device: the loss function's aux outputs})."""
+    cut in depth by ``cut(model)`` where given, weights from seed 1, train
+    mode) on ``batch`` on the card and on the CPU: the loss within 1e-4
+    (relative), the concatenated gradient with cosine > 0.999 and median
+    error <= 1e-3 of its scale.  -> (result dict, {device: the loss
+    function's aux outputs})."""
     from cloud_transformers_tpu_torch.models import get_model
     from cloud_transformers_tpu_torch.nn.init import init_model_
 
     runs, aux = {}, {}
     for device in ("cuda", "cpu"):
         model = get_model(model_name, **model_kw)
+        if cut is not None:
+            cut(model)
         init_model_(model, torch.Generator().manual_seed(1))
         model = model.to(device).train()
         t0 = time.perf_counter()
@@ -1815,24 +1866,9 @@ def completion_phase(wrappers, smi, profile_dir, exp_root):
     # branches as the classifier's
     switched_launches = {}
     for name in SETS:
-        with switches(name), EmdRecorder() as rec:
-            zero_launches(wrappers)
-            metrics = trainer.train_step(next(batches))
-            torch.cuda.synchronize()
-            got = read_launches(wrappers)
-        expect = set_counts(name, PER_STEP_COMPLETION["splat_max"],
-                            PER_STEP_COMPLETION["slice_gather"], True)
-        expect["top2"] = sum(rec.rounds)
-        check_launches(got, expect, 1, f"completion step under {name}")
-        loss = float(metrics["loss"])
-        bad = [n for n, p in model.named_parameters()
-               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
-        if not np.isfinite(loss) or bad:
-            raise AssertionError(f"completion step under {name}: loss {loss}, "
-                                 f"missing or non-finite gradients {bad[:5]}")
-        result[f"completion_{name}_loss"] = loss
-        switched_launches[name] = got
-        log(f"completion step under {name}: loss {loss:.6f}, launches {got}")
+        result[f"completion_{name}_loss"], switched_launches[name] = \
+            emd_step_under_set(name, trainer, batches, wrappers,
+                               PER_STEP_COMPLETION, "completion")
 
     # checkpoint: save, restore into a fresh model, same reconstruction
     path = trainer.save()
@@ -1882,6 +1918,30 @@ def completion_phase(wrappers, smi, profile_dir, exp_root):
     eval_widths = {k: v / EVAL_CLOUDS for k, v in rec.widths.items()}
     return result, launches, eval_launches, widths_per_step, eval_widths, \
         switched_launches
+
+
+def emd_step_under_set(name, trainer, batches, wrappers, per_step, what):
+    """One training step of a model trained on the EMD under the set of
+    switches ``name``: its launches (``per_step``'s splats and slices as
+    ``set_counts`` moves them, one ``top2`` a round), a finite loss and
+    gradients.  -> (the loss, the launches)."""
+    with switches(name), EmdRecorder() as rec:
+        zero_launches(wrappers)
+        metrics = trainer.train_step(next(batches))
+        torch.cuda.synchronize()
+        got = read_launches(wrappers)
+    expect = set_counts(name, per_step["splat_max"], per_step["slice_gather"],
+                        True)
+    expect["top2"] = sum(rec.rounds)
+    check_launches(got, expect, 1, f"{what} step under {name}")
+    loss = float(metrics["loss"])
+    bad = [n for n, p in trainer.model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if not np.isfinite(loss) or bad:
+        raise AssertionError(f"{what} step under {name}: loss {loss}, "
+                             f"missing or non-finite gradients {bad[:5]}")
+    log(f"{what} step under {name}: loss {loss:.6f}, launches {got}")
+    return loss, got
 
 
 def kernel_device_ms(run, part):
@@ -2249,6 +2309,243 @@ def segmenter_parity():
             **{f"segmenter_parity_{k}": v for k, v in result.items()}}
 
 
+def reconstructor_phase(wrappers, smi, profile_dir, exp_root):
+    """The fifth path: the full-width ``image_reconstructor`` of
+    ``configs/reconstruction.yaml`` (ResNet-50, the 12-block AdaIN
+    decoder) trained through the Trainer on synthetic images (B=4 x 128^2,
+    8192 sphere-noise and ground-truth points, the EMD loss at eps 0.005
+    and 50 rounds, the config's loader workers): one warm-up step,
+    REC_STEPS timed and counted steps, a forward, backward and update
+    under ``set_sync_debug_mode("error")``, a step under each set, and the
+    F-score protocol on one batch of REC_B test images (two merged passes
+    of 8192 points, 10000 ground-truth points).  -> (result dict, {path:
+    launches}, bid searches per step by (batch, width))."""
+    from cloud_transformers_tpu_torch import eval_reconstruction_f1
+    from cloud_transformers_tpu_torch.core.noise import sphere_noise
+    from cloud_transformers_tpu_torch.data import DataLoader, ImageToPoint
+    from cloud_transformers_tpu_torch.tasks import reconstruction
+    from cloud_transformers_tpu_torch.train.config import (
+        load_config,
+        model_from_config,
+    )
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs", "reconstruction.yaml"))
+    d = cfg["data"]
+    if (d["batch_size"], d["im_size"], d["gt_size"]) != (REC_B, REC_IM,
+                                                         REC_K):
+        raise AssertionError("configs/reconstruction.yaml is not B=4 x "
+                             "128^2 images, 8192 points")
+    cfg["experiment"] = {"root": exp_root}
+    cfg["train"]["save"] = False
+    gens = {"train": torch.Generator("cuda").manual_seed(1)}
+    trainer = Trainer(model_from_config(cfg), cfg, "chip_smoke_reconstructor",
+                      reconstruction.make_loss_fn(gens["train"]),
+                      device="cuda", seed=0, generators=gens)
+    model = trainer.model
+    if (len(model.res50.trunk.blocks), len(model.decoder.stages),
+            model.start_conv.out_features, model.mapping.out_features) \
+            != (16, 4, 512, 512):
+        raise AssertionError("the reconstructor is not the full-width one")
+    train_loader, _ = reconstruction.make_datasets(cfg, synthetic=True)
+    if train_loader.num_workers != d["num_workers"]:
+        raise AssertionError("the loader does not use the config's workers")
+    batches = endless(train_loader)
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(next(batches))            # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    step_ms, losses, chamfer = [], [], []
+    with EmdRecorder() as rec:
+        zero_launches(wrappers)
+        for _ in range(REC_STEPS):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"])
+            chamfer.append(metrics["loss_chamfer"])
+        launches = {"reconstructor": read_launches(wrappers)}
+        emd_ms = rec.ms()
+    peak = torch.cuda.max_memory_allocated()
+    expect = {name: PER_STEP_RECONSTRUCTOR.get(name, 0) * REC_STEPS
+              for name in launches["reconstructor"]}
+    expect["top2"] = sum(rec.rounds)
+    if launches["reconstructor"] != expect or \
+            sum(rec.widths.values()) != expect["top2"]:
+        raise AssertionError(
+            f"reconstructor training: launches {launches['reconstructor']}, "
+            f"expected {expect}; bid searches {rec.widths}")
+    log(f"launches in {REC_STEPS} reconstructor steps: "
+        f"{launches['reconstructor']}; rounds per auction {rec.rounds}; "
+        f"bid searches by (B, W) {rec.widths}")
+    a = rec.assignment
+    if a.shape != (REC_B, REC_K) or int(a.min()) < 0 or \
+            int(a.max()) >= REC_K:
+        raise AssertionError("reconstructor training: assignment out of "
+                             "range")
+    losses = torch.stack(losses).cpu().numpy()
+    chamfer = torch.stack(chamfer).cpu().numpy()
+    if not (np.isfinite(losses).all() and np.isfinite(chamfer).all()):
+        raise AssertionError(f"reconstructor: losses {losses}, Chamfer "
+                             f"{chamfer}")
+    scale_grads = {}
+    for name, param in model.named_parameters():
+        if param.grad is None or not bool(torch.isfinite(param.grad).all()):
+            raise AssertionError(f"{name}: missing or non-finite gradient")
+        if name.startswith("decoder.") and name.endswith(".scale") \
+                and param.dim() == 0:
+            scale_grads[name] = float(param.grad.abs())
+    if len(scale_grads) != 24 or not all(g > 0 for g in scale_grads.values()):
+        raise AssertionError("a decoder key scale has no gradient: the key "
+                             f"path is not connected ({scale_grads})")
+    stem_grad = float(model.res50.trunk.stem_conv.weight.grad.abs().max())
+    if not stem_grad > 0:
+        raise AssertionError("the ResNet's stem has no gradient")
+    if trainer.global_step != REC_STEPS + 1:
+        raise AssertionError(f"trainer step count {trainer.global_step}")
+
+    # the model's forward, backward and update never make the host wait;
+    # the auction does, once a round, and is left out of this check
+    batch = trainer.to_device(next(batches))
+    noise = sphere_noise(gens["train"], REC_B, REC_K, "cuda")
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.optimizer.zero_grad()
+        recon, _ = model(noise, batch["image"])
+        (recon - batch["pcd"]).square().mean().backward()
+        trainer.optimizer.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("reconstructor step: no host-device synchronisation")
+
+    ms = float(np.median(step_ms))
+    result = {
+        "reconstructor_ms_per_step": ms,
+        "reconstructor_images_per_s": REC_B * 1e3 / ms,
+        "reconstructor_ms_mean": float(np.mean(step_ms)),
+        "reconstructor_ms_p10": float(np.percentile(step_ms, 10)),
+        "reconstructor_ms_p90": float(np.percentile(step_ms, 90)),
+        "reconstructor_steps": REC_STEPS,
+        "reconstructor_peak_memory_bytes": int(peak),
+        "reconstructor_emd_ms_per_step": float(np.median(emd_ms)),
+        "reconstructor_emd_share_of_step": float(np.sum(emd_ms)
+                                                 / np.sum(step_ms)),
+        "reconstructor_emd_rounds": rec.rounds,
+        "reconstructor_loss_first": float(losses[0]),
+        "reconstructor_loss_last": float(losses[-1]),
+        "reconstructor_chamfer_first": float(chamfer[0]),
+        "reconstructor_chamfer_last": float(chamfer[-1]),
+        "reconstructor_scale_grad_min": min(scale_grads.values()),
+        "reconstructor_stem_grad_max": stem_grad,
+        "reconstructor_loader_workers": train_loader.num_workers,
+        "batch": REC_B, "image_size": REC_IM, "points": REC_K}
+    widths_per_step = {k: v / REC_STEPS for k, v in rec.widths.items()}
+
+    if profile_dir:
+        result.update(profiled_steps(
+            trainer, batches, smi,
+            os.path.join(profile_dir, "profile_reconstructor.txt"),
+            "reconstructor_"))
+
+    # one training step under each set: the decoder's AdaIN blocks take
+    # the same branches as the completion decoder's
+    for name in SETS:
+        result[f"reconstructor_{name}_loss"], \
+            launches[f"reconstructor_{name}"] = emd_step_under_set(
+                name, trainer, batches, wrappers, PER_STEP_RECONSTRUCTOR,
+                "reconstructor")
+    batches.close()
+
+    # the F-score protocol: two merged passes of 8192 points an image
+    ds = ImageToPoint(split="test", im_size=REC_IM, points=REC_EVAL_POINTS)
+    loader = DataLoader(ds, d["batch_size_val"], shuffle=False,
+                        drop_last=False)
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    per_class = eval_reconstruction_f1.evaluate(
+        model, loader, torch.Generator("cuda").manual_seed(2), "cuda",
+        limit=1)
+    eval_s = time.perf_counter() - t0
+    launches["reconstructor_evaluation"] = read_launches(wrappers)
+    check_launches(launches["reconstructor_evaluation"],
+                   PER_FORWARD_RECONSTRUCTOR, 2,
+                   "reconstructor evaluation: two forwards")
+    table = eval_reconstruction_f1.format_table(per_class, ds.class_names)
+    log(table)
+    m = per_class.get(0, {})
+    flat = [v for key in ("f", "p", "r") for v in m.get(key, [])]
+    if list(per_class) != [0] or len(m["f"]) != d["batch_size_val"] or \
+            not np.isfinite(flat).all():
+        raise AssertionError(f"reconstructor evaluation: bad table\n{table}")
+    result.update({
+        "eval_images": len(m["f"]), "eval_f_score": float(np.mean(m["f"])),
+        "eval_precision": float(np.mean(m["p"])),
+        "eval_recall": float(np.mean(m["r"])),
+        "eval_seconds_per_image": float(np.median(m["seconds"])),
+        "eval_seconds": eval_s})
+    return result, launches, widths_per_step
+
+
+def reconstructor_parity():
+    """The reconstructor on the card against the CPU: the full-width model
+    with its full ResNet-50 and one decoder stage, B=1 x 8192 points and a
+    128^2 synthetic image, train mode, the same weights and noise: its
+    output by the PARITY.md criteria, the gradients of the mean squared
+    distance to the ground truth (no auction in it, so that the auction's
+    ties do not enter) by ``card_cpu_gradients``' gates, and the training
+    loss's EMD of each device's output (its first 2048 points against the
+    ground truth's) within 2%."""
+    from cloud_transformers_tpu_torch.core.noise import sphere_noise
+    from cloud_transformers_tpu_torch.data import ImageToPoint
+    from cloud_transformers_tpu_torch.losses import loss_emd
+
+    item = ImageToPoint(split="test", im_size=REC_IM, points=REC_K)[0]
+    batch = {"image": torch.as_tensor(item["image"])[None],
+             "pcd": torch.as_tensor(item["pcd"])[None],
+             "noise": sphere_noise(torch.Generator().manual_seed(3), 1,
+                                   REC_K)}
+
+    def cut(model):
+        model.decoder.stages = model.decoder.stages[:1]
+
+    def loss_fn(model, batch):
+        recon, _ = model(batch["noise"], batch["image"])
+        return (recon - batch["pcd"]).square().sum(-1).mean(), \
+            recon.detach()
+    result, recon = card_cpu_gradients(
+        "image_reconstructor", {}, batch, loss_fn,
+        "reconstructor gradient parity", cut=cut)
+    cos, p50 = parity(recon["cuda"].cpu(), recon["cpu"],
+                      f"reconstruction {list(recon['cpu'].shape)}")
+    # the training loss's EMD on the first REC_PARITY_EMD_N points of each
+    # output and of the ground truth (the CPU's auction at 8192 points
+    # takes most of a minute)
+    emd = {}
+    n = REC_PARITY_EMD_N
+    for device, out in recon.items():
+        t0 = time.perf_counter()
+        emd[device] = float(loss_emd(out[:, :n].contiguous(),
+                                     batch["pcd"][:, :n].to(device)))
+        log(f"reconstructor parity: {device} EMD {emd[device]:.7f} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    rel = abs(emd["cuda"] - emd["cpu"]) / emd["cpu"]
+    if not rel <= 0.02:
+        raise AssertionError(f"reconstructor EMD card {emd['cuda']} vs CPU "
+                             f"{emd['cpu']}")
+    return {"reconstructor_parity_output_cosine": cos,
+            "reconstructor_parity_output_p50": p50,
+            "reconstructor_parity_loss_emd_rel_diff": rel,
+            "reconstructor_parity_loss_emd_points": n,
+            **{f"reconstructor_parity_{k}": v for k, v in result.items()}}
+
+
 def profiled_steps(trainer, batches, smi, path, prefix):
     """PROFILE_STEPS more training steps under torch.profiler: the device
     kernels by group in ``path``.  -> {prefix + profiled_...}: the host
@@ -2286,7 +2583,9 @@ def main():
                          "device idle share, and the tables in "
                          "DIR/profile_forward.txt, DIR/profile_train.txt, "
                          "DIR/profile_completion.txt, "
-                         "DIR/profile_segmenter.txt and, under each set, "
+                         "DIR/profile_segmenter.txt, "
+                         "DIR/profile_reconstructor.txt and, under each "
+                         "set, "
                          "DIR/profile_{forward,train}_set_{a,b}.txt")
     args = ap.parse_args()
 
@@ -2338,7 +2637,8 @@ def main():
     rows = check_kernels(gen)
     rows.update(check_emd_kernels(gen))
     completion_rows = check_completion_rows(gen)
-    segmenter_rows = check_segmenter_rows(gen, rows)
+    segmenter_rows = check_trunk_rows(gen, rows, B, SEG_K)
+    reconstructor_rows = check_trunk_rows(gen, rows, REC_B, REC_K)
     torch.cuda.empty_cache()
     log(f"kernel checks done in {time.perf_counter() - t0:.1f} s")
 
@@ -2488,7 +2788,28 @@ def main():
     all_launches.update(segmenter_launches)
     log(f"segmenter phase done in {time.perf_counter() - t0:.1f} s")
 
-    # 12. results
+    # 12. the fifth path: the single-view reconstructor's training at B=4
+    # x 128^2 images and 8192 points, both sets, the F-score protocol, and
+    # the card against the CPU
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as exp_root:
+        rebuilt, reconstructor_launches, rec_widths = reconstructor_phase(
+            wrappers, smi, args.profile, exp_root)
+    torch.cuda.empty_cache()
+    rebuilt.update(reconstructor_parity())
+    all_launches.update(reconstructor_launches)
+    reconstructor_rows["top2"] = [
+        {k: v for k, v in row.items() if k != "calls_per_evaluated_cloud"}
+        | {"calls": rec_widths.get((row["b"], row["w"]), 0.0)}
+        for row in rows["top2"] if (row["b"], row["m"]) == (REC_B, REC_K)]
+    if round(sum(r["calls"] for r in reconstructor_rows["top2"])
+             * REC_STEPS) != reconstructor_launches["reconstructor"]["top2"]:
+        raise AssertionError("a bid search of the reconstructor step ran at "
+                             f"a width that was not checked: {rec_widths}")
+    log(f"reconstructor phase done in {time.perf_counter() - t0:.1f} s")
+
+    # 13. results
     log(f"{ms_fwd:.3f} ms/forward (median) at B={B} x {K} points, "
         f"{B * 1e3 / ms_fwd:.2f} clouds/s "
         f"({len(batches)} classify calls, host clock, synchronised)")
@@ -2531,10 +2852,24 @@ def main():
     print(json.dumps({"segmenter": segmented, "segmenter_launches": {
         path: {k: v for k, v in counts.items() if v}
         for path, counts in segmenter_launches.items()}}), flush=True)
+    log(f"{rebuilt['reconstructor_ms_per_step']:.3f} ms/step (median) for "
+        f"the reconstructor at B={REC_B} x {REC_IM}^2 images, {REC_K} "
+        f"points, {rebuilt['reconstructor_images_per_s']:.2f} images/s, peak "
+        f"memory {rebuilt['reconstructor_peak_memory_bytes'] / 2 ** 30:.2f} "
+        f"GiB, EMD {100 * rebuilt['reconstructor_emd_share_of_step']:.1f}% "
+        f"of a step; F-score {rebuilt['eval_f_score']:.4f} at "
+        f"{rebuilt['eval_seconds_per_image']:.3f} s/image; card vs CPU "
+        f"cosine {rebuilt['reconstructor_parity_output_cosine']:.7f} "
+        f"(output), {rebuilt['reconstructor_parity_grad_cosine']:.7f} "
+        f"(gradients)")
+    print(json.dumps({"reconstructor": rebuilt, "reconstructor_launches": {
+        path: {k: v for k, v in counts.items() if v}
+        for path, counts in reconstructor_launches.items()}}), flush=True)
     all_launches.update(completion=completion_launches,
                         evaluation=eval_launches, window=window_launches)
     print(json.dumps(kernel_line(rows, all_launches, completion_rows,
-                                 segmenter_rows)), flush=True)
+                                 segmenter_rows, reconstructor_rows)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,9 +11,15 @@ after ``jax.device_get``) and returns tensors under the port's module names:
 * ``nn.scan``'s stacked leading axis of length ``repeats`` under any
   ``.../stages`` (the classifier's ``backbone/trunk/stages``, the
   inpainter's ``decoder/stages``) -> one entry per stage ``stages.<r>``;
-* an AdaIN's auto-named ``Dense_0`` -> ``dense``;
-* the Res trunks' auto-named ``Res{3,2}DBlock_i/{Conv,BatchNorm}_j`` ->
-  ``res{3,2}d.<i>.{conv1,bn1,conv2,bn2,skip_conv,skip_bn}``;
+* the auto-named layers, each by its parent's rule: an AdaIN's
+  (``*_adain``, or the root of a bare ``AdaIn1d``'s tree) ``Dense_0`` ->
+  ``dense``; the Res trunks'
+  ``Res{3,2}DBlock_i/{Conv,BatchNorm}_j`` ->
+  ``res{3,2}d.<i>.{conv1,bn1,conv2,bn2,skip_conv,skip_bn}``; the ResNet's
+  stem ``trunk/{Conv,BatchNorm}_0`` (in the node that holds the
+  ``Bottleneck_i``, and only there) -> ``trunk.{stem_conv,stem_bn}`` and
+  its ``Bottleneck_i/{Conv,BatchNorm}_j`` -> ``blocks.<i>.{conv1..3,
+  bn1..3,downsample_conv,downsample_bn}``;
 * BatchNorm ``scale``/``bias``/``mean``/``var`` and the frames' ``log_R``/
   ``shift`` keep their names.
 
@@ -30,7 +36,14 @@ import torch
 
 _BLOCK_PARTS = {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2",
                 "BatchNorm_1": "bn2", "Conv_2": "skip_conv",
-                "BatchNorm_2": "skip_bn", "Dense_0": "dense"}
+                "BatchNorm_2": "skip_bn"}
+_BOTTLENECK_PARTS = {"Conv_0": "conv1", "BatchNorm_0": "bn1",
+                     "Conv_1": "conv2", "BatchNorm_1": "bn2",
+                     "Conv_2": "conv3", "BatchNorm_2": "bn3",
+                     "Conv_3": "downsample_conv",
+                     "BatchNorm_3": "downsample_bn"}
+_STEM_PARTS = {"Conv_0": "stem_conv", "BatchNorm_0": "stem_bn"}
+_ADAIN_PARTS = {"Dense_0": "dense"}
 
 
 def _flatten(tree, prefix=()):
@@ -41,14 +54,35 @@ def _flatten(tree, prefix=()):
             yield prefix + (str(key),), np.asarray(val)
 
 
-def _rename(path):
-    out = []
-    for part in path:
-        m = re.fullmatch(r"Res([23])DBlock_(\d+)", part)
+def _parts_under(parent, is_resnet_trunk):
+    """The renames of the auto-named layers directly under ``parent``;
+    ``is_resnet_trunk``: ``parent`` holds ``Bottleneck_i`` blocks."""
+    if re.fullmatch(r"Res[23]DBlock_\d+", parent):
+        return _BLOCK_PARTS
+    if re.fullmatch(r"Bottleneck_\d+", parent):
+        return _BOTTLENECK_PARTS
+    if is_resnet_trunk:
+        return _STEM_PARTS
+    if parent.endswith("adain") or not parent:
+        # an AdaIN's, or at the root the tree of a bare ``AdaIn1d``
+        return _ADAIN_PARTS
+    return {}
+
+
+def _rename(path, resnet_trunks):
+    """``resnet_trunks``: the paths (tuples) of the nodes that hold
+    ``Bottleneck_i`` blocks, whose ``Conv_0``/``BatchNorm_0`` are the
+    stem's."""
+    out, parent = [], ""
+    for k, part in enumerate(path):
+        m = re.fullmatch(r"(Res[23]DBlock|Bottleneck)_(\d+)", part)
         if m:
-            out += [f"res{m.group(1)}d", m.group(2)]
+            out += [{"Res2DBlock": "res2d", "Res3DBlock": "res3d",
+                     "Bottleneck": "blocks"}[m.group(1)], m.group(2)]
         else:
-            out.append(_BLOCK_PARTS.get(part, part))
+            parts = _parts_under(parent, tuple(path[:k]) in resnet_trunks)
+            out.append(parts.get(part, part))
+        parent = part
     return out
 
 
@@ -65,7 +99,11 @@ def _leaf(name, ndim):
 def _entries(tree):
     """Every JAX leaf as (port name, axes, index of its stage or None,
     JAX path, JAX array)."""
-    for path, arr in _flatten(tree):
+    leaves = list(_flatten(tree))
+    resnet_trunks = {path[:k] for path, _ in leaves
+                     for k, part in enumerate(path)
+                     if re.fullmatch(r"Bottleneck_\d+", part)}
+    for path, arr in leaves:
         if "stages" in path:
             i = path.index("stages") + 1
             stages = [(path[:i] + (str(r),) + path[i:], r)
@@ -74,7 +112,8 @@ def _entries(tree):
             stages = [(path, None)]
         for p, r in stages:
             name, axes = _leaf(p[-1], arr.ndim - (r is not None))
-            yield ".".join(_rename(p[:-1]) + [name]), axes, r, path, arr
+            key = ".".join(_rename(p[:-1], resnet_trunks) + [name])
+            yield key, axes, r, path, arr
 
 
 def jax_to_state_dict(variables):

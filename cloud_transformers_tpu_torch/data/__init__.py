@@ -2,9 +2,10 @@
 ``cloud_transformers_tpu/data``); numpy only."""
 
 from cloud_transformers_tpu_torch.data.completion import ShapeNetCompletion
+from cloud_transformers_tpu_torch.data.image_point import ImageToPoint
 from cloud_transformers_tpu_torch.data.loader import DataLoader, item_rng
 from cloud_transformers_tpu_torch.data.s3dis import Indoor3DSemSeg
 from cloud_transformers_tpu_torch.data.scanobjectnn import ScanObjectNN
 
-__all__ = ["DataLoader", "Indoor3DSemSeg", "ScanObjectNN",
+__all__ = ["DataLoader", "ImageToPoint", "Indoor3DSemSeg", "ScanObjectNN",
            "ShapeNetCompletion", "item_rng"]

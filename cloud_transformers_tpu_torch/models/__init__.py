@@ -1,6 +1,7 @@
 """Model registry of the port (counterpart of
 ``cloud_transformers_tpu/models/__init__.py``): the ScanObjectNN classifier,
-the ShapeNet completion inpainter and the S3DIS 1x1 segmenter."""
+the ShapeNet completion inpainter, the S3DIS 1x1 segmenter and the
+single-view reconstructor."""
 
 from typing import Any, Dict
 
@@ -26,6 +27,11 @@ def register(name):
     return deco
 
 
+def available_models():
+    """The registered names, sorted."""
+    return sorted(_REGISTRY)
+
+
 def get_model(name, **kwargs):
     """Instantiate a registered model with its constructor knobs; ``name`` is
     a registry name or one of the reference's ``generator`` paths (also
@@ -35,11 +41,14 @@ def get_model(name, **kwargs):
                                  key)
     if key not in _REGISTRY:
         raise KeyError(
-            f"unknown model {name!r}; available: {sorted(_REGISTRY)}")
+            f"unknown model {name!r}; available: {available_models()}")
     return _REGISTRY[key](**kwargs)
 
 
 # import for side-effect registration
 from cloud_transformers_tpu_torch.models import classifier  # noqa: E402,F401
 from cloud_transformers_tpu_torch.models import inpainter  # noqa: E402,F401
+from cloud_transformers_tpu_torch.models import (  # noqa: E402,F401
+    reconstructor,
+)
 from cloud_transformers_tpu_torch.models import segmenter  # noqa: E402,F401

@@ -2,7 +2,8 @@
 ``F.grid_sample`` call on the re-laid-out grid computes what the slice
 computes, here on the CPU at a small size.  And the kernel launches it
 expects per forward and per training step, on the default path and under
-each set of execution switches, are the full-width classifier's."""
+each set of execution switches, are the full-width classifier's, the
+S3DIS segmenter's and the single-view reconstructor's."""
 
 import contextlib
 
@@ -32,6 +33,21 @@ def test_grid_sample_matches_slice(sizes):
     want = ps.slice_plain(*mapping, grid, sizes)
     np.testing.assert_allclose(got.transpose(1, 2).numpy(), want.numpy(),
                                atol=chip_smoke.LIB_TOL)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread while a test runs a full-width model on the CPU.
+    The suite runs six worker processes on the CPU's cores, and a worker
+    whose own pool has a thread for every core oversubscribes them: a
+    classifier's forward and backward at 32 points took 267-427 s there
+    against 4 s alone (16-19 s alone on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _spy_launches(monkeypatch):
@@ -117,6 +133,45 @@ def test_expected_launches_are_the_full_width_segmenters(monkeypatch, name):
         runs["step"] = dict(calls)
     forward = chip_smoke.PER_FORWARD_SEGMENTER
     step = chip_smoke.PER_STEP_SEGMENTER
+    if name:
+        forward, step = (chip_smoke.set_counts(
+            name, per["splat_max"], per["slice_gather"], training)
+            for per, training in ((forward, False), (step, True)))
+        forward = {k: v for k, v in forward.items() if v}
+        step = {k: v for k, v in step.items() if v}
+    assert runs == {"forward": forward, "step": step}
+
+
+@pytest.mark.parametrize("name", (None,) + chip_smoke.SETS)
+def test_expected_launches_are_the_full_width_reconstructors(monkeypatch,
+                                                             name):
+    """The same for the single-view reconstructor: its AdaIN decoder's 24
+    head groups, per forward (``PER_FORWARD_RECONSTRUCTOR``, two of which
+    make an evaluated batch) and per training step of the task's loss
+    (``PER_STEP_RECONSTRUCTOR``; the auction's ``top2`` launches are
+    counted by rounds), on the default path and under each set; counted on
+    the CPU with one 32^2 image and 32 points."""
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.tasks import reconstruction
+    model = get_model("image_reconstructor")
+    rs = np.random.RandomState(0)
+    batch = {"image": torch.from_numpy(
+                 rs.randn(1, 32, 32, 3).astype(np.float32)),
+             "pcd": torch.from_numpy(rs.rand(1, 32, 3).astype(np.float32))}
+    noise = torch.from_numpy(rs.randn(1, 32, 3).astype(np.float32))
+    runs = {}
+    with chip_smoke.switches(name) if name else contextlib.nullcontext():
+        calls = _spy_launches(monkeypatch)
+        with torch.no_grad():
+            model.eval()(noise, batch["image"])
+        runs["forward"] = dict(calls)
+        calls.clear()
+        loss, _ = reconstruction.make_loss_fn(
+            torch.Generator().manual_seed(0))(model.train(), batch)
+        loss.backward()
+        runs["step"] = dict(calls)
+    forward = chip_smoke.PER_FORWARD_RECONSTRUCTOR
+    step = chip_smoke.PER_STEP_RECONSTRUCTOR
     if name:
         forward, step = (chip_smoke.set_counts(
             name, per["splat_max"], per["slice_gather"], training)

@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``cloud_transformers_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX, flax, optax, orbax, the JAX package or
 ``tools``: the training modules (trainer, logger, optimizer, checkpoints,
-data, tasks, command lines), the completion path's modules and the S3DIS
-segmenter's too."""
+data, tasks, command lines), the completion path's modules, the S3DIS
+segmenter's and the single-view reconstructor's too."""
 
 import os
 import subprocess
@@ -30,7 +30,11 @@ missing = [m for m in ("train.trainer", "train.optim", "train.config",
                        "tasks.completion", "train.checkpoint",
                        "train_inpainter", "eval_inpainting",
                        "train.logging", "data.s3dis", "models.segmenter",
-                       "tasks.segmentation", "train_segmentation")
+                       "tasks.segmentation", "train_segmentation",
+                       "nn.resnet", "data.image_point",
+                       "models.reconstructor", "tasks.reconstruction",
+                       "train_image_reconstruction",
+                       "eval_reconstruction_f1")
            if "cloud_transformers_tpu_torch." + m not in mods]
 print(len(mods), bad + missing)
 """
@@ -44,5 +48,5 @@ def test_port_imports_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) > 48
+    assert int(n) > 54
     assert bad == "[]", bad

@@ -445,13 +445,14 @@ def _slice_inputs(gen, sizes, f, b, h, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [2048, 4096])
+@pytest.mark.parametrize("b,k", [(8, 2048), (8, 4096), (4, 8192)])
 @pytest.mark.parametrize("sizes,f", SLICE_SHAPES)
-def test_slice_kernel_at_the_classifier_shapes(gen, sizes, f, k):
+def test_slice_kernel_at_the_classifier_shapes(gen, sizes, f, b, k):
     """R = 128 rows of K = 2048 points (the classifier's) and 4096 (the
-    S3DIS segmenter's), as a forward gives them: within 1e-5 of the plain
-    version, and two calls equal."""
-    mapping, grid = _slice_inputs(gen, sizes, f, 8, 16, k)
+    S3DIS segmenter's), and R = 64 rows of K = 8192 (the reconstructor
+    decoder's), as a forward gives them: within 1e-5 of the plain version,
+    and two calls equal."""
+    mapping, grid = _slice_inputs(gen, sizes, f, b, 16, k)
     out = tps.slice_gather(*mapping, grid, sizes)
     _close(out, tps.slice_plain(*mapping, grid, sizes), 1e-5)
     assert torch.equal(out, tps.slice_gather(*mapping, grid, sizes))
@@ -516,9 +517,11 @@ def _top2_equal(x1, x2, price):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,w,m", [(b, w, 16384) for b in (2, 1)
                                    for w in (16384, 2048, 1024, 512, 256)]
+                         + [(4, w, 8192) for w in (8192, 1024, 512, 256)]
                          + [(2, 777, 3001), (1, 300, 1), (2, 513, 65)])
 def test_top2_kernel_bit_equal_at_the_staged_widths(gen, b, w, m):
-    """Every width of the staged schedule, a shape that is a multiple of
+    """Every width of the staged schedule (the completion model's N = 16384
+    and the reconstructor's B = 4 x 8192), a shape that is a multiple of
     nothing, one target, a chunk of the minimum length: values and indices
     bit for bit, with the square-root skip on and off."""
     x1 = torch.rand(b, w, 3, generator=gen, device="cuda") * 2 - 1
@@ -1233,13 +1236,15 @@ def _splat_both(gen, mapping, values, sizes):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,k", [(8, 2048), (2, 16384), (8, 4096)])
+@pytest.mark.parametrize("b,k", [(8, 2048), (2, 16384), (8, 4096),
+                                 (4, 8192)])
 @pytest.mark.parametrize("sizes,f", SLICE_SHAPES)
 def test_splat_kernels_at_the_model_shapes(gen, sizes, f, b, k):
     """The classifier's rows (B = 8 x 16 heads x 2048 points), the
-    completion decoder's (B = 2 x 16 x 16384) and the S3DIS segmenter's
+    completion decoder's (B = 2 x 16 x 16384), the S3DIS segmenter's
     (B = 8 x 16 x 4096, where every row's chunk takes two scans or more
-    chunks) at every head group."""
+    chunks) and the reconstructor decoder's (B = 4 x 16 x 8192) at every
+    head group."""
     mapping, values = _mapping(gen, sizes, b, 16, k, f, ties=False)
     _splat_both(gen, mapping, values, sizes)
 
@@ -1392,13 +1397,15 @@ def _slice_bwd_check(mapping, g_pts, grid, sizes, runs=5):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,k", [(8, 2048), (2, 16384), (8, 4096)])
+@pytest.mark.parametrize("b,k", [(8, 2048), (2, 16384), (8, 4096),
+                                 (4, 8192)])
 @pytest.mark.parametrize("sizes,f", SLICE_SHAPES)
 def test_slice_bwd_at_the_model_shapes(gen, sizes, f, b, k):
     """The classifier's rows (B = 8 x 16 heads x 2048 points), the
-    completion decoder's (B = 2 x 16 x 16384) and the S3DIS segmenter's
-    (B = 8 x 16 x 4096, one bit less fixed-point headroom) at every head
-    group, on a grid of the forward's kind."""
+    completion decoder's (B = 2 x 16 x 16384), the S3DIS segmenter's
+    (B = 8 x 16 x 4096, one bit less fixed-point headroom) and the
+    reconstructor decoder's (B = 4 x 16 x 8192) at every head group, on a
+    grid of the forward's kind."""
     mapping, values = _mapping(gen, sizes, b, 16, k, f, ties=False)
     grid = tps.splat_max(*mapping, values, sizes)
     g_pts = torch.randn(values.shape, generator=gen, device="cuda")

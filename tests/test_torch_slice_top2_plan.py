@@ -20,6 +20,9 @@ from cloud_transformers_tpu_torch.ops import pallas_splat as tps
 
 # the widths of the staged bid schedule at N = 16384 (losses/emd.py)
 STAGED_WIDTHS = (16384, 2048, 1024, 512, 256)
+# the reconstructor's auction: B = 4 clouds of N = 8192, whose staged
+# widths are N, N/8, N/16, N/32 (N/64 is below 256)
+RECONSTRUCTOR_SHAPES = [(4, w, 8192) for w in (8192, 1024, 512, 256)]
 
 
 def _slice_cover(plan, n, feat):
@@ -57,18 +60,20 @@ def test_slice_plan_reaches_every_point_and_feature_once(sizes, points):
 
 
 def test_slice_plan_at_the_model_shapes():
-    """At the classifier's launches (R = 128, K = 2048) and the S3DIS
-    segmenter's (K = 4096) a thread takes 2 to 4 points and the launch
-    fills the card, every (point, feature) of the segmenter's rows reached
-    once; every head group of the completion model (and so of the
+    """At the classifier's launches (R = 128, K = 2048), the S3DIS
+    segmenter's (K = 4096) and the reconstructor decoder's (R = 64,
+    K = 8192) a thread takes 2 to 4 points and the launch fills the card,
+    every (point, feature) of the segmenter's and the reconstructor's rows
+    reached once; every head group of the completion model (and so of the
     classifier) reads float4 rows."""
     for sizes, feat in [((128, 128), 4), ((32, 32, 32), 4), ((64, 64), 16),
                         ((16, 16, 16), 16), ((16, 16), 16), ((8, 8, 8), 32)]:
-        for points in (2048, 4096):
-            plan = tps.slice_plan(128, points, feat, sizes)
+        for rows, points in ((128, 2048), (128, 4096), (64, 8192)):
+            plan = tps.slice_plan(rows, points, feat, sizes)
             assert plan.vec and 2 <= plan.points_per_thread <= 4
             assert plan.blocks * plan.threads >= tps.SLICE_FILL_THREADS
-        assert (_slice_cover(plan, 128 * 4096, feat) == 1).all()
+            if points > 2048:
+                assert (_slice_cover(plan, rows * points, feat) == 1).all()
     for feats, _, sizes, dims in DEFAULT_STAGE_PLAN:
         for feat, size, dim in zip(feats, sizes, dims):
             assert tps.slice_plan(16, 2048, feat, (size,) * dim).vec
@@ -136,6 +141,33 @@ def test_top2_plan_fills_the_card_at_every_staged_width(b, w):
     assert (per_bidder == 1).all()
     partial = 3 * plan.chunks * b * w if plan.merge else 0
     assert plan.scratch_floats == partial
+
+
+@pytest.mark.parametrize("b,w,m", RECONSTRUCTOR_SHAPES)
+def test_top2_plan_at_the_reconstructors_widths(b, w, m):
+    """The bid search at the reconstructor's shapes fills the card and
+    takes every (row, bidder, target) once.  The blocks' pairs are the
+    product of their bidders and their chunk's targets, so the cover is
+    counted per bidder and per target (a dense count at 4 x 8192 x 8192
+    would take 2 GiB)."""
+    plan = tpe.top2_plan(b, w, m)
+    assert plan.blocks == b * plan.bidder_blocks * plan.chunks
+    assert plan.blocks >= tpe.SMS
+    assert plan.chunk_len >= tpe.TOP2_MIN_CHUNK
+    assert plan.merge == (plan.chunks > 1)
+    groups = plan.threads // plan.group
+    per_group = plan.bidders_per_block // groups
+    bidders = np.zeros(w, np.int64)
+    for x in range(plan.bidder_blocks):
+        j = ((x * groups + np.arange(groups)[:, None]) * per_group
+             + np.arange(per_group)[None, :]).ravel()
+        bidders[j[j < w]] += 1
+    targets = np.zeros(m, np.int64)
+    for c in range(plan.chunks):
+        targets[c * plan.chunk_len:min(m, (c + 1) * plan.chunk_len)] += 1
+    assert (bidders == 1).all() and (targets == 1).all()
+    assert plan.scratch_floats == (3 * plan.chunks * b * w if plan.merge
+                                   else 0)
 
 
 def _chunked(x1, x2, price, bounds):
@@ -229,7 +261,7 @@ def test_slice_entry_integers_follow_the_plan(sizes, feat):
 
 
 @pytest.mark.parametrize("b,w,m", [(2, 16384, 16384), (1, 256, 16384),
-                                   (2, 777, 3001)])
+                                   (2, 777, 3001), (4, 8192, 8192)])
 @pytest.mark.parametrize("skip", [None, True, False])
 def test_top2_entry_integers_follow_the_plan(b, w, m, skip):
     """``ct_emd_top2`` takes B, W, M, the plan and the skip flag as one
