@@ -37,7 +37,11 @@
    rows (B = 8 x 16 heads, K = 4096 points: a row's chunk over two scans of
    the splat, the slice backward's fixed point one bit lower), and again at
    the single-view reconstructor decoder's rows (B = 4 x 16 heads,
-   K = 8192 points);
+   K = 8192 points), and again, with the fused block, at the KPConv
+   protocol's ragged rows (B = 6 spheres x 16 heads, K = 8192 points, each
+   sphere's valid share drawn from 0.08-1.0; a padded point repeats a
+   valid point's keys, its values and its slice cotangent are 0, so the
+   splat meets exact ties at 0 and the slice backward zero cotangents);
 4. serves 100 full-width ScanObjectNN classifier requests (random weights
    from a seed, clouds of 1024 to 3000 points) through
    ``InferenceEngine.classify`` in the B=8 x 2048 bucket, with the launch
@@ -131,7 +135,23 @@
    x 8192 on the card against the CPU (output and the gradients of a loss
    without the auction: cosine > 0.999, median error <= 1e-3; the EMD of
    2048 points of each device's output within 2%);
-13. prints ms/forward and clouds/s, then the training line (ms/step,
+13. the KPConv path: trains the full-width ``s3dis_segmenter_pad`` of
+   ``configs/s3dis_kpconv.yaml`` through ``Trainer`` (the synthetic rooms,
+   subsampled by the native subsampler built into ``build/native/``;
+   B=6 spheres x 8192 points, ragged, 7 stem channels; the config's
+   optimizer, clipping at 10, loader workers and augmentations; epochs cut
+   to 120 spheres): one warm-up step, then 20 timed steps with the
+   counters set to 0 just before and read just after (the segmenter's
+   24/24/16/24/24/8 launches per step); every loss and gradient finite,
+   the last 10 losses lower on average than the first 10; one step under
+   ``set_sync_debug_mode("error")``; a checkpoint restored bit for bit by
+   ``restore_params_only``; the 2-vote validation (24/24/8 launches per
+   forward; part, sub-cloud and full-cloud mIoU finite and in [0, 1]);
+   one step under each set; then the one-stage model on 2 ragged spheres
+   on the card against the CPU (the logits at the valid points and the
+   gradients: cosine > 0.999, median error <= 1e-3; the masked loss
+   within 1e-4);
+14. prints ms/forward and clouds/s, then the training line (ms/step,
    clouds/s, peak memory), then the completion line (ms/step, clouds/s,
    peak memory, the EMD's share of a step, the evaluation's table values,
    rounds and seconds per cloud, both tails), then the ``{"switched":
@@ -141,7 +161,10 @@
    card-vs-CPU cosines and the launches of each of its runs), then the
    reconstructor line (ms/step, images/s, peak memory, the EMD's share of
    a step, F-score, precision and recall and seconds per evaluated image,
-   the card-vs-CPU numbers and the launches of each of its runs), then one
+   the card-vs-CPU numbers and the launches of each of its runs), then the
+   KPConv line (ms/step, peak memory, the spheres' valid shares, the data
+   wait, the vote validation's mIoU and seconds, the card-vs-CPU numbers
+   and the launches of each of its runs), then one
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
    2D and 3D convs, their weight gradients, the slice, ``top2``, the
@@ -156,7 +179,8 @@
    decoder's rows, and #1-#6 per segmenter step from its rows;
    ``top2`` also per evaluated
    cloud, from the bid searches the evaluation ran at each width; #1-#6,
-   #9 and ``top2`` also per reconstructor step from its rows), then
+   #9 and ``top2`` also per reconstructor step from its rows; #1-#6, #9
+   and #10 also per KPConv step from its ragged rows), then
    the ``{"ok": true, "device": ...}`` line last.
 
 In phase 3 the auction's two kernels are held too: ``top2`` against
@@ -195,7 +219,8 @@ it does the same for 5 more training steps of the classifier
 (``DIR/profile_train.txt``) and of the completion model
 (``DIR/profile_completion.txt``), of the segmenter
 (``DIR/profile_segmenter.txt``) and of the reconstructor
-(``DIR/profile_reconstructor.txt``), and for the classify calls and training
+(``DIR/profile_reconstructor.txt``) and of the KPConv segmenter
+(``DIR/profile_kpconv.txt``), and for the classify calls and training
 steps under each set (``DIR/profile_{forward,train}_set_{a,b}.txt``).
 """
 
@@ -264,6 +289,16 @@ REC_B, REC_K, REC_IM = 4, 8192, 128
 REC_STEPS = 20   # timed reconstructor steps, after one warm-up step
 REC_EVAL_POINTS = 10000   # ground-truth points an evaluated image
 REC_PARITY_EMD_N = 2048   # points of the card-vs-CPU EMD comparison
+# the KPConv protocol's segmenter (configs/s3dis_kpconv.yaml): B spheres of
+# K points, each padded to K by repeating its own points, with a 0/1 mask
+KP_B, KP_K = 6, 8192
+KP_VALID = (0.08, 1.0)   # the valid share of a sphere: the synthetic rooms'
+#                           spread over an epoch of 120 spheres
+KP_STEPS = 20   # timed KPConv steps, after one warm-up step
+KP_EPOCH = 120   # spheres an epoch of each synthetic set (the config's 2000,
+#                  cut for time)
+KP_VOTES = 2   # votes of the validation (the per-epoch validation's)
+KP_PARITY_B = 2   # spheres in the card-vs-CPU comparison
 REPLACES = {
     "splat_max": "cloud_transformers_tpu/ops/pallas_splat.py:528",
     "slice_gather": "cloud_transformers_tpu/ops/pallas_splat.py:780",
@@ -323,6 +358,10 @@ PER_STEP_SEGMENTER = {"splat_max": 24, "slice_gather": 24, "grid_conv3d": 16,
 # ResNet-50 runs on cuDNN, and the EMD adds one top2 launch a round
 PER_FORWARD_RECONSTRUCTOR = dict(PER_FORWARD_SEGMENTER)
 PER_STEP_RECONSTRUCTOR = dict(PER_STEP_SEGMENTER)
+# the KPConv protocol's segmenter: the same trunk, the mask applied around
+# the kernels
+PER_FORWARD_KPCONV = dict(PER_FORWARD_SEGMENTER)
+PER_STEP_KPCONV = dict(PER_STEP_SEGMENTER)
 # where ``library_ms`` is not the time of one PyTorch call
 LIBRARY_IS = {"top2": "torch.cdist + an elementwise pass + topk(2): two "
                       "library calls, not one"}
@@ -433,6 +472,34 @@ def mapping_inputs(sizes, f, gen, b=B, k=K):
     keys = lat.transpose(1, 2).reshape(b * H, k, len(sizes)).clamp(
         -1 + 1e-7, 1 - 1e-7)
     return [a.contiguous() for a in mapping], values, keys
+
+
+def ragged_inputs(sizes, f, gen, b=KP_B, k=KP_K):
+    """``mapping_inputs`` for rows as the KPConv protocol pads them: a
+    cloud's first n points are valid (n / k drawn from KP_VALID), the rest
+    repeat valid points' keys with zero values (the model's mask zeroes a
+    padded point's values before the splat).  -> (mapping, values, keys,
+    the row mask [B * H, K])."""
+    from cloud_transformers_tpu_torch.core.grid_mapping import grid_mapping
+    from cloud_transformers_tpu_torch.core.splat_slice import (
+        _flatten_mapping)
+    lo, hi = KP_VALID
+    lat = torch.tanh(torch.randn(b, k, H, len(sizes), generator=gen,
+                                 device="cuda"))
+    share = lo + (hi - lo) * torch.rand(b, generator=gen, device="cuda")
+    n = (share * k).long().clamp(1, k)
+    pos = torch.arange(k, device="cuda")[None]
+    valid = pos < n[:, None]
+    src = (torch.rand(b, k, generator=gen, device="cuda") * n[:, None]).long()
+    lat = torch.gather(lat, 1, torch.where(valid, pos, src)[
+        ..., None, None].expand_as(lat))
+    mapping = _flatten_mapping(grid_mapping(lat, sizes, len(sizes)))
+    mask = valid.float().repeat_interleave(H, 0)
+    values = torch.randn(b * H, k, f, generator=gen, device="cuda") * \
+        mask[..., None]
+    keys = lat.transpose(1, 2).reshape(b * H, k, len(sizes)).clamp(
+        -1 + 1e-7, 1 - 1e-7)
+    return [a.contiguous() for a in mapping], values, keys, mask
 
 
 def grid_sample_inputs(grid, keys, sizes):
@@ -678,9 +745,10 @@ def check_slice(ps, mapping, grid, keys, sizes, f, calls, touched):
 
 
 def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
-                          n_splat, n_slice, touched):
+                          n_splat, n_slice, touched, mask=None):
     """The splat and slice backward kernels at one main-path shape.  The
-    splat's ``grid`` is the forward's own output, so winners exist."""
+    splat's ``grid`` is the forward's own output, so winners exist;
+    ``mask`` as in ``check_slice_bwd``."""
     bwd_row, route_row, winner = check_splat_backward(
         ps, gen, mapping, values, grid, sizes, f, n_splat, touched)
     rows["splat_max_bwd"].append(bwd_row)
@@ -693,20 +761,25 @@ def check_point_backwards(ps, rows, gen, mapping, values, grid, sizes, f,
     del winner
 
     rows["slice_bwd"].append(check_slice_bwd(ps, gen, mapping, grid, sizes,
-                                             f, n_slice, touched))
+                                             f, n_slice, touched, mask))
 
 
-def check_slice_bwd(ps, gen, mapping, grid, sizes, f, calls, touched):
+def check_slice_bwd(ps, gen, mapping, grid, sizes, f, calls, touched,
+                    mask=None):
     """``slice_bwd`` at one shape, on a grid of the forward's kind: its
     outputs bit-equal over two runs (d_grid is summed in fixed point) and
     within TOL of the plain version; timed by the loop, by graph replay and
     on the host, beside ``scatter_add_`` (the d_grid half: one call on
-    products expanded outside the timing, held to the plain version).  ->
-    its entry."""
+    products expanded outside the timing, held to the plain version).
+    Where ``mask`` [R, K] is given, a padded point's cotangent is 0 (the
+    model's mask zeroes its output after the slice) and so are its vertex
+    weights' gradients.  -> its entry."""
     r, k = mapping[0].shape
     shape = shape_name(sizes, f, r, k)
     cells = ps.kernel_grid_dims(sizes)[2]
     g_pts = torch.randn(r, k, f, generator=gen, device="cuda")
+    if mask is not None:
+        g_pts *= mask[..., None]
     d_grid, d_lo, d_hi = ps.slice_bwd(*mapping, g_pts, grid, sizes)
     if not all(torch.equal(a, b) for a, b in zip(
             ps.slice_bwd(*mapping, g_pts, grid, sizes),
@@ -718,6 +791,9 @@ def check_slice_bwd(ps, gen, mapping, grid, sizes, f, calls, touched):
                               ("d_w_lo", d_lo, p_lo), ("d_w_hi", d_hi, p_hi)))
     if len(sizes) == 2 and (d_lo[..., 2:].any() or d_hi[..., 2:].any()):
         raise AssertionError(f"slice_bwd {shape}: 2D slots 2, 3 not zero")
+    if mask is not None and (d_lo[mask == 0].any() or d_hi[mask == 0].any()):
+        raise AssertionError(f"slice_bwd {shape}: a padded point's vertex "
+                             "weights have a gradient")
     del d_grid, d_lo, d_hi, p_lo, p_hi
     idx, w = ps.vertex_index_weights(*mapping, sizes)
     index = idx.reshape(r, k * 8, 1).expand(r, k * 8, f).contiguous()
@@ -842,12 +918,13 @@ def check_conv(gc, rows, gen, sizes, f, calls, calls_set_a):
                     R * pairs * f * f * 2)))
 
 
-def check_fused_block(gen, sizes, f, calls, b=B, k=K):
+def check_fused_block(gen, sizes, f, calls, b=B, k=K, ragged=False):
     """Set B's fused block at one head group's shape, ``b`` clouds of ``k``
-    points, with and without gk2: gk bit-equal to the plain composition's,
-    the points and gk2 within TOL, two runs bit-equal.  Timed beside the
-    three separate kernels on the same inputs (by the loop and by graph
-    replay); no single PyTorch call computes the block.  -> its entry."""
+    points (``ragged``: padded as ``ragged_inputs`` pads them), with and
+    without gk2: gk bit-equal to the plain composition's, the points and
+    gk2 within TOL, two runs bit-equal.  Timed beside the three separate
+    kernels on the same inputs (by the loop and by graph replay); no single
+    PyTorch call computes the block.  -> its entry."""
     from cloud_transformers_tpu_torch.ops import pallas_fused_block as fb
     from cloud_transformers_tpu_torch.ops import pallas_grid_conv as gc
     from cloud_transformers_tpu_torch.ops import pallas_splat as ps
@@ -855,7 +932,8 @@ def check_fused_block(gen, sizes, f, calls, b=B, k=K):
     r = b * H
     shape = shape_name(sizes, f, r, k)
     cells = int(np.prod(sizes))
-    mapping, values, _ = mapping_inputs(sizes, f, gen, b, k)
+    mapping, values = (ragged_inputs if ragged else mapping_inputs)(
+        sizes, f, gen, b, k)[:2]
     weight = torch.randn((H * f, f) + (3,) * dim, generator=gen,
                          device="cuda") * (3 ** dim * f) ** -0.5
     bias = torch.randn(H * f, generator=gen, device="cuda") * 0.1
@@ -936,31 +1014,42 @@ def check_completion_rows(gen):
     return out
 
 
-def check_trunk_rows(gen, rows, b, k):
+def check_trunk_rows(gen, rows, b, k, ragged=False):
     """Kernels #1-#6 at the rows of a model whose head groups are the
     classifier trunk's without its pools (``b`` clouds x 16 heads, ``k``
     points: the S3DIS segmenter's B = 8 x 4096, the reconstructor
-    decoder's B = 4 x 8192) at each head group's shape, with the gates of
-    the classifier's shapes; the winner-tracking splat and the routing
-    pass beside them (set A).  The grid convs take the same grids at any
-    K, so their entries are the classifier's (``rows``), with the model's
-    calls.  -> {kernel: [entry per shape]}, ``calls`` per training
+    decoder's B = 4 x 8192, the KPConv protocol's B = 6 x 8192) at each
+    head group's shape, with the gates of the classifier's shapes; the
+    winner-tracking splat and the routing pass beside them (set A).  With
+    ``ragged`` the rows are padded as ``ragged_inputs`` pads them (a
+    padded point's values and slice cotangent 0) and the fused block (set
+    B) is checked at each shape too.  The grid convs take the same grids
+    at any K, so their entries are the classifier's (``rows``), with the
+    model's calls.  -> {kernel: [entry per shape]}, ``calls`` per training
     step."""
     from cloud_transformers_tpu_torch.ops import pallas_splat as ps
     out = {name: [] for name in ("splat_max", "slice_gather", "splat_max_bwd",
                                  "splat_route", "splat_max_winner",
                                  "slice_bwd")}
     for sizes, f, _, calls in POINT_SHAPES:
-        mapping, values, keys = mapping_inputs(sizes, f, gen, b, k)
+        if ragged:
+            mapping, values, keys, mask = ragged_inputs(sizes, f, gen, b, k)
+        else:
+            (mapping, values, keys), mask = mapping_inputs(
+                sizes, f, gen, b, k), None
         splat_row, grid = check_splat(ps, mapping, values, sizes, f, calls)
         out["splat_max"].append(splat_row)
         touched = touched_rows(ps, mapping, sizes)
         out["slice_gather"].append(check_slice(ps, mapping, grid, keys,
                                                sizes, f, calls, touched))
         check_point_backwards(ps, out, gen, mapping, values, grid, sizes, f,
-                              calls, calls, touched)
-        del mapping, values, keys, grid
+                              calls, calls, touched, mask)
+        del mapping, values, keys, grid, mask
         torch.cuda.empty_cache()
+    if ragged:
+        out["fused_block"] = [check_fused_block(gen, sizes, f, calls, b, k,
+                                                ragged=True)
+                              for sizes, f, calls in BLOCK_SHAPES]
     # a forward and an input gradient a 3D head group at X >= 16 (4 each a
     # shape), one weight gradient
     for fwd, per in (("grid_conv3d", 2), ("grid_conv3d_dw", 1)):
@@ -1181,8 +1270,8 @@ def per_shape(name, s, per):
 
 def per_pass(name, done, per):
     """The sum over shapes of one pass at other rows than the classifier's
-    (a completion decoder step, a segmenter step, a reconstructor step),
-    and its shapes."""
+    (a completion decoder step, a segmenter step, a reconstructor step, a
+    KPConv segmenter step), and its shapes."""
     out = {"ms": sum(c["ms"] * c["calls"] for c in done),
            "plain_ms": sum(c["plain_ms"] * c["calls"] for c in done),
            "bound_ms": sum(c["bound"][0] * c["calls"] for c in done)}
@@ -1198,14 +1287,15 @@ def per_pass(name, done, per):
 
 
 def kernel_line(rows, launches, completion_rows, segmenter_rows,
-                reconstructor_rows):
+                reconstructor_rows, kpconv_rows):
     """Per kernel: times summed over the calls of one pass of its path
     (each shape times its calls): one forward for the three kernels of the
     serving path, one training step of the classifier for the three
     backward kernels, one training step of the completion model for
     ``top2``, the one checked call for ``auction_window``; beside them, a
-    completion decoder step, a segmenter step and a reconstructor step
-    (``completion_rows``, ``segmenter_rows``, ``reconstructor_rows``).
+    completion decoder step, a segmenter step, a reconstructor step and a
+    KPConv segmenter step on its ragged rows (``completion_rows``,
+    ``segmenter_rows``, ``reconstructor_rows``, ``kpconv_rows``).
     ``launches`` is {path: {kernel: count}}: a kernel's ``launches`` is the
     count of its path's run (``MAIN_PATH``), and every path's count stands
     beside it."""
@@ -1266,6 +1356,8 @@ def kernel_line(rows, launches, completion_rows, segmenter_rows,
             **({"per_reconstructor_step": per_pass(
                 name, rec, "per_reconstructor_step")}
                if (rec := reconstructor_rows.get(name)) else {}),
+            **({"per_kpconv_step": per_pass(name, kp, "per_kpconv_step")}
+               if (kp := kpconv_rows.get(name)) else {}),
         })
     return {"kernels": out}
 
@@ -2546,6 +2638,265 @@ def reconstructor_parity():
             **{f"reconstructor_parity_{k}": v for k, v in result.items()}}
 
 
+def kpconv_phase(wrappers, smi, profile_dir, exp_root):
+    """The sixth path: the full-width ``s3dis_segmenter_pad`` of
+    ``configs/s3dis_kpconv.yaml`` trained through the Trainer on the
+    synthetic rooms (B=6 spheres x 8192 points, ragged, 7 stem channels,
+    the config's Adam, StepLR, clipping at 10, loader workers and
+    augmentations; epochs of KP_EPOCH spheres): one warm-up step, KP_STEPS
+    timed and counted steps, a step under ``set_sync_debug_mode("error")``,
+    a checkpoint restored bit for bit by the evaluation command line's
+    ``restore_params_only`` path, the KP_VOTES-vote validation (its
+    forwards counted) and a step under each set.  -> (result dict, {path:
+    launches})."""
+    from cloud_transformers_tpu_torch.data import subsample
+    from cloud_transformers_tpu_torch.tasks import segmentation_kpconv as task
+    from cloud_transformers_tpu_torch.train.checkpoint import (
+        restore_params_only,
+    )
+    from cloud_transformers_tpu_torch.train.config import (
+        load_config,
+        model_from_config,
+    )
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs", "s3dis_kpconv.yaml"))
+    d = cfg["data"]
+    if (d["batch_size"], d["num_points"], d["input_features_dim"]) != (
+            KP_B, KP_K, 4):
+        raise AssertionError("configs/s3dis_kpconv.yaml is not B=6 x 8192 "
+                             "with 4 features")
+    cfg["experiment"] = {"root": exp_root}
+    d["num_steps"] = KP_EPOCH
+    cfg["train"].update(grad_stats=True, save=False)
+    cfg["train"].setdefault("clip_grad_norm", 10.0)
+    n_classes = int(cfg["model"]["n_classes"])
+    trainer = Trainer(model_from_config(cfg), cfg, "chip_smoke_kpconv",
+                      task.make_loss_fn(), device="cuda", seed=0)
+    model = trainer.model
+    if (len(model.trunk.stages), model.stem.in_features,
+            model.stem.out_features, model.final_conv2.out_features) \
+            != (4, 7, 512, n_classes):
+        raise AssertionError("the KPConv segmenter is not the full-width one")
+
+    # the synthetic sets through the native subsampler, and only it
+    native, numpy_path = subsample._native_subsample, \
+        subsample._numpy_subsample
+    used = []
+
+    def counted(*a):
+        used.append(a[0].shape[0])
+        return native(*a)
+
+    def refused(*a):
+        raise AssertionError("the numpy subsampler ran")
+    subsample._native_subsample, subsample._numpy_subsample = counted, refused
+    t0 = time.perf_counter()
+    try:
+        train_ds, val_ds, train_loader, val_loader = task.make_datasets(
+            cfg, synthetic=True)
+    finally:
+        subsample._native_subsample, subsample._numpy_subsample = \
+            native, numpy_path
+    data_s = time.perf_counter() - t0
+    if len(used) != len(train_ds.sub_points) + len(val_ds.sub_points) or \
+            not subsample.library_path().exists():
+        raise AssertionError(f"the native subsampler ran on {used}")
+    if train_loader.num_workers != d["num_workers"]:
+        raise AssertionError("the loader does not use the config's workers")
+    log(f"KPConv sets (native subsampler, {len(used)} clouds of {used} "
+        f"points) in {data_s:.1f} s")
+    batches = endless(train_loader)
+
+    torch.cuda.reset_peak_memory_stats()
+    warm = next(batches)
+    if warm["features"].shape != (KP_B, KP_K, 4) or \
+            warm["points"].shape != (KP_B, KP_K, 3):
+        raise AssertionError(f"KPConv batch {warm['features'].shape}")
+    trainer.train_step(warm)                     # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    step_ms, data_ms, losses, norms, valid = [], [], [], [], []
+    for _ in range(KP_STEPS):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        data_ms.append((t1 - t0) * 1e3)
+        losses.append(metrics["loss"])
+        norms.append(metrics["grad_norm"])
+        valid.append(batch["mask"].mean(1))
+    launches = {"kpconv": read_launches(wrappers)}
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(launches["kpconv"], PER_STEP_KPCONV, KP_STEPS,
+                   "KPConv training steps")
+    log(f"launches in {KP_STEPS} KPConv steps: {launches['kpconv']}")
+    valid = np.concatenate(valid)
+    if not (valid.min() < 1.0 and valid.min() > 0.0):
+        raise AssertionError(f"KPConv spheres not ragged: {valid}")
+
+    losses = torch.stack(losses).cpu().numpy()
+    norms = torch.stack(norms).cpu().numpy()
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()
+            and (norms > 0).all()):
+        raise AssertionError(f"KPConv: losses {losses}, gradient norms "
+                             f"{norms}")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    if not last < first:
+        raise AssertionError(f"the KPConv segmenter's loss did not fall: "
+                             f"first 10 steps {first}, last 10 {last}")
+    key_grad = 0.0
+    for name, param in model.named_parameters():
+        if param.grad is None or not bool(torch.isfinite(param.grad).all()):
+            raise AssertionError(f"{name}: missing or non-finite gradient")
+        if name.endswith("key_bn.bias"):
+            key_grad = max(key_grad, float(param.grad.abs().max()))
+    if not key_grad > 0:
+        raise AssertionError("KPConv: every key_bn.bias gradient is zero")
+    if trainer.optimizer.clip_grad_norm != 10.0:
+        raise AssertionError("KPConv: the gradient is not clipped at 10")
+
+    # forward, backward, the gradient norms and the optimizer step never
+    # make the host wait
+    batch = trainer.to_device(next(batches))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("KPConv step (masked loss, grad_stats on): no host-device "
+        "synchronisation")
+
+    # a checkpoint, restored as the evaluation command line restores it
+    path = trainer.save()
+    restored = restore_params_only(path, model_from_config(cfg)).to("cuda")
+    want = model.state_dict()
+    if set(restored.state_dict()) != set(want) or not all(
+            torch.equal(v, want[k]) for k, v in
+            restored.state_dict().items()):
+        raise AssertionError("KPConv: the restored checkpoint differs")
+    with torch.no_grad():
+        a = model.eval()(batch["points"], batch["mask"], batch["features"])[0]
+        b = restored.eval()(batch["points"], batch["mask"],
+                            batch["features"])[0]
+    if not torch.equal(a, b):
+        raise AssertionError("KPConv: the restored model's logits differ")
+    del restored, a, b
+    log(f"KPConv checkpoint {os.path.basename(path)} restored bit for bit")
+
+    # the vote validation: part, sub-cloud and full-cloud mIoU
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    val = task.validate_votes(trainer.eval_step, val_ds, val_loader,
+                              n_classes, num_votes=KP_VOTES,
+                              input_features_dim=d["input_features_dim"])
+    val_s = time.perf_counter() - t0
+    launches["kpconv_validation"] = read_launches(wrappers)
+    check_launches(launches["kpconv_validation"], PER_FORWARD_KPCONV,
+                   KP_VOTES * len(val_loader), "KPConv validation forwards")
+    scores = {k: float(val[k]) for k in ("part_miou", "sub_miou",
+                                         "running_sub_miou", "miou")}
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in scores.values()):
+        raise AssertionError(f"KPConv validation: {val}")
+    log(f"KPConv validation ({KP_VOTES} votes of {len(val_loader)} batches, "
+        f"{val_s:.2f} s): {scores}")
+
+    result = {
+        "kpconv_ms_per_step": float(np.median(step_ms)),
+        "kpconv_spheres_per_s": KP_B * 1e3 / float(np.median(step_ms)),
+        "kpconv_ms_mean": float(np.mean(step_ms)),
+        "kpconv_ms_p10": float(np.percentile(step_ms, 10)),
+        "kpconv_ms_p90": float(np.percentile(step_ms, 90)),
+        "kpconv_data_wait_ms_median": float(np.median(data_ms)),
+        "kpconv_data_wait_ms_max": float(np.max(data_ms)),
+        "kpconv_steps": KP_STEPS,
+        "kpconv_peak_memory_bytes": int(peak),
+        "kpconv_valid_share_min": float(valid.min()),
+        "kpconv_valid_share_median": float(np.median(valid)),
+        "kpconv_valid_share_max": float(valid.max()),
+        "kpconv_loss_first10": first, "kpconv_loss_last10": last,
+        "kpconv_grad_norm_first": float(norms[0]),
+        "kpconv_grad_norm_last": float(norms[-1]),
+        "kpconv_key_bn_bias_grad_max": key_grad,
+        "kpconv_sets_seconds": data_s,
+        "kpconv_loader_workers": train_loader.num_workers,
+        "kpconv_epoch_spheres": KP_EPOCH,
+        "kpconv_val_votes": KP_VOTES,
+        "kpconv_val_batches": len(val_loader),
+        "kpconv_val_seconds": val_s,
+        **{f"kpconv_val_{k}": v for k, v in scores.items()},
+        "batch": KP_B, "points": KP_K}
+
+    if profile_dir:
+        result.update(profiled_steps(
+            trainer, batches, smi,
+            os.path.join(profile_dir, "profile_kpconv.txt"), "kpconv_"))
+
+    # one training step under each set
+    for name in SETS:
+        with switches(name):
+            zero_launches(wrappers)
+            metrics = trainer.train_step(next(batches))
+            torch.cuda.synchronize()
+            got = read_launches(wrappers)
+        check_launches(got, set_counts(
+            name, PER_STEP_KPCONV["splat_max"],
+            PER_STEP_KPCONV["slice_gather"], True), 1,
+            f"KPConv step under {name}")
+        loss = float(metrics["loss"])
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        if not np.isfinite(loss) or bad:
+            raise AssertionError(f"KPConv step under {name}: loss {loss}, "
+                                 f"missing or non-finite gradients {bad[:5]}")
+        result[f"kpconv_{name}_loss"] = loss
+        result[f"kpconv_{name}_grad_norm"] = float(metrics["grad_norm"])
+        launches[f"kpconv_{name}"] = got
+        log(f"KPConv step under {name}: loss {loss:.6f}, launches {got}")
+    batches.close()
+    return result, launches
+
+
+def kpconv_parity():
+    """The KPConv segmenter on the card against the CPU: the full-width
+    model with one stage, KP_PARITY_B ragged synthetic spheres of 8192
+    points, train mode, the same weights; its logits at the valid points
+    and its concatenated gradients by the PARITY.md criteria, its masked
+    cross-entropy within 1e-4."""
+    from cloud_transformers_tpu_torch.data import S3DISSeg
+    from cloud_transformers_tpu_torch.tasks import segmentation_kpconv as task
+
+    ds = S3DISSeg(split="val", num_points=KP_K, num_steps=16, num_epochs=1)
+    items = [it for it in (ds[i] for i in range(16))
+             if it["mask"].mean() < 1.0][:KP_PARITY_B]
+    if len(items) < KP_PARITY_B:
+        raise AssertionError("too few ragged spheres for the parity")
+    batch = {k: torch.as_tensor(np.stack([it[k] for it in items]))
+             for k in ("points", "mask", "features", "label")}
+    batch["label"] = batch["label"].long()
+    loss_fn = task.make_loss_fn()
+
+    def masked(model, batch):
+        loss, aux = loss_fn(model, batch)
+        return loss, aux["logits"]
+    result, logits = card_cpu_gradients(
+        "s3dis_segmenter_pad", dict(repeats=1), batch, masked,
+        "KPConv gradient parity")
+    valid = batch["mask"] > 0
+    cos, p50 = parity(logits["cuda"].cpu()[valid], logits["cpu"][valid],
+                      f"KPConv logits at {int(valid.sum())} valid points")
+    return {"kpconv_parity_batch": KP_PARITY_B,
+            "kpconv_parity_valid_share": float(batch["mask"].mean()),
+            "kpconv_parity_logits_cosine": cos,
+            "kpconv_parity_logits_p50": p50,
+            **{f"kpconv_parity_{k}": v for k, v in result.items()}}
+
+
 def profiled_steps(trainer, batches, smi, path, prefix):
     """PROFILE_STEPS more training steps under torch.profiler: the device
     kernels by group in ``path``.  -> {prefix + profiled_...}: the host
@@ -2584,7 +2935,8 @@ def main():
                          "DIR/profile_forward.txt, DIR/profile_train.txt, "
                          "DIR/profile_completion.txt, "
                          "DIR/profile_segmenter.txt, "
-                         "DIR/profile_reconstructor.txt and, under each "
+                         "DIR/profile_reconstructor.txt, "
+                         "DIR/profile_kpconv.txt and, under each "
                          "set, "
                          "DIR/profile_{forward,train}_set_{a,b}.txt")
     args = ap.parse_args()
@@ -2639,6 +2991,7 @@ def main():
     completion_rows = check_completion_rows(gen)
     segmenter_rows = check_trunk_rows(gen, rows, B, SEG_K)
     reconstructor_rows = check_trunk_rows(gen, rows, REC_B, REC_K)
+    kpconv_rows = check_trunk_rows(gen, rows, KP_B, KP_K, ragged=True)
     torch.cuda.empty_cache()
     log(f"kernel checks done in {time.perf_counter() - t0:.1f} s")
 
@@ -2809,7 +3162,20 @@ def main():
                              f"a width that was not checked: {rec_widths}")
     log(f"reconstructor phase done in {time.perf_counter() - t0:.1f} s")
 
-    # 13. results
+    # 13. the sixth path: the KPConv protocol's segmenter, training at B=6
+    # x 8192 ragged spheres, a checkpoint, the vote validation, both sets,
+    # and the card against the CPU
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as exp_root:
+        kpconv, kpconv_launches = kpconv_phase(wrappers, smi, args.profile,
+                                               exp_root)
+    torch.cuda.empty_cache()
+    kpconv.update(kpconv_parity())
+    all_launches.update(kpconv_launches)
+    log(f"KPConv phase done in {time.perf_counter() - t0:.1f} s")
+
+    # 14. results
     log(f"{ms_fwd:.3f} ms/forward (median) at B={B} x {K} points, "
         f"{B * 1e3 / ms_fwd:.2f} clouds/s "
         f"({len(batches)} classify calls, host clock, synchronised)")
@@ -2865,10 +3231,25 @@ def main():
     print(json.dumps({"reconstructor": rebuilt, "reconstructor_launches": {
         path: {k: v for k, v in counts.items() if v}
         for path, counts in reconstructor_launches.items()}}), flush=True)
+    log(f"{kpconv['kpconv_ms_per_step']:.3f} ms/step (median) for the "
+        f"KPConv segmenter at B={KP_B} x {KP_K} points (valid share "
+        f"{kpconv['kpconv_valid_share_min']:.2f}-"
+        f"{kpconv['kpconv_valid_share_max']:.2f}), peak memory "
+        f"{kpconv['kpconv_peak_memory_bytes'] / 2 ** 30:.2f} GiB; "
+        f"{KP_VOTES}-vote mIoU part {kpconv['kpconv_val_part_miou']:.4f}, "
+        f"sub {kpconv['kpconv_val_sub_miou']:.4f}, full "
+        f"{kpconv['kpconv_val_miou']:.4f} in "
+        f"{kpconv['kpconv_val_seconds']:.2f} s; card vs CPU cosine "
+        f"{kpconv['kpconv_parity_logits_cosine']:.7f} (logits), "
+        f"{kpconv['kpconv_parity_grad_cosine']:.7f} (gradients)")
+    print(json.dumps({"kpconv": kpconv, "kpconv_launches": {
+        path: {k: v for k, v in counts.items() if v}
+        for path, counts in kpconv_launches.items()}}), flush=True)
     all_launches.update(completion=completion_launches,
                         evaluation=eval_launches, window=window_launches)
     print(json.dumps(kernel_line(rows, all_launches, completion_rows,
-                                 segmenter_rows, reconstructor_rows)),
+                                 segmenter_rows, reconstructor_rows,
+                                 kpconv_rows)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,11 @@ after ``jax.device_get``) and returns tensors under the port's module names:
 named as the port names them (gradients from ``named_parameters()``, or a
 ``state_dict``): it fills a copy of a JAX tree, so that a test can hold
 ``p.grad`` against ``jax.grad`` leaf by leaf.
+
+``reference_segmenter_pad_state_dict`` and ``load_reference_segmenter_pad``
+take the reference implementation's own state dict of the KPConv-protocol
+segmenter (the released ``s3dis_kpconvprotocol.t7``) straight into the
+port's ``SegmenterPad``.
 """
 
 import re
@@ -151,4 +156,81 @@ def port_to_jax_tree(tensors, tree):
 def load_jax_variables(model, variables):
     """Load JAX variables into ``model`` (strict: every name must match)."""
     model.load_state_dict(jax_to_state_dict(variables), strict=True)
+    return model
+
+
+# the reference's ``model_zoo/s3dis/segmenter_pad.py`` module names -> the
+# port's ``SegmenterPad``: (pattern, replacement, the layer is a BatchNorm),
+# inside a union (``attentions_encoder.{i}``: stage i // 3, union i % 3) or
+# at the top
+_REFERENCE_SEGMENTER = (
+    (r"first_process\.0\.", "stem.", False),
+    (r"first_process\.1\.", "stem_bn.", True),
+    (r"attentions\.(\d+)\.keys_values_pred\.0\.",
+     r"attention_\1.kv.keys_values_pred.", False),
+    (r"attentions\.(\d+)\.(key_bn|values_bn)\.", r"attention_\1.kv.\2.",
+     True),
+    (r"attentions\.(\d+)\.transform\.", r"attention_\1.kv.transform.", False),
+    (r"attentions\.(\d+)\.conv\.0\.", r"attention_\1.conv.", False),
+    (r"attentions\.(\d+)\.after\.0\.", r"attention_\1.after_bn.", True),
+    (r"after\.0\.", "after_conv.", False),
+    (r"after\.1\.", "after_bn.", True),
+    (r"final\.0\.", "final_conv1.", False),
+    (r"final\.1\.", "final_bn.", True),
+    (r"final\.3\.", "final_conv2.", False),
+)
+_BN_LEAVES = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+              "running_var": "var"}
+
+
+def _reference_name(key):
+    """A reference segmenter key -> the port's key (None for a
+    BatchNorm's ``num_batches_tracked``)."""
+    prefix, rest = "", key
+    m = re.match(r"attentions_encoder\.(\d+)\.", key)
+    if m:
+        i = int(m.group(1))   # three unions a stage
+        prefix = f"trunk.stages.{i // 3}.union_{i % 3}."
+        rest = key[m.end():]
+    for pattern, repl, is_bn in _REFERENCE_SEGMENTER:
+        head = re.match(pattern, rest)
+        if head is None:
+            continue
+        leaf = rest[head.end():]
+        if is_bn:
+            if leaf == "num_batches_tracked":
+                return None
+            leaf = _BN_LEAVES[leaf]
+        return prefix + head.expand(repl) + leaf
+    raise KeyError(f"reference key {key!r} has no counterpart in "
+                   "SegmenterPad")
+
+
+def reference_segmenter_pad_state_dict(sd):
+    """The reference ``model_zoo/s3dis/segmenter_pad.py`` state dict
+    ({name: tensor or array}, a ``module.`` prefix dropped) -> the port's
+    ``SegmenterPad`` ``state_dict``: the reference's ``Conv1d`` kernels
+    ``[out, in, 1]`` lose their last axis to become ``Linear`` weights, the
+    grid convs keep their layout, the BatchNorms' ``weight``/``running_*``
+    become ``scale``/``mean``/``var``.  The counterpart of the JAX
+    package's ``tools/convert_torch_checkpoint.convert_segmenter_pad``."""
+    state = {}
+    for key, value in sd.items():
+        key = key[len("module."):] if key.startswith("module.") else key
+        name = _reference_name(key)
+        if name is None:
+            continue
+        t = torch.as_tensor(np.asarray(value, np.float32))
+        if t.dim() == 3 and t.shape[-1] == 1:   # Conv1d [out, in, 1]
+            t = t[..., 0]
+        state[name] = t.contiguous()
+    return state
+
+
+def load_reference_segmenter_pad(model, path):
+    """Load the reference's ``.t7`` state dict at ``path`` into the port's
+    ``SegmenterPad`` (strict: every name must match)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(reference_segmenter_pad_state_dict(sd),
+                          strict=True)
     return model

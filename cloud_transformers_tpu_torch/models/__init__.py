@@ -1,7 +1,7 @@
 """Model registry of the port (counterpart of
 ``cloud_transformers_tpu/models/__init__.py``): the ScanObjectNN classifier,
-the ShapeNet completion inpainter, the S3DIS 1x1 segmenter and the
-single-view reconstructor."""
+the ShapeNet completion inpainter, the S3DIS segmenters of the 1x1 and the
+KPConv protocols and the single-view reconstructor."""
 
 from typing import Any, Dict
 

@@ -1,7 +1,9 @@
-"""S3DIS semantic segmentation, 1x1-block protocol.
+"""S3DIS semantic segmentation: the 1x1-block and the KPConv protocols.
 
-Counterpart of ``cloud_transformers_tpu/models/segmenter.py``'s
-``Segmenter`` (``s3dis_segmenter``): a 6 -> 512 stem with bias (xyz + rgb),
+Counterpart of ``cloud_transformers_tpu/models/segmenter.py``:
+``Segmenter`` (``s3dis_segmenter``, xyz + rgb, 6 channels) and
+``SegmenterPad`` (``s3dis_segmenter_pad``, xyz + 4 features = 7 channels,
+with the padding mask of the KPConv protocol) share a stem with bias,
 BatchNorm and ReLU, the classifier's MHCT trunk (12 MultiHeadUnion blocks,
 keys from the xyz), then ``final_conv1`` (no bias), BatchNorm, ReLU and
 ``final_conv2`` to per-point class logits.  As in the port's classifier,
@@ -9,6 +11,7 @@ every stage keeps its activations (the JAX package rematerializes them).
 Module names follow the JAX parameter tree so that ``convert.py`` maps it.
 """
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -20,10 +23,9 @@ from cloud_transformers_tpu_torch.models.classifier import (
 from cloud_transformers_tpu_torch.nn.norm import BatchNorm
 
 
-@register("s3dis_segmenter")
-class Segmenter(nn.Module):
-    """pcd [B, P, 6] -> (logits [B, P, n_classes], stats: a list of
-    per-head-group dicts of scalars)."""
+class _SegmenterBase(nn.Module):
+    """The stem, the trunk and the per-point head that both protocols
+    share; ``_forward(pcd_features, xyz, pts_mask)``."""
 
     def __init__(self, n_classes=13, in_channels=6, model_dim=512,
                  repeats=4, stage_plan=None):
@@ -36,8 +38,35 @@ class Segmenter(nn.Module):
         self.final_bn = BatchNorm(model_dim)
         self.final_conv2 = nn.Linear(model_dim, n_classes)
 
-    def forward(self, pcd):
-        x = F.relu(self.stem_bn(self.stem(pcd)))
-        x, stats = self.trunk(x, pcd[..., :3])
+    def _forward(self, pcd_features, xyz, pts_mask=None):
+        x = F.relu(self.stem_bn(self.stem(pcd_features)))
+        x, stats = self.trunk(x, xyz, pts_mask)
         x = F.relu(self.final_bn(self.final_conv1(x)))
         return self.final_conv2(x), stats
+
+
+@register("s3dis_segmenter")
+class Segmenter(_SegmenterBase):
+    """1x1 protocol: pcd [B, P, 6] -> (logits [B, P, n_classes], stats: a
+    list of per-head-group dicts of scalars)."""
+
+    def forward(self, pcd):
+        return self._forward(pcd, pcd[..., :3])
+
+
+@register("s3dis_segmenter_pad")
+class SegmenterPad(_SegmenterBase):
+    """KPConv protocol: (points [B, P, 3], pts_mask [B, P], features
+    [B, P, 4]) -> (logits [B, P, n_classes], stats).  The stem takes
+    ``cat(points, features)``, 7 channels; the keys come from ``points``;
+    ``pts_mask`` (0 = padded point) zeroes a padded point's features before
+    each splat and its output after each slice."""
+
+    def __init__(self, n_classes=13, in_channels=7, model_dim=512,
+                 repeats=4, stage_plan=None):
+        super().__init__(n_classes, in_channels, model_dim, repeats,
+                         stage_plan)
+
+    def forward(self, points, pts_mask, features):
+        pcd = torch.cat([points, features], -1)
+        return self._forward(pcd, points, pts_mask)

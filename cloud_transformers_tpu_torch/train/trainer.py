@@ -333,7 +333,12 @@ class Trainer:
                         profiler = self._profiler()
                         profiler.start()
                     t_step = time.time()
-                    window.append(self.train_step(batch))
+                    # the window keeps the scalars only: a task's per-point
+                    # outputs (``pred``, ``logits``) would pile up on the
+                    # device for ``show_each`` steps
+                    window.append({k: v for k, v in
+                                   self.train_step(batch).items()
+                                   if v.dim() == 0})
                     step_t += time.time() - t_step
                     if profiler is not None and \
                             self.global_step >= profile_end:

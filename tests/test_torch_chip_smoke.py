@@ -179,3 +179,46 @@ def test_expected_launches_are_the_full_width_reconstructors(monkeypatch,
         forward = {k: v for k, v in forward.items() if v}
         step = {k: v for k, v in step.items() if v}
     assert runs == {"forward": forward, "step": step}
+
+
+@pytest.mark.parametrize("name", (None,) + chip_smoke.SETS)
+def test_expected_launches_are_the_full_width_kpconv_segmenters(monkeypatch,
+                                                                name):
+    """The same for the KPConv protocol's segmenter (``s3dis_segmenter_pad``,
+    the same trunk with the mask applied around the kernels), per forward
+    (``PER_FORWARD_KPCONV``, which its vote validation runs) and per
+    training step of the masked loss (``PER_STEP_KPCONV``), on the default
+    path and under each set; counted on the CPU with one sphere of 32
+    points, 20 of them valid."""
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.tasks import segmentation_kpconv
+    model = get_model("s3dis_segmenter_pad")
+    rs = np.random.RandomState(0)
+    idx = np.concatenate([np.arange(20), rs.randint(0, 20, 12)])
+    mask = np.zeros((1, 32), np.float32)
+    mask[:, :20] = 1
+    batch = {"points": torch.from_numpy(
+                 rs.uniform(-1, 1, (1, 32, 3)).astype(np.float32)[:, idx]),
+             "features": torch.from_numpy(
+                 rs.uniform(-1, 1, (1, 32, 4)).astype(np.float32)[:, idx]),
+             "mask": torch.from_numpy(mask),
+             "label": torch.from_numpy(rs.randint(0, 13, (1, 32))[:, idx])}
+    runs = {}
+    with chip_smoke.switches(name) if name else contextlib.nullcontext():
+        calls = _spy_launches(monkeypatch)
+        with torch.no_grad():
+            model.eval()(batch["points"], batch["mask"], batch["features"])
+        runs["forward"] = dict(calls)
+        calls.clear()
+        loss, _ = segmentation_kpconv.make_loss_fn()(model.train(), batch)
+        loss.backward()
+        runs["step"] = dict(calls)
+    forward = chip_smoke.PER_FORWARD_KPCONV
+    step = chip_smoke.PER_STEP_KPCONV
+    if name:
+        forward, step = (chip_smoke.set_counts(
+            name, per["splat_max"], per["slice_gather"], training)
+            for per, training in ((forward, False), (step, True)))
+        forward = {k: v for k, v in forward.items() if v}
+        step = {k: v for k, v in step.items() if v}
+    assert runs == {"forward": forward, "step": step}

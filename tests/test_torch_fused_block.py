@@ -6,10 +6,13 @@
 of ``tests/test_fused_block.py``: the splatted grid bit-equal, the points
 and the convolved grid within 1e-5 (conv sums in another order).  The
 block's VJP against the JAX package's ``_fused_block_mk`` within 1e-5, the
-``gk`` cotangent included.  And ``MultiHead``/``MultiHeadAdaIn`` with the
+``gk`` cotangent included, and with a ragged ``pts_mask`` whose padded
+points repeat valid points' keys.  And ``MultiHead``/``MultiHeadAdaIn`` with the
 fused block equal their "ops" path with the same ``state_dict``, forward
 and backward, within 1e-5.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +27,7 @@ from cloud_transformers_tpu_torch.convert import (
     jax_to_state_dict,
     port_to_jax_tree,
 )
+from cloud_transformers_tpu_torch.core import grid_mapping as tgm
 from cloud_transformers_tpu_torch.core import splat_slice as tss
 from cloud_transformers_tpu_torch.nn import grouped_conv as tgcm
 from cloud_transformers_tpu_torch.nn.multihead import MultiHead
@@ -31,6 +35,8 @@ from cloud_transformers_tpu_torch.nn.multihead_adain import MultiHeadAdaIn
 from cloud_transformers_tpu_torch.ops import pallas_fused_block as tfb
 from cloud_transformers_tpu_torch.ops import pallas_splat as tps
 
+# the module, which the package's ``grid_mapping`` function shadows
+jgm = importlib.import_module("cloud_transformers_tpu.core.grid_mapping")
 SHAPES = [((8, 8, 8), 4, 2), ((16, 16), 4, 2), ((8, 8, 8), 8, 2)]
 
 
@@ -199,3 +205,59 @@ def test_multihead_adain_fused_equals_ops(monkeypatch):
     for n in g_ops:
         np.testing.assert_allclose(g_f[n].numpy(), g_ops[n].numpy(), rtol=0,
                                    atol=1e-5 * scale, err_msg=n)
+
+
+@pytest.mark.parametrize("sizes,f,h", SHAPES[:2])
+def test_masked_fused_block_matches_jax(sizes, f, h):
+    """``fused_block_mk`` with a ragged ``pts_mask`` as the KPConv protocol
+    makes it (each row's padded points repeat valid points' keys; 40% and
+    70% of the rows valid) against the JAX package's ``fused_block_mk``:
+    the points within 1e-5 and zero at the padded points, the splatted
+    grid bit-equal, the gradients of the keys, the values, the kernel and
+    the bias within 1e-5, none for a padded point's values."""
+    dim, b, p = len(sizes), 2, 64
+    rs = np.random.RandomState(5)
+    mask = np.zeros((b, p), np.float32)
+    keys = rs.uniform(-1, 1, (b, p, h, dim)).astype(np.float32)
+    for i, n in enumerate((int(0.4 * p), int(0.7 * p))):
+        mask[i, :n] = 1
+        keys[i, n:] = keys[i, rs.randint(0, n, p - n)]
+    values = rs.randn(b, p, h * f).astype(np.float32)
+    kern = (rs.randn(*((3,) * dim + (f, h * f))) * 0.1).astype(np.float32)
+    bias = (rs.randn(h * f) * 0.1).astype(np.float32)
+    cot = rs.randn(b, p, h * f).astype(np.float32)
+
+    def j_loss(keys, values, kern, bias):
+        m = jgm.grid_mapping(keys, sizes, dim)
+        out, gk = jss.fused_block_mk(m, values, kern, bias, sizes, f, h,
+                                     pts_mask=jnp.asarray(mask))
+        return jnp.sum(out * cot) + jnp.sum(jnp.tanh(gk)), (out, gk)
+
+    (j_l, (j_out, j_gk)), j_g = jax.value_and_grad(
+        j_loss, argnums=(0, 1, 2, 3), has_aux=True)(
+            jnp.asarray(keys), jnp.asarray(values), jnp.asarray(kern),
+            jnp.asarray(bias))
+
+    sd = jax_to_state_dict({"params": {"kernel": kern, "bias": bias}})
+    leaves = [torch.from_numpy(keys).requires_grad_(),
+              torch.from_numpy(values).requires_grad_(),
+              sd["weight"].requires_grad_(), sd["bias"].requires_grad_()]
+    m = tgm.grid_mapping(leaves[0], sizes, dim)
+    out, gk = tss.fused_block_mk(m, leaves[1], leaves[2], leaves[3], sizes,
+                                 f, h, pts_mask=torch.from_numpy(mask))
+    loss = (out * torch.from_numpy(cot)).sum() + torch.tanh(gk).sum()
+    loss.backward()
+
+    np.testing.assert_allclose(float(loss.detach()), float(j_l), rtol=1e-6)
+    _close(out.detach(), j_out)
+    assert not out.detach().numpy()[mask == 0].any()
+    np.testing.assert_array_equal(
+        gk.detach().numpy(), np.asarray(jps.kernel_to_flat(j_gk, sizes, f)))
+    for t, ref in zip(leaves[:2], j_g[:2]):
+        _close(t.grad, ref)
+    assert not leaves[1].grad.numpy()[mask == 0].any()
+    grads = port_to_jax_tree({"weight": leaves[2].grad,
+                              "bias": leaves[3].grad},
+                             {"kernel": kern, "bias": bias})
+    _close(grads["kernel"], j_g[2])
+    _close(grads["bias"], j_g[3])

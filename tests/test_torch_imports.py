@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``cloud_transformers_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax, optax, orbax, the JAX package or
-``tools``: the training modules (trainer, logger, optimizer, checkpoints,
-data, tasks, command lines), the completion path's modules, the S3DIS
-segmenter's and the single-view reconstructor's too."""
+``chip_smoke.py``) imports JAX, flax, optax, orbax, the JAX package,
+``tools`` or scikit-learn (the card's machine has none): the training
+modules (trainer, logger, optimizer, checkpoints, data, tasks, command
+lines), the completion path's modules, the S3DIS segmenters' (both
+protocols) and the single-view reconstructor's too."""
 
 import os
 import subprocess
@@ -18,7 +19,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "cloud_transformers_tpu", "tools"))
+                                    "cloud_transformers_tpu", "tools",
+                                    "sklearn"))
 mods = [m for m in sys.modules if m.startswith("cloud_transformers_tpu_torch")]
 missing = [m for m in ("train.trainer", "train.optim", "train.config",
                        "train_classification", "tasks.classification",
@@ -34,7 +36,10 @@ missing = [m for m in ("train.trainer", "train.optim", "train.config",
                        "nn.resnet", "data.image_point",
                        "models.reconstructor", "tasks.reconstruction",
                        "train_image_reconstruction",
-                       "eval_reconstruction_f1")
+                       "eval_reconstruction_f1", "data.subsample",
+                       "data.s3dis_kpconv", "tasks.segmentation_kpconv",
+                       "train_segmentation_kpconv",
+                       "eval_segmentation_kpconv")
            if "cloud_transformers_tpu_torch." + m not in mods]
 print(len(mods), bad + missing)
 """

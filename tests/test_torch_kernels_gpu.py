@@ -1502,3 +1502,111 @@ def test_slice_bwd_in_a_cuda_graph(gen):
     for run in _graph_replays(lambda: tps.slice_bwd(*mapping, values, grid,
                                                     sizes)):
         assert all(torch.equal(a, b) for a, b in zip(run, ref))
+
+
+# --- the KPConv protocol's ragged rows --------------------------------------
+
+# every head group of the segmenter's trunk: (sizes, F)
+KPCONV_SHAPES = [((128, 128), 4), ((32, 32, 32), 4), ((64, 64), 16),
+                 ((16, 16, 16), 16), ((16, 16), 16), ((8, 8, 8), 32)]
+
+
+def _ragged(gen, sizes, f, b=6, h=16, k=8192):
+    """R = 6 clouds x 16 heads rows of K = 8192 points as the KPConv
+    protocol pads them: a cloud's first n points are valid (n / K drawn
+    from 0.08-1.0, the synthetic rooms' spread), the rest repeat valid
+    points' keys with zero values (the mask zeroes them before the splat).
+    -> (mapping, values [R, K, F], the row mask [R, K])."""
+    lat = torch.tanh(torch.randn(b, k, h, len(sizes), generator=gen,
+                                 device="cuda"))
+    share = 0.08 + 0.92 * torch.rand(b, generator=gen, device="cuda")
+    n = (share * k).long().clamp(1, k)
+    pos = torch.arange(k, device="cuda")[None]
+    valid = pos < n[:, None]
+    src = (torch.rand(b, k, generator=gen, device="cuda") * n[:, None]).long()
+    idx = torch.where(valid, pos, src)
+    lat = torch.gather(lat, 1, idx[..., None, None].expand_as(lat))
+    mapping = [a.contiguous() for a in
+               _flatten_mapping(grid_mapping(lat, sizes, len(sizes)))]
+    mask = valid.float().repeat_interleave(h, 0)
+    values = torch.randn(b * h, k, f, generator=gen, device="cuda") * \
+        mask[..., None]
+    return mapping, values, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f", KPCONV_SHAPES)
+def test_kpconv_ragged_rows_splat_kernels(gen, sizes, f):
+    """#1, #4, #9 and the routing pass on ragged rows: the splat bit-equal
+    to the plain version and the same in two runs; the winner map equal to
+    the plain version's where padded points tie at zero (no winner in a
+    cell whose maximum is the zero it starts from, no padded point ever a
+    winner); the gradients within 1e-6, none to a padded point's values;
+    the winner splat's grid and map and the routing pass bit-equal to the
+    two-pass path."""
+    mapping, values, mask = _ragged(gen, sizes, f)
+    grid = tps.splat_max(*mapping, values, sizes)
+    assert torch.equal(grid, tps.splat_max_plain(*mapping, values, sizes))
+    assert torch.equal(grid, tps.splat_max(*mapping, values, sizes))
+    g = torch.randn(grid.shape, generator=gen, device="cuda")
+    d_lo, d_hi, d_val, winner = tps.splat_max_bwd(
+        *mapping, values, grid, g, sizes, return_winner=True)
+    assert torch.equal(winner, tps.splat_winner_plain(*mapping, values, grid,
+                                                      sizes))
+    assert (winner[grid == 0] == tps.NO_WINNER).all()
+    assert bool((mask == 0).any())
+    has = winner != tps.NO_WINNER
+    who = torch.where(has, winner, 0).long().reshape(winner.shape[0], -1)
+    assert bool((mask.gather(1, who).reshape(winner.shape)[has] > 0).all())
+    plain = tps.splat_max_bwd_plain(*mapping, values, grid, g, sizes)
+    for a, p in zip((d_lo, d_hi, d_val), plain):
+        _close(a, p, 1e-6)
+    assert not d_val[mask == 0].any()
+    again = tps.splat_max_bwd(*mapping, values, grid, g, sizes,
+                              return_winner=True)
+    assert all(torch.equal(a, b) for a, b in zip(again,
+                                                 (d_lo, d_hi, d_val, winner)))
+    w_grid, w_map = tps.splat_max_winner(*mapping, values, sizes)
+    assert torch.equal(w_grid, grid) and torch.equal(w_map, winner)
+    routed = tps.splat_route(*mapping, values, winner, g, sizes)
+    assert all(torch.equal(a, b) for a, b in zip(routed, (d_lo, d_hi, d_val)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f", KPCONV_SHAPES)
+def test_kpconv_ragged_rows_slice_kernels(gen, sizes, f):
+    """#2 and #5 on ragged rows, on the splat's own grid, with a zero
+    cotangent at every padded point: the slice within 1e-5 of the plain
+    version; the slice backward within 1e-5 and the same in two runs, no
+    vertex-weight gradient at a padded point."""
+    mapping, values, mask = _ragged(gen, sizes, f)
+    grid = tps.splat_max(*mapping, values, sizes)
+    _close(tps.slice_gather(*mapping, grid, sizes),
+           tps.slice_plain(*mapping, grid, sizes), 1e-5)
+    g_pts = torch.randn(values.shape, generator=gen, device="cuda") * \
+        mask[..., None]
+    got = tps.slice_bwd(*mapping, g_pts, grid, sizes)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, tps.slice_bwd(*mapping, g_pts, grid, sizes)))
+    for a, p in zip(got, tps.slice_bwd_plain(*mapping, g_pts, grid, sizes)):
+        _close(a, p, 1e-5)
+    assert not got[1][mask == 0].any() and not got[2][mask == 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,f", KPCONV_SHAPES)
+def test_kpconv_ragged_rows_fused_block(gen, sizes, f):
+    """#10 on ragged rows: gk bit-equal to the plain composition's, the
+    points and gk2 within 1e-5, two runs bit-equal."""
+    mapping, values, _ = _ragged(gen, sizes, f)
+    weight, bias = _weights(gen, sizes, f, 16)
+    got = tfb.fused_block(*mapping, values, weight, bias, sizes, 16,
+                          want_gk2=True)
+    ref = tfb.fused_block_plain(*mapping, values, weight, bias, sizes, 16,
+                                want_gk2=True)
+    assert torch.equal(got[1], ref[1])
+    _close(got[0], ref[0], 1e-5)
+    _close(got[2], ref[2], 1e-5)
+    again = tfb.fused_block(*mapping, values, weight, bias, sizes, 16,
+                            want_gk2=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -199,13 +199,14 @@ def test_evaluate_scores_two_merged_passes(tiny, monkeypatch):
 
 
 def test_available_models_and_generator_paths():
-    """The four ported models are registered, and every reference
+    """The five ported models are registered, and every reference
     ``generator:`` path of a ported model resolves to the port's class."""
     from cloud_transformers_tpu_torch import models
     names = available_models()
     assert names == sorted(names)
     assert {"scanobject_classifier", "completion_inpainter",
-            "s3dis_segmenter", "image_reconstructor"} <= set(names)
+            "s3dis_segmenter", "image_reconstructor",
+            "s3dis_segmenter_pad"} <= set(names)
     resolved = 0
     for path, name in models._GENERATOR_ALIASES.items():
         if name not in names:
@@ -215,6 +216,6 @@ def test_available_models_and_generator_paths():
                 WIDTHS if name == "image_reconstructor" else {})))
             assert cls is models._REGISTRY[name], alias
         resolved += 1
-    assert resolved == 4
+    assert resolved == 5
     with pytest.raises(KeyError, match="image_reconstructor"):
         models.get_model("no_such_model")

@@ -62,6 +62,24 @@ def test_full_width_names_convert_strictly():
     assert state["stem.bias"].shape == (512,)
 
 
+def test_full_width_pad_names_convert_strictly():
+    """The same for the KPConv protocol's ``s3dis_segmenter_pad`` (7 stem
+    channels: xyz and 4 features)."""
+    jm = jax_model("s3dis_segmenter_pad")
+    shapes = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        jnp.zeros((1, 64, 3)), jnp.ones((1, 64)), jnp.zeros((1, 64, 4)),
+        train=False))
+    state = jax_to_state_dict(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), shapes))
+    expected = get_model("s3dis_segmenter_pad").state_dict()
+    assert set(state) == set(expected)
+    for k, v in expected.items():
+        assert tuple(state[k].shape) == tuple(v.shape), k
+    assert "trunk.stages.3.union_2.attention_1.conv.weight" in state
+    assert state["stem.weight"].shape == (512, 7)
+
+
 @pytest.mark.parametrize("best,want", [(None, "miou"), ("acc", "acc")])
 def test_cli_best_metric_defaults_to_miou(tmp_path, best, want):
     """``configs/s3dis.yaml`` names ``acc``, which the command line keeps;

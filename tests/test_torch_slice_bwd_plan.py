@@ -30,8 +30,9 @@ MODEL_F = (4, 4, 16, 16, 16, 32)
 # (rows, points a row): the classifier's B = 8 x 16 heads x 2048 points,
 # the completion decoder's B = 2 x 16 heads x 16384, the S3DIS segmenter's
 # B = 8 x 16 heads x 4096, the reconstructor decoder's B = 4 x 16 heads x
-# 8192
-MODEL_ROWS = [(128, 2048), (32, 16384), (128, 4096), (64, 8192)]
+# 8192, the KPConv-protocol segmenter's B = 6 x 16 heads x 8192
+MODEL_ROWS = [(128, 2048), (32, 16384), (128, 4096), (64, 8192),
+              (96, 8192)]
 FEATURES = [1, 3, 4, 16, 32]
 # csrc: kListP, kScanPoints (as the splat's)
 LIST_P = 2
