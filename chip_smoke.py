@@ -151,7 +151,32 @@
    on the card against the CPU (the logits at the valid points and the
    gradients: cosine > 0.999, median error <= 1e-3; the masked loss
    within 1e-4);
-14. prints ms/forward and clouds/s, then the training line (ms/step,
+14. the scales classifier: trains the full-width
+   ``scanobject_classifier_scales`` (``configs/scanobjectnn.yaml`` with
+   that model: 12 blocks at model_dim 512, the frames' scales drawn from
+   U(0.5, 1.5) first) through ``Trainer`` at B=8 x 2048: one warm-up step,
+   then 20 timed steps with the counters set to 0 just before and read
+   just after (``PER_STEP``); every loss and gradient finite, every
+   frame's scales with a nonzero gradient; a step under
+   ``set_sync_debug_mode("error")``; a step under each set; a checkpoint.
+   ``InferenceEngine.from_checkpoint`` serves 8 counted, timed calls of 8
+   synthetic clouds from it (``PER_FORWARD``), its logits on a padded
+   batch within 1e-6 of their scale from the trained model's (bit-equality
+   reported); then a seeded full-width state written in the reference's
+   layout (``reference_layout``, which ``convert.reference_state_dict``
+   takes back to the same tensors) is served from a ``.t7`` on the card
+   and on the CPU: logits and mask by the PARITY.md criteria.  Then the
+   remat policies: the scales classifier's step from the trained weights
+   on one batch with remat off twice and under ``point_io``,
+   ``point_io_grids`` and ``full``, each run a warm-up step and a step
+   under ``set_sync_debug_mode("error")`` with cuDNN deterministic (its
+   launches: ``remat_counts``; its gradients and BatchNorm statistics no
+   farther from the first remat-off run's than the second remat-off run's
+   are), then with cuDNN as it was 3 timed steps (host clock, CUDA events,
+   peak memory) and a profiled one (the device's busy time); and the same
+   for the completion model's forward, backward and update and for the
+   KPConv segmenter's step, with remat off and under ``point_io``;
+15. prints ms/forward and clouds/s, then the training line (ms/step,
    clouds/s, peak memory), then the completion line (ms/step, clouds/s,
    peak memory, the EMD's share of a step, the evaluation's table values,
    rounds and seconds per cloud, both tails), then the ``{"switched":
@@ -164,7 +189,10 @@
    the card-vs-CPU numbers and the launches of each of its runs), then the
    KPConv line (ms/step, peak memory, the spheres' valid shares, the data
    wait, the vote validation's mIoU and seconds, the card-vs-CPU numbers
-   and the launches of each of its runs), then one
+   and the launches of each of its runs), then the scales and remat line
+   (the scales classifier's step, serving and ``.t7`` numbers, each remat
+   run's peak memory, host, event and device-busy ms and launches a step,
+   the gradient and statistics differences from remat off), then one
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
    2D and 3D convs, their weight gradients, the slice, ``top2``, the
@@ -219,8 +247,9 @@ it does the same for 5 more training steps of the classifier
 (``DIR/profile_train.txt``) and of the completion model
 (``DIR/profile_completion.txt``), of the segmenter
 (``DIR/profile_segmenter.txt``) and of the reconstructor
-(``DIR/profile_reconstructor.txt``) and of the KPConv segmenter
-(``DIR/profile_kpconv.txt``), and for the classify calls and training
+(``DIR/profile_reconstructor.txt``), of the KPConv segmenter
+(``DIR/profile_kpconv.txt``) and of the scales classifier
+(``DIR/profile_scales.txt``), and for the classify calls and training
 steps under each set (``DIR/profile_{forward,train}_set_{a,b}.txt``).
 """
 
@@ -228,6 +257,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -299,6 +329,16 @@ KP_EPOCH = 120   # spheres an epoch of each synthetic set (the config's 2000,
 #                  cut for time)
 KP_VOTES = 2   # votes of the validation (the per-epoch validation's)
 KP_PARITY_B = 2   # spheres in the card-vs-CPU comparison
+SCALES = "scanobject_classifier_scales"
+SCALES_STEPS = 20   # timed steps of the scales classifier, after a warm-up
+SCALES_SERVE_CALLS = 8   # classify calls from each checkpoint, B clouds each
+SCALES_SERVE_TOL = 1e-6   # served against trained logits, of max(1, |logit|)
+REMAT_STEPS = 3   # timed steps of each remat run, after the gated step
+REMAT_PROFILE_STEPS = 1   # steps of each remat run under the profiler
+# the classifier's remat runs: (label, remat_policy; None: remat off); two
+# runs with remat off give the gradients' and statistics' own spread
+REMAT_RUNS = (("off", None), ("off_again", None), ("point_io", "point_io"),
+              ("point_io_grids", "point_io_grids"), ("full", "full"))
 REPLACES = {
     "splat_max": "cloud_transformers_tpu/ops/pallas_splat.py:528",
     "slice_gather": "cloud_transformers_tpu/ops/pallas_splat.py:780",
@@ -1362,6 +1402,141 @@ def kernel_line(rows, launches, completion_rows, segmenter_rows,
     return {"kernels": out}
 
 
+# the port's names -> the reference implementation's (the inverse of
+# ``convert.reference_state_dict``), per layout: (pattern, replacement, the
+# port's Linear weight was a Conv1d kernel [out, in, 1] there), tried in
+# order on a key outside the unions or on the rest of a union's key
+_TO_REF_UNION = (
+    (r"attention_(\d+)\.kv\.keys_values_pred\.",
+     r"attentions.\1.keys_values_pred.0.", True),
+    (r"attention_(\d+)\.kv\.(key_bn|values_bn|transform)\.",
+     r"attentions.\1.\2.", False),
+    (r"attention_(\d+)\.conv\.", r"attentions.\1.conv.0.", False),
+    (r"attention_(\d+)\.after_bn\.", r"attentions.\1.after.0.", False),
+    (r"after_conv\.", "after.0.", True),
+    (r"after_bn\.", "after.1.", False),
+    (r"(shortcut_conv)\.", r"shortcut.\1.", True),
+    (r"(shortcut_bn)\.", r"shortcut.\1.", False),
+)
+_TO_REF_UNION_ADAIN = (
+    (r"attention_(\d+)\.keys_values_pred\.",
+     r"attentions.\1.keys_values_pred.0.", True),
+    (r"attention_(\d+)\.(keys|values)_adain\.dense\.",
+     r"attentions.\1.\2_bn.0.linear.", False),
+    (r"attention_(\d+)\.(?=scale$)", r"attentions.\1.", False),
+    (r"attention_(\d+)\.transform\.", r"attentions.\1.transform.", False),
+    (r"attention_(\d+)\.conv\.", r"attentions.\1.conv.0.", False),
+    (r"attention_(\d+)\.after_adain\.dense\.",
+     r"attentions.\1.after.0.linear.", False),
+    (r"after_conv\.", "after.0.", True),
+    (r"after_adain\.dense\.", "after.1.linear.", False),
+    (r"shortcut_conv\.", "shortcut.shortcut_conv.", True),
+    (r"shortcut_adain\.dense\.", "shortcut.shortcut_bn.linear.", False),
+)
+_TO_REF_RES = {"conv1": "res_branch.0", "bn1": "res_branch.1",
+               "conv2": "res_branch.3", "bn2": "res_branch.4",
+               "skip_conv": "skip_con.0", "skip_bn": "skip_con.1"}
+_TO_REF_RESNET = (0, 3, 7, 13, 16)   # torchvision's (3, 4, 6, 3) blocks
+
+
+def _to_ref_backbone(port, ref):
+    return (
+        (port + r"stem\.", ref + "first_process.0.", True),
+        (port + r"stem_bn\.", ref + "first_process.1.", False),
+        (port + r"(pool[23]d)\.kv\.keys_values_pred\.",
+         ref + r"\1.keys_values_pred.0.", True),
+        (port + r"(pool[23]d)\.kv\.(key_bn|values_bn|transform)\.",
+         ref + r"\1.\2.", False),
+        (port + r"res([23]d)\.(\d)\.(\w+)\.",
+         lambda m: (f"{ref}after_pool{m.group(1)}.{2 * int(m.group(2))}."
+                    f"{_TO_REF_RES[m.group(3)]}."), False),
+    )
+
+
+def _to_ref_resnet_block(m):
+    b = int(m.group(1))
+    stage = max(i for i, first in enumerate(_TO_REF_RESNET) if b >= first)
+    part = {"downsample_conv": "downsample.0",
+            "downsample_bn": "downsample.1"}.get(m.group(2), m.group(2))
+    return (f"res50_model.0.features.{4 + stage}."
+            f"{b - _TO_REF_RESNET[stage]}.{part}.")
+
+
+_TO_REF_DECODER_HEAD = (
+    (r"mapping\.", "mapping.0.", False),
+    (r"start_conv\.", "start.0.", True),
+    (r"start_adain\.dense\.", "start.1.linear.", False),
+    (r"final_conv1\.", "final.0.", True),
+    (r"final_adain\.dense\.", "final.1.linear.", False),
+    (r"final_conv2\.", "final.3.", True),
+)
+_TO_REF = {
+    "scanobject_classifier": (
+        {"backbone.trunk.stages": ("attentions_encoder", _TO_REF_UNION)},
+        _to_ref_backbone(r"backbone\.", "") + (
+            (r"class_vector\.", "class_vector.0.", False),
+            (r"class_vector_bn\.", "class_vector.1.", False),
+            (r"class_head\.", "class_head.1.", False),
+            (r"mask_conv1\.", "mask_head.1.", True),
+            (r"mask_bn\.", "mask_head.2.", False),
+            (r"mask_conv2\.", "mask_head.4.", True))),
+    "completion_inpainter": (
+        {"encoder.backbone.trunk.stages": ("encoder.attentions_encoder",
+                                           _TO_REF_UNION),
+         "decoder.stages": ("attentions_decoder", _TO_REF_UNION_ADAIN)},
+        _to_ref_backbone(r"encoder\.backbone\.", "encoder.") + (
+            (r"encoder\.class_head\.", "encoder.class_head.0.", False),
+            (r"encoder\.class_head_bn\.", "encoder.class_head.1.", False),
+        ) + _TO_REF_DECODER_HEAD),
+    "image_reconstructor": (
+        {"decoder.stages": ("attentions_decoder", _TO_REF_UNION_ADAIN)}, (
+            (r"res50\.trunk\.stem_conv\.", "res50_model.0.features.0.",
+             False),
+            (r"res50\.trunk\.stem_bn\.", "res50_model.0.features.1.",
+             False),
+            (r"res50\.trunk\.blocks\.(\d+)\.(\w+)\.", _to_ref_resnet_block,
+             False),
+        ) + _TO_REF_DECODER_HEAD),
+}
+_TO_REF["scanobject_classifier_scales"] = _TO_REF["scanobject_classifier"]
+_TO_REF_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def reference_layout(model_name, state):
+    """The port's ``state`` of ``model_name`` -> a state dict with the
+    reference implementation's names and layouts (numpy float32), as its
+    released ``.t7`` files hold them: what ``convert.reference_state_dict``
+    takes back to ``state``."""
+    unions, top = _TO_REF[model_name]
+    out = {}
+    for key, value in state.items():
+        rules, prefix, rest = top, "", key
+        for port, (ref, union_rules) in unions.items():
+            m = re.match(re.escape(port) + r"\.(\d+)\.union_(\d+)\.", key)
+            if m:
+                i = 3 * int(m.group(1)) + int(m.group(2))
+                rules, prefix, rest = union_rules, f"{ref}.{i}.", \
+                    key[m.end():]
+                break
+        for pattern, repl, conv1d in rules:
+            head = re.match(pattern, rest)
+            if head is None:
+                continue
+            layer = prefix + (repl(head) if callable(repl)
+                              else head.expand(repl))
+            leaf = rest[head.end():]
+            if re.search(r"bn\d?$", key.rsplit(".", 1)[0]):
+                leaf = _TO_REF_BN[leaf]
+            a = value.detach().cpu().numpy().astype(np.float32)
+            out[layer + leaf] = a[..., None] if conv1d and \
+                leaf == "weight" else a
+            break
+        else:
+            raise KeyError(f"{key!r} has no reference name")
+    return out
+
+
 def requests(rng, n):
     sizes = [1500, 2048, 3000, 1800, 2048, 2500, 1024, 2048]
     return [rng.uniform(-1, 1, (sizes[i % len(sizes)], 3)).astype(np.float32)
@@ -1488,6 +1663,25 @@ def set_counts(name, n_splat, n_slice, training):
             "splat_max_bwd": n_splat, "slice_bwd": n_slice,
             "grid_conv3d": groups, "grid_conv3d_dw": groups,
             "grid_conv2d": groups, "grid_conv2d_dw": groups}
+
+
+def remat_counts(policy, per_step):
+    """Launches a training step under the remat ``policy`` (as
+    ``nn/remat.policy`` names it; None: off) from the same step's launches
+    with remat off: under ``"point_io"`` and ``"full"`` each head group's
+    kernel chain runs once more in the backward (a splat and a slice a head
+    group, which is a slice of the step, and the 3D convs with X >= 16, as
+    many as their weight gradients); ``"point_io_grids"`` recomputes only
+    dense ops."""
+    out = dict(per_step)
+    if policy in ("point_io", "full"):
+        groups = per_step.get("slice_gather", 0)
+        for name, extra in (("splat_max", groups), ("slice_gather", groups),
+                            ("grid_conv3d", per_step.get("grid_conv3d_dw",
+                                                         0))):
+            if extra:
+                out[name] = out.get(name, 0) + extra
+    return out
 
 
 def profile_serving(engine, batches, smi, path):
@@ -2897,6 +3091,464 @@ def kpconv_parity():
             **{f"kpconv_parity_{k}": v for k, v in result.items()}}
 
 
+def scales_config(exp_root):
+    """``configs/scanobjectnn.yaml`` with the scales classifier as its
+    model, B=8 x 2048 asserted."""
+    from cloud_transformers_tpu_torch.train.config import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs", "scanobjectnn.yaml"))
+    if (cfg["data"]["batch_size"], cfg["data"]["num_points"]) != (B, K):
+        raise AssertionError("configs/scanobjectnn.yaml is not B=8 x 2048")
+    cfg["experiment"] = {"root": exp_root}
+    cfg["model"]["name"] = SCALES
+    cfg["model"].pop("generator", None)
+    return cfg
+
+
+def full_width_scales(model):
+    """Raise unless ``model`` is the full-width scales classifier: 12
+    blocks at model_dim 512, scales in every frame (24 head groups and the
+    two pools)."""
+    trunk = model.backbone.trunk
+    blocks = sum(st.n for st in trunk.stages)
+    scales = [n for n, _ in model.named_parameters()
+              if n.endswith("transform.scales")]
+    if (blocks, model.backbone.stem.out_features, len(scales)) != \
+            (12, 512, 26):
+        raise AssertionError(f"the scales classifier is not the full-width "
+                             f"one: {blocks} blocks, "
+                             f"{model.backbone.stem.out_features} wide, "
+                             f"{len(scales)} frames with scales")
+
+
+def scales_phase(wrappers, smi, profile_dir, exp_root):
+    """Phase 14 (a): the full-width ``scanobject_classifier_scales``
+    trained through the Trainer at B=8 x 2048, its scales drawn from
+    U(0.5, 1.5) first: one warm-up step, SCALES_STEPS timed and counted
+    steps (``PER_STEP``), a step under ``set_sync_debug_mode("error")``, a
+    step under each set, a checkpoint; with ``profile_dir``, PROFILE_STEPS
+    profiled steps.  -> (result dict, {path: launches}, the trainer, the
+    checkpoint's path)."""
+    from cloud_transformers_tpu_torch.tasks import classification
+    from cloud_transformers_tpu_torch.train.config import model_from_config
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    cfg = scales_config(exp_root)
+    trainer = Trainer(
+        model_from_config(cfg), cfg, "chip_smoke_scales",
+        classification.make_loss_fn(
+            float(cfg["train"].get("seg_weight", 0.5))),
+        device="cuda", seed=0)
+    model = trainer.model
+    full_width_scales(model)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("transform.scales"):
+                p.copy_(torch.empty(p.shape).uniform_(0.5, 1.5,
+                                                      generator=gen))
+    train_loader, _ = classification.make_datasets(cfg, synthetic=True)
+    batches = endless(train_loader)
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(next(batches))            # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    step_ms, event_ms, losses = [], [], []
+    for _ in range(SCALES_STEPS):
+        batch = next(batches)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        metrics = trainer.train_step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+        losses.append(metrics["loss"])
+    launches = {"scales_training": read_launches(wrappers)}
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(launches["scales_training"], PER_STEP, SCALES_STEPS,
+                   "scales classifier steps")
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"scales classifier: losses {losses}")
+    scale_grad = {}
+    for name, p in model.named_parameters():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"{name}: missing or non-finite gradient")
+        if name.endswith("transform.scales"):
+            scale_grad[name] = float(p.grad.abs().max())
+    if not all(g > 0 for g in scale_grad.values()):
+        raise AssertionError(f"a frame's scales have no gradient: "
+                             f"{scale_grad}")
+    log(f"scales classifier: {SCALES_STEPS} steps, launches "
+        f"{launches['scales_training']}, losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, smallest scales gradient "
+        f"{min(scale_grad.values()):.3e}")
+
+    # forward, backward and the optimizer step never make the host wait
+    batch = trainer.to_device(next(batches))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("scales classifier step: no host-device synchronisation")
+
+    result = {
+        "scales_ms_per_step": float(np.median(step_ms)),
+        "scales_ms_p10": float(np.percentile(step_ms, 10)),
+        "scales_ms_p90": float(np.percentile(step_ms, 90)),
+        "scales_event_ms_per_step": float(np.median(event_ms)),
+        "scales_steps": SCALES_STEPS,
+        "scales_peak_memory_bytes": int(peak),
+        "scales_loss_first": float(losses[0]),
+        "scales_loss_last": float(losses[-1]),
+        "scales_grad_min": min(scale_grad.values()),
+        "scales_frames": len(scale_grad), "batch": B, "points": K}
+    if profile_dir:
+        result.update(profiled_steps(
+            trainer, batches, smi,
+            os.path.join(profile_dir, "profile_scales.txt"), "scales_"))
+    for name in SETS:
+        with switches(name):
+            zero_launches(wrappers)
+            metrics = trainer.train_step(next(batches))
+            torch.cuda.synchronize()
+            got = read_launches(wrappers)
+        check_launches(got, set_counts(name, PER_STEP["splat_max"],
+                                       PER_STEP["slice_gather"], True), 1,
+                       f"scales classifier step under {name}")
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss) or bad:
+            raise AssertionError(f"scales step under {name}: loss {loss}, "
+                                 f"gradients {bad[:5]}")
+        result[f"scales_{name}_loss"] = loss
+        launches[f"scales_{name}"] = got
+        log(f"scales classifier step under {name}: loss {loss:.6f}, "
+            f"launches {got}")
+    path = trainer.save()
+    batches.close()
+    return result, launches, trainer, path
+
+
+def reference_scales_state(seed):
+    """A full-width scales classifier's weights of a trained-like scale:
+    ``init_model_``'s kernels (U(+-1/sqrt(fan in))), BatchNorm scales
+    0.5-1.5 (0.05-0.15 on the keys, small key offsets: larger ones make
+    the random 12 blocks chaotic, ``tests/test_torch_reference_convert.py``),
+    biases and running means 0.1 N(0, 1), running variances 0.5-1.5, the
+    frames' scales 0.5-1.5, from ``seed``.  -> the port's state dict."""
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.nn.init import init_model_
+
+    gen = torch.Generator().manual_seed(seed)
+    model = init_model_(get_model(SCALES), gen)
+    full_width_scales(model)
+    state = model.state_dict()
+    for name, t in state.items():
+        layer, leaf = name.rsplit(".", 1)
+        if leaf in ("scales", "scale", "var"):   # "scale": a BatchNorm's
+            lo, hi = ((0.05, 0.15) if layer.endswith("key_bn")
+                      and leaf == "scale" else (0.5, 1.5))
+            t.copy_(torch.empty(t.shape).uniform_(lo, hi, generator=gen))
+        elif leaf in ("mean", "bias"):
+            t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+    return state
+
+
+def serving_from_checkpoints(wrappers, trainer, path, exp_root):
+    """Phase 14 (b): ``InferenceEngine.from_checkpoint`` from the trained
+    scales classifier's checkpoint (SCALES_SERVE_CALLS counted, timed calls
+    of B synthetic clouds; the padded batch's logits against the trained
+    model's eval logits, within SCALES_SERVE_TOL of their scale), then from
+    a reference-shaped ``.t7`` of a seeded full-width state (converted back
+    to the same tensors; the card's logits and mask for one cloud against
+    the CPU's by the PARITY.md criteria).  -> result dict, launches."""
+    from cloud_transformers_tpu_torch.convert import reference_state_dict
+    from cloud_transformers_tpu_torch.serve import InferenceEngine
+
+    rng = np.random.RandomState(4)
+    batches = [requests(rng, B) for _ in range(SCALES_SERVE_CALLS)]
+    engine = InferenceEngine.from_checkpoint(
+        SCALES, path, device="cuda", batch_buckets=(B,), point_buckets=(K,))
+    full_width_scales(engine.model)
+    engine.classify(batches[0])                  # warm-up
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    call_ms = []
+    for clouds in batches:
+        t0 = time.perf_counter()
+        probs = engine.classify(clouds)
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches(wrappers)
+    check_launches(launches, PER_FORWARD, len(batches),
+                   "scales classifier forwards from its checkpoint")
+    if probs.shape != (B, 15) or not np.isfinite(probs).all():
+        raise AssertionError(f"scales serving: probabilities {probs}")
+    pcd = torch.from_numpy(engine.pad_batch(batches[0])[0]).to("cuda")
+    with torch.no_grad():
+        served = engine.model(pcd)[0]
+        trained = trainer.model.eval()(pcd)[0]
+    scale = max(1.0, float(trained.abs().max()))
+    err = float((served - trained).abs().max()) / scale
+    want = trainer.model.state_dict()
+    same_state = all(torch.equal(v, want[k])
+                     for k, v in engine.model.state_dict().items())
+    if not (same_state and err <= SCALES_SERVE_TOL):
+        raise AssertionError(f"served logits {err} of their scale from the "
+                             f"trained model's (weights equal: "
+                             f"{same_state})")
+    log(f"scales classifier served from {os.path.basename(path)}: "
+        f"{np.median(call_ms):.3f} ms/forward, logits "
+        f"{'bit-equal' if err == 0 else f'within {err:.3e}'} of the "
+        f"trained model's")
+    result = {"scales_serve_ms_per_forward": float(np.median(call_ms)),
+              "scales_serve_ms_p10": float(np.percentile(call_ms, 10)),
+              "scales_serve_ms_p90": float(np.percentile(call_ms, 90)),
+              "scales_serve_calls": len(call_ms),
+              "scales_serve_logit_err_of_scale": err,
+              "scales_serve_bit_equal": err == 0.0,
+              "scales_serve_weights_equal": same_state}
+    del engine
+
+    state = reference_scales_state(5)
+    ref = reference_layout(SCALES, state)
+    back = reference_state_dict(SCALES, ref)
+    if set(back) != set(state) or not all(torch.equal(back[k], state[k])
+                                          for k in state):
+        raise AssertionError("the reference layout does not convert back "
+                             "to the same tensors")
+    t7 = os.path.join(exp_root, "classifier_scales.t7")
+    torch.save({k: torch.from_numpy(v) for k, v in ref.items()}, t7)
+    card = InferenceEngine.from_checkpoint(
+        SCALES, t7, device="cuda", batch_buckets=(1,), point_buckets=(K,))
+    cpu = InferenceEngine.from_checkpoint(
+        SCALES, t7, device="cpu", batch_buckets=(1,), point_buckets=(K,))
+    cloud = batches[0][:1]
+    (card_cls, card_mask, _), *_ = card.predict_padded(cloud)
+    (cpu_cls, cpu_mask, _), *_ = cpu.predict_padded(cloud)
+    cos, p50 = parity(card_cls.cpu(), cpu_cls, "scales .t7 class logits")
+    mcos, mp50 = parity(card_mask.cpu(), cpu_mask, "scales .t7 point mask")
+    result.update(scales_t7_tensors=len(ref),
+                  scales_t7_logits_cosine=cos, scales_t7_logits_p50=p50,
+                  scales_t7_mask_cosine=mcos, scales_t7_mask_p50=mp50)
+    return result, launches
+
+
+def _spread(a, b):
+    """The largest difference between two runs' tensors {name: tensor},
+    relative to the first run's largest magnitude over all of them."""
+    scale = max(float(t.abs().max()) for t in a.values())
+    return max(float((a[k] - b[k]).abs().max()) for k in a) / max(
+        scale, 1e-30)
+
+
+def remat_run(trainer, batch, step, wrappers, per_step, what, timed=True):
+    """One model under one remat policy: a warm-up step and a gated step
+    with cuDNN deterministic (so that two runs from the same weights and
+    batch agree), the gated one under ``set_sync_debug_mode("error")``,
+    with its launches (``per_step``); then (``timed``) REMAT_STEPS timed
+    steps with cuDNN as it was (host clock, CUDA events around each, the
+    peak memory of those steps) and REMAT_PROFILE_STEPS under the profiler
+    (the device's busy time).  ``step(trainer, batch)`` is one optimizer step;
+    dropout draws from a generator seeded before each.  -> (result, the
+    gradients and buffers after the gated step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_run = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.manual_seed(0)
+        step(trainer, batch)                     # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        torch.manual_seed(1)
+        zero_launches(wrappers)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(trainer, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    check_launches(launches, per_step, 1, what)
+    model = trainer.model
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    stats = {n: b.detach().clone() for n, b in model.named_buffers()}
+    if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+        raise AssertionError(f"{what}: non-finite gradients")
+    result = {"launches_per_step": {k: v for k, v in launches.items() if v}}
+    if timed:
+        host, event = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(REMAT_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            step(trainer, batch)
+            end.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            event.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(REMAT_PROFILE_STEPS):
+                step(trainer, batch)
+            torch.cuda.synchronize()
+        busy = device_ms(prof.key_averages()) / REMAT_PROFILE_STEPS
+        result.update(peak_memory_bytes=int(peak),
+                      host_ms_per_step=float(np.median(host)),
+                      event_ms_per_step=float(np.median(event)),
+                      device_busy_ms_per_step=busy)
+        log(f"{what}: peak {peak / 2 ** 30:.2f} GiB, host "
+            f"{result['host_ms_per_step']:.3f} ms, events "
+            f"{result['event_ms_per_step']:.3f} ms, device busy {busy:.3f} "
+            f"ms a step")
+    log(f"{what}: launches {result['launches_per_step']} in the gated "
+        f"step; {time.perf_counter() - t_run:.1f} s")
+    return result, grads, stats
+
+
+def _train_step(trainer, batch):
+    trainer.train_step(batch)
+
+
+def remat_phase(wrappers, state, exp_root):
+    """Phase 14 (c): the scales classifier's step (weights ``state``, one
+    batch) with remat off twice and under each policy; each policy's
+    gradients and BatchNorm statistics after its gated step no farther from
+    the first remat-off run's than the second remat-off run's are; then the
+    completion model's and the KPConv segmenter's step with remat off and
+    under ``point_io`` (``remat_run``).  -> result dict, {path:
+    launches}."""
+    from cloud_transformers_tpu_torch.core.noise import partial_postprocess
+    from cloud_transformers_tpu_torch.nn.remat import policy as remat_policy
+    from cloud_transformers_tpu_torch.tasks import classification
+    from cloud_transformers_tpu_torch.tasks import completion
+    from cloud_transformers_tpu_torch.tasks import segmentation_kpconv
+    from cloud_transformers_tpu_torch.train.config import (
+        load_config,
+        model_from_config,
+    )
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    result, launches = {}, {}
+    cfg = scales_config(exp_root)
+    loss_fn = classification.make_loss_fn(
+        float(cfg["train"].get("seg_weight", 0.5)))
+    loader, _ = classification.make_datasets(cfg, synthetic=True)
+    batch = next(iter(loader))
+    runs = {}
+    for label, name in REMAT_RUNS:
+        cfg["model"].update(remat=name is not None,
+                            remat_policy=name or "point_io")
+        trainer = Trainer(model_from_config(cfg), cfg,
+                          f"chip_smoke_remat_{label}", loss_fn,
+                          device="cuda", seed=0)
+        trainer.model.load_state_dict(state)
+        batch_dev = trainer.to_device(batch)
+        out, grads, stats = remat_run(
+            trainer, batch_dev, _train_step, wrappers,
+            remat_counts(remat_policy(name) if name else None,
+                         PER_STEP),
+            f"scales classifier step, remat {label}",
+            timed=label != "off_again")
+        runs[label] = (grads, stats)
+        result[f"classifier_{label}"] = out
+        launches[f"scales_remat_{label}"] = out["launches_per_step"]
+        del trainer
+        torch.cuda.empty_cache()
+    grads0, stats0 = runs["off"]
+    floor_g = _spread(grads0, runs["off_again"][0])
+    floor_s = _spread(stats0, runs["off_again"][1])
+    for label, _ in REMAT_RUNS[2:]:
+        g = _spread(grads0, runs[label][0])
+        st = _spread(stats0, runs[label][1])
+        result[f"classifier_{label}"].update(
+            grad_diff_from_off=g, stats_diff_from_off=st)
+        log(f"remat {label}: gradients {g:.3e} and statistics {st:.3e} "
+            f"from remat off (two remat-off runs: {floor_g:.3e}, "
+            f"{floor_s:.3e})")
+        if g > floor_g or st > floor_s:
+            raise AssertionError(
+                f"remat {label}: gradients {g} and statistics {st} from "
+                f"remat off, farther than two remat-off runs "
+                f"({floor_g}, {floor_s})")
+    result.update(classifier_off_grad_spread=floor_g,
+                  classifier_off_stats_spread=floor_s)
+    del runs
+
+    # the completion model's forward, backward and update (the EMD's
+    # auction waits for the device once a round and is left out)
+    cfg = load_config(os.path.join(root, "configs", "inpainting.yaml"))
+    cfg["experiment"] = {"root": exp_root}
+    gen = torch.Generator("cuda").manual_seed(1)
+    loader, _ = completion.make_datasets(cfg, synthetic=True)
+    raw = next(iter(loader))
+
+    def completion_step(trainer, batch):
+        parts, noise = batch
+        trainer.optimizer.zero_grad()
+        recon, _ = trainer.model(noise, parts)
+        recon.square().mean().backward()
+        trainer.optimizer.step()
+
+    for label, name in (("off", "off"), ("point_io", "point_io")):
+        cfg["model"]["remat_policy"] = name
+        trainer = Trainer(model_from_config(cfg), cfg,
+                          f"chip_smoke_remat_completion_{label}",
+                          None, device="cuda", seed=0)
+        dev = trainer.to_device(raw)
+        gen.manual_seed(1)
+        parts_noise = partial_postprocess(gen, dev["partial"],
+                                          dev["gt"].shape[1])
+        out, _, _ = remat_run(
+            trainer, parts_noise, completion_step, wrappers,
+            remat_counts(remat_policy(name), PER_STEP_COMPLETION),
+            f"completion model step, remat {label}")
+        result[f"completion_{label}"] = out
+        launches[f"completion_remat_{label}"] = out["launches_per_step"]
+        del trainer, parts_noise
+        torch.cuda.empty_cache()
+
+    cfg = load_config(os.path.join(root, "configs", "s3dis_kpconv.yaml"))
+    cfg["experiment"] = {"root": exp_root}
+    cfg["data"]["num_steps"] = KP_EPOCH
+    _, _, loader, _ = segmentation_kpconv.make_datasets(cfg,
+                                                        synthetic=True)
+    raw = next(iter(loader))
+    for label, name in (("off", None), ("point_io", "point_io")):
+        cfg["model"].update(remat=name is not None,
+                            remat_policy=name or "point_io")
+        trainer = Trainer(model_from_config(cfg), cfg,
+                          f"chip_smoke_remat_kpconv_{label}",
+                          segmentation_kpconv.make_loss_fn(),
+                          device="cuda", seed=0)
+        out, _, _ = remat_run(
+            trainer, trainer.to_device(raw), _train_step, wrappers,
+            remat_counts(name, PER_STEP_KPCONV),
+            f"KPConv step, remat {label}")
+        result[f"kpconv_{label}"] = out
+        launches[f"kpconv_remat_{label}"] = out["launches_per_step"]
+        del trainer
+        torch.cuda.empty_cache()
+    return result, launches
+
+
 def profiled_steps(trainer, batches, smi, path, prefix):
     """PROFILE_STEPS more training steps under torch.profiler: the device
     kernels by group in ``path``.  -> {prefix + profiled_...}: the host
@@ -2936,7 +3588,8 @@ def main():
                          "DIR/profile_completion.txt, "
                          "DIR/profile_segmenter.txt, "
                          "DIR/profile_reconstructor.txt, "
-                         "DIR/profile_kpconv.txt and, under each "
+                         "DIR/profile_kpconv.txt, "
+                         "DIR/profile_scales.txt and, under each "
                          "set, "
                          "DIR/profile_{forward,train}_set_{a,b}.txt")
     args = ap.parse_args()
@@ -3175,7 +3828,26 @@ def main():
     all_launches.update(kpconv_launches)
     log(f"KPConv phase done in {time.perf_counter() - t0:.1f} s")
 
-    # 14. results
+    # 14. the scales classifier: training, both sets, serving from its
+    # checkpoint and from a reference .t7, and the remat policies
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as exp_root:
+        scaled, scales_launches, trainer, path = scales_phase(
+            wrappers, smi, args.profile, exp_root)
+        served, all_launches["scales_serving"] = serving_from_checkpoints(
+            wrappers, trainer, path, exp_root)
+        scaled.update(served)
+        state = {k: v.detach().cpu().clone()
+                 for k, v in trainer.model.state_dict().items()}
+        del trainer
+        torch.cuda.empty_cache()
+        rematted, remat_launches = remat_phase(wrappers, state, exp_root)
+    all_launches.update(scales_launches)
+    all_launches.update(remat_launches)
+    log(f"scales and remat phase done in {time.perf_counter() - t0:.1f} s")
+
+    # 15. results
     log(f"{ms_fwd:.3f} ms/forward (median) at B={B} x {K} points, "
         f"{B * 1e3 / ms_fwd:.2f} clouds/s "
         f"({len(batches)} classify calls, host clock, synchronised)")
@@ -3245,6 +3917,20 @@ def main():
     print(json.dumps({"kpconv": kpconv, "kpconv_launches": {
         path: {k: v for k, v in counts.items() if v}
         for path, counts in kpconv_launches.items()}}), flush=True)
+    log(f"{scaled['scales_ms_per_step']:.3f} ms/step (median) for the "
+        f"scales classifier at B={B} x {K} points, served from its "
+        f"checkpoint at {scaled['scales_serve_ms_per_forward']:.3f} "
+        f"ms/forward; remat peak memory (GiB) and device busy ms a step: " +
+        ", ".join(f"{k} {v['peak_memory_bytes'] / 2 ** 30:.2f}, "
+                  f"{v['device_busy_ms_per_step']:.3f}"
+                  for k, v in rematted.items()
+                  if isinstance(v, dict) and "peak_memory_bytes" in v))
+    print(json.dumps({"scales": scaled, "remat": rematted,
+                      "scales_launches": {
+                          path: {k: v for k, v in counts.items() if v}
+                          for path, counts in {**scales_launches,
+                                               **remat_launches}.items()}}),
+          flush=True)
     all_launches.update(completion=completion_launches,
                         evaluation=eval_launches, window=window_launches)
     print(json.dumps(kernel_line(rows, all_launches, completion_rows,

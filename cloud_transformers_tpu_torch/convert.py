@@ -28,10 +28,12 @@ named as the port names them (gradients from ``named_parameters()``, or a
 ``state_dict``): it fills a copy of a JAX tree, so that a test can hold
 ``p.grad`` against ``jax.grad`` leaf by leaf.
 
-``reference_segmenter_pad_state_dict`` and ``load_reference_segmenter_pad``
-take the reference implementation's own state dict of the KPConv-protocol
-segmenter (the released ``s3dis_kpconvprotocol.t7``) straight into the
-port's ``SegmenterPad``.
+``reference_state_dict`` and ``load_reference`` take the reference
+implementation's own state dict (a released ``.t7``) of a segmenter, a
+classifier (with or without per-head scales), the completion inpainter or
+the single-view reconstructor straight into the port's model, as the JAX
+package's ``tools/convert_torch_checkpoint.py`` does into a JAX tree.
+``load_weights`` takes either kind of file: a ``.t7`` or a port checkpoint.
 """
 
 import re
@@ -159,65 +161,172 @@ def load_jax_variables(model, variables):
     return model
 
 
-# the reference's ``model_zoo/s3dis/segmenter_pad.py`` module names -> the
-# port's ``SegmenterPad``: (pattern, replacement, the layer is a BatchNorm),
-# inside a union (``attentions_encoder.{i}``: stage i // 3, union i % 3) or
-# at the top
-_REFERENCE_SEGMENTER = (
-    (r"first_process\.0\.", "stem.", False),
-    (r"first_process\.1\.", "stem_bn.", True),
-    (r"attentions\.(\d+)\.keys_values_pred\.0\.",
-     r"attention_\1.kv.keys_values_pred.", False),
-    (r"attentions\.(\d+)\.(key_bn|values_bn)\.", r"attention_\1.kv.\2.",
-     True),
-    (r"attentions\.(\d+)\.transform\.", r"attention_\1.kv.transform.", False),
-    (r"attentions\.(\d+)\.conv\.0\.", r"attention_\1.conv.", False),
-    (r"attentions\.(\d+)\.after\.0\.", r"attention_\1.after_bn.", True),
-    (r"after\.0\.", "after_conv.", False),
-    (r"after\.1\.", "after_bn.", True),
-    (r"final\.0\.", "final_conv1.", False),
-    (r"final\.1\.", "final_bn.", True),
-    (r"final\.3\.", "final_conv2.", False),
-)
+# The reference implementation's module names -> the port's, per layout:
+# (pattern, replacement) tried in order on a key outside the unions, or,
+# after a union's prefix (``attentions_encoder.{i}`` /
+# ``attentions_decoder.{i}``: stage i // 3, union i % 3), on the rest of the
+# union's key.  A replacement is a template or a function of the match.  A
+# layer whose port name ends in ``bn`` or ``bn<digit>`` is a BatchNorm.
 _BN_LEAVES = {"weight": "scale", "bias": "bias", "running_mean": "mean",
               "running_var": "var"}
+_UNION = (   # layers/multihead_ct.py
+    (r"attentions\.(\d+)\.keys_values_pred\.0\.",
+     r"attention_\1.kv.keys_values_pred."),
+    (r"attentions\.(\d+)\.(key_bn|values_bn|transform)\.",
+     r"attention_\1.kv.\2."),
+    (r"attentions\.(\d+)\.conv\.0\.", r"attention_\1.conv."),
+    (r"attentions\.(\d+)\.after\.0\.", r"attention_\1.after_bn."),
+    (r"after\.0\.", "after_conv."),
+    (r"after\.1\.", "after_bn."),
+    (r"shortcut\.(shortcut_conv|shortcut_bn)\.", r"\1."),
+)
+_UNION_ADAIN = (   # layers/multihead_ct_adain.py
+    (r"attentions\.(\d+)\.keys_values_pred\.0\.",
+     r"attention_\1.keys_values_pred."),
+    (r"attentions\.(\d+)\.(keys|values)_bn\.0\.linear\.",
+     r"attention_\1.\2_adain.dense."),
+    (r"attentions\.(\d+)\.(?=scale$)", r"attention_\1."),
+    (r"attentions\.(\d+)\.transform\.", r"attention_\1.transform."),
+    (r"attentions\.(\d+)\.conv\.0\.", r"attention_\1.conv."),
+    (r"attentions\.(\d+)\.after\.0\.linear\.",
+     r"attention_\1.after_adain.dense."),
+    (r"after\.0\.", "after_conv."),
+    (r"after\.1\.linear\.", "after_adain.dense."),
+    (r"shortcut\.shortcut_conv\.", "shortcut_conv."),
+    (r"shortcut\.shortcut_bn\.linear\.", "shortcut_adain.dense."),
+)
+_RES_PARTS = {"res_branch.0": "conv1", "res_branch.1": "bn1",
+              "res_branch.3": "conv2", "res_branch.4": "bn2",
+              "skip_con.0": "skip_conv", "skip_con.1": "skip_bn"}
+_DOWNSAMPLE_PARTS = {"downsample.0": "downsample_conv",
+                     "downsample.1": "downsample_bn"}
+_RESNET_FIRST_BLOCK = (0, 3, 7, 13)   # torchvision's (3, 4, 6, 3) blocks
 
 
-def _reference_name(key):
-    """A reference segmenter key -> the port's key (None for a
-    BatchNorm's ``num_batches_tracked``)."""
-    prefix, rest = "", key
-    m = re.match(r"attentions_encoder\.(\d+)\.", key)
-    if m:
-        i = int(m.group(1))   # three unions a stage
-        prefix = f"trunk.stages.{i // 3}.union_{i % 3}."
-        rest = key[m.end():]
-    for pattern, repl, is_bn in _REFERENCE_SEGMENTER:
-        head = re.match(pattern, rest)
+def _backbone(ref, port):
+    """The classifier's backbone (model_zoo/scanobject/classifier.py) under
+    the reference prefix ``ref`` and the port's ``port``."""
+    return (
+        (ref + r"first_process\.0\.", port + "stem."),
+        (ref + r"first_process\.1\.", port + "stem_bn."),
+        (ref + r"(pool[23]d)\.keys_values_pred\.0\.",
+         port + r"\1.kv.keys_values_pred."),
+        (ref + r"(pool[23]d)\.(key_bn|values_bn|transform)\.",
+         port + r"\1.kv.\2."),
+        # after_pool{3,2}d.{0,2,4}: Res blocks between max pools
+        (ref + r"after_pool([23]d)\.(\d+)\.(res_branch\.[0134]|"
+               r"skip_con\.[01])\.",
+         lambda m: (f"{port}res{m.group(1)}.{int(m.group(2)) // 2}."
+                    f"{_RES_PARTS[m.group(3)]}.")),
+    )
+
+
+def _resnet_block(m):
+    block = _RESNET_FIRST_BLOCK[int(m.group(1)) - 4] + int(m.group(2))
+    part = _DOWNSAMPLE_PARTS.get(m.group(3), m.group(3))
+    return f"res50.trunk.blocks.{block}.{part}."
+
+
+_DECODER_HEAD = (   # the AdaIN decoder's stem and final head
+    (r"mapping\.0\.", "mapping."),
+    (r"start\.0\.", "start_conv."),
+    (r"start\.1\.linear\.", "start_adain.dense."),
+    (r"final\.0\.", "final_conv1."),
+    (r"final\.1\.linear\.", "final_adain.dense."),
+    (r"final\.3\.", "final_conv2."),
+)
+_REFERENCE = {   # layout: ({union prefix: (port prefix, rules)}, rules)
+    "segmenter": ({"attentions_encoder": ("trunk.stages", _UNION)}, (
+        (r"first_process\.0\.", "stem."),
+        (r"first_process\.1\.", "stem_bn."),
+        (r"final\.0\.", "final_conv1."),
+        (r"final\.1\.", "final_bn."),
+        (r"final\.3\.", "final_conv2."),
+    )),
+    "classifier": ({"attentions_encoder": ("backbone.trunk.stages",
+                                           _UNION)},
+                   _backbone("", "backbone.") + (
+        (r"class_vector\.0\.", "class_vector."),
+        (r"class_vector\.1\.", "class_vector_bn."),
+        (r"class_head\.1\.", "class_head."),
+        (r"mask_head\.1\.", "mask_conv1."),
+        (r"mask_head\.2\.", "mask_bn."),
+        (r"mask_head\.4\.", "mask_conv2."),
+    )),
+    "inpainter": ({"encoder.attentions_encoder": (
+                       "encoder.backbone.trunk.stages", _UNION),
+                   "attentions_decoder": ("decoder.stages", _UNION_ADAIN)},
+                  _backbone(r"encoder\.", "encoder.backbone.") + (
+        (r"encoder\.class_head\.0\.", "encoder.class_head."),
+        (r"encoder\.class_head\.1\.", "encoder.class_head_bn."),
+    ) + _DECODER_HEAD),
+    # a torchvision ResNet-50's children()[:-2] under
+    # ``res50_model.0.features`` (0 conv1, 1 bn1, 4-7 layer1-4)
+    "reconstructor": ({"attentions_decoder": ("decoder.stages",
+                                              _UNION_ADAIN)}, (
+        (r"res50_model\.0\.features\.0\.", "res50.trunk.stem_conv."),
+        (r"res50_model\.0\.features\.1\.", "res50.trunk.stem_bn."),
+        (r"res50_model\.0\.features\.([4-7])\.(\d+)\.(conv[123]|bn[123]|"
+         r"downsample\.[01])\.", _resnet_block),
+    ) + _DECODER_HEAD),
+}
+# registry name -> the reference layout of its checkpoints
+_REFERENCE_OF = {"s3dis_segmenter": "segmenter",
+                 "s3dis_segmenter_pad": "segmenter",
+                 "scanobject_classifier": "classifier",
+                 "scanobject_classifier_scales": "classifier",
+                 "completion_inpainter": "inpainter",
+                 "image_reconstructor": "reconstructor"}
+
+
+def _reference_name(key, layout):
+    """A reference key -> the port's key (None for a BatchNorm's
+    ``num_batches_tracked``)."""
+    unions, rules = _REFERENCE[layout]
+    prefix = ""
+    for ref, (port, union_rules) in unions.items():
+        m = re.match(re.escape(ref) + r"\.(\d+)\.", key)
+        if m:
+            i = int(m.group(1))   # three unions a stage
+            prefix = f"{port}.{i // 3}.union_{i % 3}."
+            rules, key = union_rules, key[m.end():]
+            break
+    for pattern, repl in rules:
+        head = re.match(pattern, key)
         if head is None:
             continue
-        leaf = rest[head.end():]
-        if is_bn:
+        layer = prefix + (repl(head) if callable(repl)
+                          else head.expand(repl))
+        leaf = key[head.end():]
+        if re.search(r"bn\d?\.$", layer):
             if leaf == "num_batches_tracked":
                 return None
             leaf = _BN_LEAVES[leaf]
-        return prefix + head.expand(repl) + leaf
-    raise KeyError(f"reference key {key!r} has no counterpart in "
-                   "SegmenterPad")
+        return layer + leaf
+    raise KeyError(f"reference key {key!r} has no counterpart in the "
+                   f"port's {layout}")
 
 
-def reference_segmenter_pad_state_dict(sd):
-    """The reference ``model_zoo/s3dis/segmenter_pad.py`` state dict
-    ({name: tensor or array}, a ``module.`` prefix dropped) -> the port's
-    ``SegmenterPad`` ``state_dict``: the reference's ``Conv1d`` kernels
-    ``[out, in, 1]`` lose their last axis to become ``Linear`` weights, the
-    grid convs keep their layout, the BatchNorms' ``weight``/``running_*``
-    become ``scale``/``mean``/``var``.  The counterpart of the JAX
-    package's ``tools/convert_torch_checkpoint.convert_segmenter_pad``."""
+def reference_state_dict(model_name, sd):
+    """The reference implementation's state dict of ``model_name`` ({name:
+    tensor or array}, a ``module.`` prefix dropped) -> the port's
+    ``state_dict``: the reference's ``Conv1d`` kernels ``[out, in, 1]``
+    lose their last axis to become ``Linear`` weights, the grid convs,
+    Res blocks and ``Linear`` layers keep their layout, the BatchNorms'
+    ``weight``/``running_*`` become ``scale``/``mean``/``var``, the
+    frames' ``log_R``/``shift``/``scales`` and the AdaIN key ``scale``
+    keep their names.  The counterpart of the JAX package's
+    ``tools/convert_torch_checkpoint.convert`` followed by
+    ``jax_to_state_dict``; like it, raises ``NotImplementedError`` for a
+    model it has no converter for."""
+    if model_name not in _REFERENCE_OF:
+        raise NotImplementedError(
+            f"no reference converter for {model_name!r} (available: "
+            f"{sorted(_REFERENCE_OF)})")
     state = {}
     for key, value in sd.items():
         key = key[len("module."):] if key.startswith("module.") else key
-        name = _reference_name(key)
+        name = _reference_name(key, _REFERENCE_OF[model_name])
         if name is None:
             continue
         t = torch.as_tensor(np.asarray(value, np.float32))
@@ -227,10 +336,54 @@ def reference_segmenter_pad_state_dict(sd):
     return state
 
 
-def load_reference_segmenter_pad(model, path):
+def reference_segmenter_pad_state_dict(sd):
+    """``reference_state_dict`` of the KPConv-protocol segmenter
+    (``model_zoo/s3dis/segmenter_pad.py``)."""
+    return reference_state_dict("s3dis_segmenter_pad", sd)
+
+
+def reference_classifier_state_dict(sd):
+    """``reference_state_dict`` of ``model_zoo/scanobject/classifier.py``
+    and ``classifier_scales.py`` (whose frames add ``transform.scales``)."""
+    return reference_state_dict("scanobject_classifier", sd)
+
+
+def reference_inpainter_state_dict(sd):
+    """``reference_state_dict`` of ``model_zoo/completion/inpainter.py``:
+    the encoder under ``encoder.``, the AdaIN decoder."""
+    return reference_state_dict("completion_inpainter", sd)
+
+
+def reference_reconstructor_state_dict(sd):
+    """``reference_state_dict`` of
+    ``model_zoo/image_reconstruction/reconstructor.py``: torchvision's
+    ResNet-50 names, the AdaIN decoder."""
+    return reference_state_dict("image_reconstructor", sd)
+
+
+def load_reference(model, model_name, path):
     """Load the reference's ``.t7`` state dict at ``path`` into the port's
-    ``SegmenterPad`` (strict: every name must match)."""
+    ``model`` of the registered name ``model_name`` (strict: every name
+    must match); -> the model."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(reference_segmenter_pad_state_dict(sd),
-                          strict=True)
+    model.load_state_dict(reference_state_dict(model_name, sd), strict=True)
     return model
+
+
+def load_reference_segmenter_pad(model, path):
+    """``load_reference`` of the KPConv-protocol segmenter (the released
+    ``s3dis_kpconvprotocol.t7``)."""
+    return load_reference(model, "s3dis_segmenter_pad", path)
+
+
+def load_weights(model, model_name, path):
+    """Weights the port did not train or did: a reference ``.t7`` through
+    ``load_reference``, any other file (a trainer checkpoint, a
+    ``save_params_only`` file, a bare ``state_dict``) through
+    ``train/checkpoint.restore_params_only``; -> the model."""
+    if str(path).endswith(".t7"):
+        return load_reference(model, model_name, path)
+    from cloud_transformers_tpu_torch.train.checkpoint import (
+        restore_params_only,
+    )
+    return restore_params_only(path, model)

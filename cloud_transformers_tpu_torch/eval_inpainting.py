@@ -9,8 +9,11 @@ The command line of the JAX package's ``eval_inpainting.py``.  GRNet's
 metric protocol: the partial cloud goes through the model scaled by 2, the
 reconstruction is halved and held against the raw ground truth; the EMD is
 taken on the clouds scaled by 2 (eps ``val_emd_eps`` 0.004, up to
-``val_emd_iters`` 3000 rounds).  Runs on ``cuda`` unless ``--device`` says
-otherwise.  ``evaluate`` is the loop behind the command.
+``val_emd_iters`` 3000 rounds).  The weights come from ``--ckpt`` or the
+config's ``restore.generator``: a port checkpoint, or the reference's own
+state dict (a ``.t7`` file) through ``convert.load_reference``.  Runs on
+``cuda`` unless ``--device`` says otherwise.  ``evaluate`` is the loop
+behind the command.
 """
 
 import argparse
@@ -104,7 +107,8 @@ def main(argv=None):
     ap.add_argument("-c", "--config", default="configs/inpainting.yaml")
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--ckpt", default=None,
-                    help="checkpoint file (default: cfg restore.generator)")
+                    help="a port checkpoint or a reference .t7 (default: cfg "
+                         "restore.generator)")
     ap.add_argument("--limit", type=int, default=None)
     ap.add_argument("--emd", action="store_true",
                     help="also compute the protocol EMD (eps 0.004, up to "
@@ -117,18 +121,17 @@ def main(argv=None):
 
     import torch
 
+    from cloud_transformers_tpu_torch.convert import load_weights
     from cloud_transformers_tpu_torch.data import (
         DataLoader,
         ShapeNetCompletion,
     )
     from cloud_transformers_tpu_torch.nn.init import init_model_
     from cloud_transformers_tpu_torch.nn.precision import strict_f32
-    from cloud_transformers_tpu_torch.train.checkpoint import (
-        restore_params_only,
-    )
     from cloud_transformers_tpu_torch.train.config import (
         load_config,
         model_from_config,
+        model_name,
     )
 
     cfg = load_config(args.config)
@@ -139,7 +142,7 @@ def main(argv=None):
     model = model_from_config(cfg)
     ckpt = args.ckpt or cfg.get("restore", {}).get("generator")
     if ckpt:
-        restore_params_only(ckpt, model)
+        load_weights(model, model_name(cfg), ckpt)
     else:
         init_model_(model, torch.Generator().manual_seed(0))
     model = model.to(device)
@@ -156,6 +159,7 @@ def main(argv=None):
         emd_iters=int(cfg["train"].get("val_emd_iters", 3000)),
         dump_dir=args.dump_dir)
     print(format_table(per_cat, args.emd))
+    return per_cat
 
 
 if __name__ == "__main__":

@@ -12,7 +12,9 @@ sphere-noise points, an eval-mode forward on each, the two predictions
 concatenated and resampled to the ground truth's size by one permutation
 drawn for the whole batch (``merge_passes``); then the F-score, precision
 and recall at 0.01.  The weights come from ``--ckpt`` or the config's
-``restore.generator`` (a fresh initialisation from seed 0 without either).
+``restore.generator``: a port checkpoint, or the reference's own state dict
+(a ``.t7`` file) through ``convert.load_reference``; a fresh
+initialisation from seed 0 without either.
 Runs on ``cuda`` unless ``--device`` says otherwise.  ``evaluate`` is the
 loop behind the command.
 """
@@ -98,7 +100,8 @@ def main(argv=None):
     ap.add_argument("-c", "--config", default="configs/reconstruction.yaml")
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--ckpt", default=None,
-                    help="checkpoint file (default: cfg restore.generator)")
+                    help="a port checkpoint or a reference .t7 (default: cfg "
+                         "restore.generator)")
     ap.add_argument("--limit", type=int, default=None)
     ap.add_argument("--points", type=int, default=10000,
                     help="ground-truth points an image")
@@ -107,15 +110,14 @@ def main(argv=None):
 
     import torch
 
+    from cloud_transformers_tpu_torch.convert import load_weights
     from cloud_transformers_tpu_torch.data import DataLoader, ImageToPoint
     from cloud_transformers_tpu_torch.nn.init import init_model_
     from cloud_transformers_tpu_torch.nn.precision import strict_f32
-    from cloud_transformers_tpu_torch.train.checkpoint import (
-        restore_params_only,
-    )
     from cloud_transformers_tpu_torch.train.config import (
         load_config,
         model_from_config,
+        model_name,
     )
 
     cfg = load_config(args.config)
@@ -126,7 +128,7 @@ def main(argv=None):
     model = model_from_config(cfg)
     ckpt = args.ckpt or cfg.get("restore", {}).get("generator")
     if ckpt:
-        restore_params_only(ckpt, model)
+        load_weights(model, model_name(cfg), ckpt)
     else:
         init_model_(model, torch.Generator().manual_seed(0))
     model = model.to(device)

@@ -10,8 +10,8 @@ The command line of the JAX package's ``eval_segmentation_kpconv.py``.
 The weights come from ``--ckpt``, else from the config's
 ``restore.generator``: a port checkpoint through ``restore_params_only``,
 or the reference's own state dict (a ``.t7`` file, such as the released
-``s3dis_kpconvprotocol.t7``) through
-``convert.load_reference_segmenter_pad``.  Without either the model keeps
+``s3dis_kpconvprotocol.t7``) through ``convert.load_reference``
+(``convert.load_weights`` takes either).  Without either the model keeps
 a fresh initialisation from seed 0.  Runs on ``cuda`` unless ``--device``
 says otherwise.  Prints the results and the IoU of each class.
 """
@@ -32,19 +32,15 @@ def main(argv=None):
 
     import torch
 
-    from cloud_transformers_tpu_torch.convert import (
-        load_reference_segmenter_pad,
-    )
+    from cloud_transformers_tpu_torch.convert import load_weights
     from cloud_transformers_tpu_torch.data import DataLoader, S3DISSeg
     from cloud_transformers_tpu_torch.nn.init import init_model_
     from cloud_transformers_tpu_torch.nn.precision import strict_f32
     from cloud_transformers_tpu_torch.tasks import segmentation_kpconv as task
-    from cloud_transformers_tpu_torch.train.checkpoint import (
-        restore_params_only,
-    )
     from cloud_transformers_tpu_torch.train.config import (
         load_config,
         model_from_config,
+        model_name,
     )
     from cloud_transformers_tpu_torch.train.logging import setup_logger
 
@@ -55,10 +51,8 @@ def main(argv=None):
         strict_f32()
     model = model_from_config(cfg)
     ckpt = args.ckpt or cfg.get("restore", {}).get("generator")
-    if ckpt and ckpt.endswith(".t7"):
-        load_reference_segmenter_pad(model, ckpt)
-    elif ckpt:
-        restore_params_only(ckpt, model)
+    if ckpt:
+        load_weights(model, model_name(cfg), ckpt)
     else:
         init_model_(model, torch.Generator().manual_seed(0))
     model = model.to(device).eval()

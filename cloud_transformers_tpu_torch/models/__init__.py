@@ -1,7 +1,8 @@
 """Model registry of the port (counterpart of
-``cloud_transformers_tpu/models/__init__.py``): the ScanObjectNN classifier,
-the ShapeNet completion inpainter, the S3DIS segmenters of the 1x1 and the
-KPConv protocols and the single-view reconstructor."""
+``cloud_transformers_tpu/models/__init__.py``): the ScanObjectNN classifier
+with and without per-head scales, the ShapeNet completion inpainter, the
+S3DIS segmenters of the 1x1 and the KPConv protocols and the single-view
+reconstructor."""
 
 from typing import Any, Dict
 
@@ -32,17 +33,22 @@ def available_models():
     return sorted(_REGISTRY)
 
 
-def get_model(name, **kwargs):
-    """Instantiate a registered model with its constructor knobs; ``name`` is
-    a registry name or one of the reference's ``generator`` paths (also
-    under ``model_zoo_tpu``)."""
+def registry_name(name):
+    """The registry name of ``name``: a registry name or one of the
+    reference's ``generator`` paths (also under ``model_zoo_tpu``)."""
     key = _GENERATOR_ALIASES.get(name, name)
     key = _GENERATOR_ALIASES.get(key.replace("model_zoo_tpu", "model_zoo"),
                                  key)
     if key not in _REGISTRY:
         raise KeyError(
             f"unknown model {name!r}; available: {available_models()}")
-    return _REGISTRY[key](**kwargs)
+    return key
+
+
+def get_model(name, **kwargs):
+    """Instantiate a registered model with its constructor knobs; ``name``
+    as ``registry_name`` takes it."""
+    return _REGISTRY[registry_name(name)](**kwargs)
 
 
 # import for side-effect registration

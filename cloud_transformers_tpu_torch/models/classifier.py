@@ -1,4 +1,4 @@
-"""ScanObjectNN classifier.
+"""ScanObjectNN classifier, with and without per-head scales.
 
 Counterpart of ``cloud_transformers_tpu/models/classifier.py``: a 3 -> 512
 stem, 12 MultiHeadUnion blocks (``repeats`` stages of the 3-union
@@ -7,9 +7,14 @@ transitions into grouped Res3D/Res2D trunks, a 2048 -> 1024 class vector,
 the class head, and a per-point mask head conditioned on the class vector.
 In training mode the BatchNorms use batch statistics and the three
 ``Dropout(0.5)`` of the heads are active (``dropout=0`` turns them off).
-The JAX package rematerializes and scans the stages to fit the TPU's memory
-and compile time; here every stage keeps its activations.  Module names
-follow the JAX parameter tree so that ``convert.py`` maps it.
+``scanobject_classifier_scales`` is the same network with learned per-head
+``scales`` in every frame, the pools' too.
+
+``remat``/``remat_policy`` are the JAX keys and names (``nn/remat.py``),
+but the port's default is ``remat=False``: the JAX package rematerializes
+the stages to fit the TPU's memory, and the card holds the step whole.
+Remat changes memory and time, not values.  Module names follow the JAX
+parameter tree so that ``convert.py`` maps it.
 """
 
 import torch
@@ -17,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cloud_transformers_tpu_torch.models import register
+from cloud_transformers_tpu_torch.nn import remat as rm
 from cloud_transformers_tpu_torch.nn.conv_blocks import ResBlock, max_pool_nd
 from cloud_transformers_tpu_torch.nn.multihead import (
     MultiHeadPool,
@@ -35,15 +41,21 @@ DEFAULT_STAGE_PLAN = (
 class MHCTStage(nn.Module):
     """One repeat of the stage plan: ``union_0 .. union_{n-1}``."""
 
-    def __init__(self, model_dim, stage_plan):
+    remat = None   # "full": the stage is one checkpointed region
+
+    def __init__(self, model_dim, stage_plan, scales=False):
         super().__init__()
         self.n = len(stage_plan)
         for i, (f, h, s, d) in enumerate(stage_plan):
             self.add_module(f"union_{i}", MultiHeadUnion(
                 model_dim, features_dims=f, tensor_sizes=s, tensor_dims=d,
-                heads=h))
+                heads=h, model_dim_out=model_dim, scales=scales))
 
     def forward(self, x, pcd, pts_mask=None):
+        return rm.region(self.remat == "full", self._forward, x, pcd,
+                         pts_mask)
+
+    def _forward(self, x, pcd, pts_mask):
         stats = []
         for i in range(self.n):
             x, s = getattr(self, f"union_{i}")(x, pcd, pts_mask)
@@ -52,10 +64,15 @@ class MHCTStage(nn.Module):
 
 
 class MHCTTrunk(nn.Module):
-    def __init__(self, model_dim, repeats, stage_plan):
+    """``repeats`` stages under the remat policy ``remat_policy``
+    (``nn/remat.py``; ``"off"``: none)."""
+
+    def __init__(self, model_dim, repeats, stage_plan, scales=False,
+                 remat_policy=rm.OFF):
         super().__init__()
         self.stages = nn.ModuleList(
-            MHCTStage(model_dim, stage_plan) for _ in range(repeats))
+            MHCTStage(model_dim, stage_plan, scales) for _ in range(repeats))
+        rm.set_policy(self, remat_policy)
 
     def forward(self, x, pcd, pts_mask=None):
         stats = []
@@ -72,16 +89,18 @@ class ClassifierBackbone(nn.Module):
     def __init__(self, model_dim=512, repeats=4,
                  stage_plan=DEFAULT_STAGE_PLAN, pool_heads=16,
                  pool_feature_dims=(32, 16), pool_sizes=(8, 16),
-                 trunk_width=64):
+                 trunk_width=64, scales=False, remat=False,
+                 remat_policy="point_io"):
         super().__init__()
         hp, w = pool_heads, trunk_width
         self.stem = nn.Linear(3, model_dim, bias=False)
         self.stem_bn = BatchNorm(model_dim)
-        self.trunk = MHCTTrunk(model_dim, repeats, stage_plan)
+        self.trunk = MHCTTrunk(model_dim, repeats, stage_plan, scales,
+                               remat_policy if remat else rm.OFF)
         self.pool3d = MultiHeadPool(model_dim, pool_feature_dims[0],
-                                    pool_sizes[0], 3, hp)
+                                    pool_sizes[0], 3, hp, scales)
         self.pool2d = MultiHeadPool(model_dim, pool_feature_dims[1],
-                                    pool_sizes[1], 2, hp)
+                                    pool_sizes[1], 2, hp, scales)
         c3, c2 = pool_feature_dims[0] * hp, pool_feature_dims[1] * hp
         self.res3d = nn.ModuleList([
             ResBlock(c3, w * hp, hp, 3), ResBlock(w * hp, w * hp, hp, 3),
@@ -119,11 +138,13 @@ class Classifier(nn.Module):
     def __init__(self, n_classes=15, model_dim=512, repeats=4,
                  stage_plan=DEFAULT_STAGE_PLAN, pool_heads=16,
                  pool_feature_dims=(32, 16), pool_sizes=(8, 16),
-                 trunk_width=64, class_dim=1024, mask_dim=256, dropout=0.5):
+                 trunk_width=64, class_dim=1024, mask_dim=256, dropout=0.5,
+                 scales=False, remat=False, remat_policy="point_io"):
         super().__init__()
         self.backbone = ClassifierBackbone(
             model_dim, repeats, stage_plan, pool_heads,
-            pool_feature_dims, pool_sizes, trunk_width)
+            pool_feature_dims, pool_sizes, trunk_width, scales, remat,
+            remat_policy)
         pooled_dim = 2 * trunk_width * pool_heads
         self.class_vector = nn.Linear(pooled_dim, class_dim)
         self.class_vector_bn = BatchNorm(class_dim)
@@ -145,3 +166,12 @@ class Classifier(nn.Module):
         mh = self.mask_bn(self.mask_conv1(self.dropout(mh)))
         mask_pred = self.mask_conv2(self.dropout(F.relu(mh)))
         return class_pred, mask_pred, stats
+
+
+@register("scanobject_classifier_scales")
+class ClassifierScales(Classifier):
+    """The classifier with learned per-head scales (the reference's
+    ``classifier_scales.py``)."""
+
+    def __init__(self, *args, scales=True, **kwargs):
+        super().__init__(*args, scales=scales, **kwargs)

@@ -5,10 +5,12 @@ that is the classifier backbone ending in a ``latent_width`` vector, a
 mapping to the latent ``z``, and an AdaIN-conditioned decoder of
 ``decoder_repeats`` stages of the 3-union stage plan over a labeled
 sphere-noise cloud ``[B, P, 4]`` (xyz + is-a-real-point label), its keys
-driven by the noise xyz.  The JAX package scans and rematerializes the
-decoder's stages; here they are a ``ModuleList`` that keeps its
-activations, as the classifier's trunk does.  Module names follow the JAX
-parameter tree so that ``convert.py`` maps it.
+driven by the noise xyz.  The decoder's stages are a ``ModuleList`` where
+the JAX package scans them.  ``remat_policy`` is the JAX key: there the
+decoder is always rematerialized under it and the encoder under
+``"point_io"``.  The port's default, ``"off"``, keeps every activation
+(``nn/remat.py``); any JAX name turns remat on as in JAX.  Module names
+follow the JAX parameter tree so that ``convert.py`` maps it.
 """
 
 import torch
@@ -23,6 +25,7 @@ from cloud_transformers_tpu_torch.models.classifier import (
 from cloud_transformers_tpu_torch.nn.multihead_adain import (
     MultiHeadUnionAdaIn,
 )
+from cloud_transformers_tpu_torch.nn import remat as rm
 from cloud_transformers_tpu_torch.nn.norm import AdaIn1d, BatchNorm
 
 
@@ -32,11 +35,11 @@ class CompletionEncoder(nn.Module):
     def __init__(self, model_dim=512, latent_width=1024, repeats=4,
                  stage_plan=DEFAULT_STAGE_PLAN, pool_heads=16,
                  pool_feature_dims=(32, 16), pool_sizes=(8, 16),
-                 trunk_width=64):
+                 trunk_width=64, remat=False):
         super().__init__()
         self.backbone = ClassifierBackbone(
             model_dim, repeats, stage_plan, pool_heads, pool_feature_dims,
-            pool_sizes, trunk_width)
+            pool_sizes, trunk_width, remat=remat)
         self.class_head = nn.Linear(2 * trunk_width * pool_heads,
                                     latent_width)
         self.class_head_bn = BatchNorm(latent_width)
@@ -49,6 +52,8 @@ class CompletionEncoder(nn.Module):
 class AdaInStage(nn.Module):
     """One repeat of the stage plan: ``union_0 .. union_{n-1}``."""
 
+    remat = None   # "full": the stage is one checkpointed region
+
     def __init__(self, model_dim, latent_dim, stage_plan):
         super().__init__()
         self.n = len(stage_plan)
@@ -58,6 +63,10 @@ class AdaInStage(nn.Module):
                 tensor_dims=d, heads=h, model_dim_out=model_dim))
 
     def forward(self, x, z, keys_xyz):
+        return rm.region(self.remat == "full", self._forward, x, z,
+                         keys_xyz)
+
+    def _forward(self, x, z, keys_xyz):
         stats = []
         for i in range(self.n):
             x, s = getattr(self, f"union_{i}")(x, z, keys_xyz)
@@ -66,6 +75,9 @@ class AdaInStage(nn.Module):
 
 
 class AdaInDecoder(nn.Module):
+    """``repeats`` AdaIN stages; ``rm.set_policy(decoder, name)`` puts
+    them under a remat policy."""
+
     def __init__(self, model_dim, latent_dim, repeats, stage_plan):
         super().__init__()
         self.stages = nn.ModuleList(
@@ -89,16 +101,18 @@ class Inpainter(nn.Module):
                  encoder_repeats=4, decoder_repeats=4,
                  stage_plan=DEFAULT_STAGE_PLAN, pool_heads=16,
                  pool_feature_dims=(32, 16), pool_sizes=(8, 16),
-                 trunk_width=64):
+                 trunk_width=64, remat_policy=rm.OFF):
         super().__init__()
+        on = rm.policy(remat_policy) is not None
         self.encoder = CompletionEncoder(
             model_dim, latent_width, encoder_repeats, stage_plan, pool_heads,
-            pool_feature_dims, pool_sizes, trunk_width)
+            pool_feature_dims, pool_sizes, trunk_width, remat=on)
         self.mapping = nn.Linear(latent_width, num_latent)
         self.start_conv = nn.Linear(4, model_dim, bias=False)
         self.start_adain = AdaIn1d(num_latent, model_dim)
         self.decoder = AdaInDecoder(model_dim, num_latent, decoder_repeats,
                                     stage_plan)
+        rm.set_policy(self.decoder, remat_policy)
         # the final head takes the noise channels once more
         self.final_conv1 = nn.Linear(model_dim + 4, model_dim, bias=False)
         self.final_adain = AdaIn1d(num_latent, model_dim)

@@ -6,9 +6,9 @@ Counterpart of ``cloud_transformers_tpu/models/segmenter.py``:
 with the padding mask of the KPConv protocol) share a stem with bias,
 BatchNorm and ReLU, the classifier's MHCT trunk (12 MultiHeadUnion blocks,
 keys from the xyz), then ``final_conv1`` (no bias), BatchNorm, ReLU and
-``final_conv2`` to per-point class logits.  As in the port's classifier,
-every stage keeps its activations (the JAX package rematerializes them).
-Module names follow the JAX parameter tree so that ``convert.py`` maps it.
+``final_conv2`` to per-point class logits.  ``remat``/``remat_policy`` as
+the classifier's (``nn/remat.py``; off by default in the port).  Module
+names follow the JAX parameter tree so that ``convert.py`` maps it.
 """
 
 import torch
@@ -21,6 +21,7 @@ from cloud_transformers_tpu_torch.models.classifier import (
     MHCTTrunk,
 )
 from cloud_transformers_tpu_torch.nn.norm import BatchNorm
+from cloud_transformers_tpu_torch.nn.remat import OFF
 
 
 class _SegmenterBase(nn.Module):
@@ -28,12 +29,14 @@ class _SegmenterBase(nn.Module):
     share; ``_forward(pcd_features, xyz, pts_mask)``."""
 
     def __init__(self, n_classes=13, in_channels=6, model_dim=512,
-                 repeats=4, stage_plan=None):
+                 repeats=4, stage_plan=None, remat=False,
+                 remat_policy="point_io"):
         super().__init__()
         self.stem = nn.Linear(in_channels, model_dim)
         self.stem_bn = BatchNorm(model_dim)
         self.trunk = MHCTTrunk(model_dim, repeats,
-                               stage_plan or DEFAULT_STAGE_PLAN)
+                               stage_plan or DEFAULT_STAGE_PLAN,
+                               remat_policy=remat_policy if remat else OFF)
         self.final_conv1 = nn.Linear(model_dim, model_dim, bias=False)
         self.final_bn = BatchNorm(model_dim)
         self.final_conv2 = nn.Linear(model_dim, n_classes)
@@ -63,9 +66,10 @@ class SegmenterPad(_SegmenterBase):
     each splat and its output after each slice."""
 
     def __init__(self, n_classes=13, in_channels=7, model_dim=512,
-                 repeats=4, stage_plan=None):
+                 repeats=4, stage_plan=None, remat=False,
+                 remat_policy="point_io"):
         super().__init__(n_classes, in_channels, model_dim, repeats,
-                         stage_plan)
+                         stage_plan, remat, remat_policy)
 
     def forward(self, points, pts_mask, features):
         pcd = torch.cat([points, features], -1)

@@ -3,9 +3,10 @@
 Counterpart of ``cloud_transformers_tpu/nn/init.py``: conv/linear weights
 and biases ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)); BatchNorm scale at its
 ``scale_init`` (0 for the key BN), bias 0, running mean 0 and var 1;
-frame rotations ``log_R`` ~ N(0, 1), shifts 0.  Used only when no
-weights are loaded.  Draws come from a CPU ``torch.Generator`` in module
-order, so a seed gives the same weights on every device.
+frame rotations ``log_R`` ~ N(0, 1), shifts 0, per-head ``scales`` 1.
+Used only when no weights are loaded.  Draws come from a CPU
+``torch.Generator`` in module order, so a seed gives the same weights on
+every device.
 """
 
 import torch
@@ -46,4 +47,6 @@ def init_model_(model, generator):
         elif isinstance(m, VolTransformer):
             m.log_R.copy_(torch.randn(m.log_R.shape, generator=generator))
             m.shift.zero_()
+            if m.scales is not None:
+                m.scales.fill_(1.0)
     return model

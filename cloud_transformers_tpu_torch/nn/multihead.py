@@ -9,9 +9,15 @@ parameters.  Points are channel-last ``[B, P, C]``; grids are flat
 ``[B*H, G, F]``.
 
 Per head group: a 1x1 projection predicts per-head key offsets and values;
-keys go through a zero-init-scale BatchNorm, a learned per-head frame and
-tanh; the values are splatted onto the head's grid, convolved with a grouped
-3^dim conv, sliced back, and normalized.
+keys go through a zero-init-scale BatchNorm, a learned per-head frame (with
+per-head ``scales`` where asked) and tanh; the values are splatted onto the
+head's grid, convolved with a grouped 3^dim conv, sliced back, and
+normalized.  A union whose ``model_dim_out`` differs from ``model_dim``
+puts a bias-free projection and a BatchNorm on its shortcut.
+
+Under a remat policy (``nn/remat.py``, set by the trunk) a head group's
+dense ops before the splat, its kernel chain and the union's dense ops
+after the slices are checkpointed regions, as the policy says.
 """
 
 from typing import Sequence
@@ -33,6 +39,7 @@ from cloud_transformers_tpu_torch.nn.grouped_conv import (
     GridConvK,
     block_fusion_strategy,
 )
+from cloud_transformers_tpu_torch.nn import remat
 from cloud_transformers_tpu_torch.nn.norm import BatchNorm
 from cloud_transformers_tpu_torch.nn.transforms import (
     PlaneTransformer,
@@ -44,7 +51,8 @@ class GridKeysValues(nn.Module):
     """Shared key/value head: 1x1 projection + key/value BN + learned frame
     + tanh -> lattice coords, plus the splat values."""
 
-    def __init__(self, in_dim, in_feature_dim, tensor_dim, heads):
+    def __init__(self, in_dim, in_feature_dim, tensor_dim, heads,
+                 scales=False):
         super().__init__()
         h, f = heads, in_feature_dim
         self.heads = heads
@@ -52,7 +60,7 @@ class GridKeysValues(nn.Module):
         self.key_bn = BatchNorm(h * 3, scale_init=0.0)
         self.values_bn = BatchNorm(h * f)
         self.transform = (VolTransformer if tensor_dim == 3
-                          else PlaneTransformer)(h)
+                          else PlaneTransformer)(h, scales)
 
     def forward(self, x, orig_pcd):
         h = self.heads
@@ -81,61 +89,97 @@ def head_stats(grid, keys, in_feature_dim, heads):
 class MultiHead(nn.Module):
     """One Splat -> grouped 3^dim conv -> Slice unit."""
 
+    remat = None   # the remat policy (nn/remat.py), set by the trunk
+
     def __init__(self, in_dim, in_feature_dim, tensor_size, tensor_dim,
-                 heads):
+                 heads, scales=False):
         super().__init__()
         self.feat, self.heads = in_feature_dim, heads
         self.sizes = _sizes(tensor_size, tensor_dim)
-        self.kv = GridKeysValues(in_dim, in_feature_dim, tensor_dim, heads)
+        self.kv = GridKeysValues(in_dim, in_feature_dim, tensor_dim, heads,
+                                 scales)
         self.conv = GridConvK(in_feature_dim, heads, self.sizes)
         self.after_bn = BatchNorm(heads * in_feature_dim)
 
     def forward(self, x, orig_pcd, pts_mask=None):
+        out, stats = self.points(x, orig_pcd, pts_mask)
+        return self.after(out), stats
+
+    def points(self, x, orig_pcd, pts_mask=None):
+        """-> (the slice output [B, P, H*F] before ``after``, stats)."""
+        dense = self.remat in ("point_io", "point_io_grids")
+        mapping, keys, values = remat.region(dense, self._keys_values, x,
+                                             orig_pcd)
+        out, gk = remat.region(self.remat == "point_io", self._kernels,
+                               mapping, values, pts_mask)
+        return out, head_stats(gk, keys, self.feat, self.heads)
+
+    def after(self, out):
+        return F.relu(self.after_bn(out))
+
+    def _keys_values(self, x, orig_pcd):
         lattice, keys, values = self.kv(x, orig_pcd)
-        mapping = grid_mapping(lattice, self.sizes, len(self.sizes))
+        return grid_mapping(lattice, self.sizes, len(self.sizes)), keys, \
+            values
+
+    def _kernels(self, mapping, values, pts_mask):
+        """Splat -> conv -> slice: -> (points out, the splatted grid)."""
         if block_fusion_strategy(self.sizes) == "fused":
-            out, gk = self.conv.fused(mapping, values, pts_mask=pts_mask)
-            stats = head_stats(gk, keys, self.feat, self.heads)
-        else:
-            gk = splat_max_mapping_k(mapping, values, self.sizes,
-                                     pts_mask=pts_mask)
-            stats = head_stats(gk, keys, self.feat, self.heads)
-            gk2 = self.conv(gk)
-            out = slice_grid_mapping_k(mapping, gk2, self.sizes, self.feat,
-                                       pts_mask=pts_mask)
-        return F.relu(self.after_bn(out)), stats
+            return self.conv.fused(mapping, values, pts_mask=pts_mask)
+        gk = splat_max_mapping_k(mapping, values, self.sizes,
+                                 pts_mask=pts_mask)
+        out = slice_grid_mapping_k(mapping, self.conv(gk), self.sizes,
+                                   self.feat, pts_mask=pts_mask)
+        return out, gk
 
 
 class MultiHeadUnion(nn.Module):
-    """Residual union of parallel MultiHeads on different grids.  The
-    classifier keeps the width (the JAX module's ``model_dim_out`` shortcut
-    projection is not ported)."""
+    """Residual union of parallel MultiHeads on different grids; a
+    ``model_dim_out`` other than ``model_dim`` puts a projection and a
+    BatchNorm on the shortcut."""
+
+    remat = None   # the remat policy (nn/remat.py), set by the trunk
 
     def __init__(self, model_dim, features_dims: Sequence[int],
                  tensor_sizes, tensor_dims: Sequence[int],
-                 heads: Sequence[int]):
+                 heads: Sequence[int], model_dim_out=None, scales=False):
         super().__init__()
         if not (len(features_dims) == len(tensor_sizes)
                 == len(tensor_dims) == len(heads)):
             raise ValueError("head-group settings differ in length")
+        out_dim = model_dim if model_dim_out is None else model_dim_out
         self.n_groups = len(features_dims)
+        self.has_shortcut = model_dim != out_dim
+        if self.has_shortcut:
+            self.shortcut_conv = nn.Linear(model_dim, out_dim, bias=False)
+            self.shortcut_bn = BatchNorm(out_dim)
         for i, (fd, ts, td, hd) in enumerate(zip(
                 features_dims, tensor_sizes, tensor_dims, heads)):
             self.add_module(f"attention_{i}", MultiHead(
-                model_dim, fd, ts, td, hd))
+                model_dim, fd, ts, td, hd, scales))
         self.after_conv = nn.Linear(
-            sum(f * h for f, h in zip(features_dims, heads)), model_dim,
+            sum(f * h for f, h in zip(features_dims, heads)), out_dim,
             bias=False)
-        self.after_bn = BatchNorm(model_dim)
+        self.after_bn = BatchNorm(out_dim)
 
     def forward(self, x, orig_pcd, pts_mask=None):
-        results, stats = [], []
+        outs, stats = [], []
         for i in range(self.n_groups):
-            r, s = getattr(self, f"attention_{i}")(x, orig_pcd, pts_mask)
-            results.append(r)
+            o, s = getattr(self, f"attention_{i}").points(x, orig_pcd,
+                                                          pts_mask)
+            outs.append(o)
             stats.append(s)
-        gathered = self.after_conv(torch.cat(results, -1))
-        return x + F.relu(self.after_bn(gathered)), stats
+        dense = self.remat in ("point_io", "point_io_grids")
+        return remat.region(dense, self._gather, x, *outs), stats
+
+    def _gather(self, x, *outs):
+        residual = x
+        if self.has_shortcut:
+            residual = self.shortcut_bn(self.shortcut_conv(x))
+        gathered = self.after_conv(torch.cat(
+            [getattr(self, f"attention_{i}").after(o)
+             for i, o in enumerate(outs)], -1))
+        return residual + F.relu(self.after_bn(gathered))
 
 
 class MultiHeadPool(nn.Module):
@@ -143,11 +187,12 @@ class MultiHeadPool(nn.Module):
     ``[B, *spatial, H*F]``."""
 
     def __init__(self, in_dim, in_feature_dim, tensor_size, tensor_dim,
-                 heads):
+                 heads, scales=False):
         super().__init__()
         self.feat, self.heads = in_feature_dim, heads
         self.sizes = _sizes(tensor_size, tensor_dim)
-        self.kv = GridKeysValues(in_dim, in_feature_dim, tensor_dim, heads)
+        self.kv = GridKeysValues(in_dim, in_feature_dim, tensor_dim, heads,
+                                 scales)
 
     def forward(self, x, orig_pcd, pts_mask=None):
         lattice, keys, values = self.kv(x, orig_pcd)

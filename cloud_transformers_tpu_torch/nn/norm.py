@@ -9,8 +9,10 @@ running variance), eps 1e-5, normalizing over the channel axis ``dim``
 In training mode it normalizes with the biased variance of the batch, taken
 over every axis but the channel axis, and moves ``mean``/``var`` towards the
 batch mean and the *unbiased* batch variance (``n / max(n - 1, 1)``) with
-momentum 0.1, as ``torch.nn.BatchNorm`` and the JAX package do.  In eval
-mode it normalizes with the running statistics.
+momentum 0.1, as ``torch.nn.BatchNorm`` and the JAX package do, once a
+step: not again while a checkpointed region is recomputed
+(``nn/remat.py``).  In eval mode it normalizes with the running
+statistics.
 
 ``instance_norm_1d`` normalizes ``[B, P, C]`` over the point axis with the
 biased variance, in training and in eval mode alike.  ``AdaIn1d`` follows it
@@ -20,6 +22,8 @@ with both halves from one ``Linear(L, 2C)``.
 
 import torch
 from torch import nn
+
+from cloud_transformers_tpu_torch.nn import remat
 
 
 class BatchNorm(nn.Module):
@@ -43,9 +47,11 @@ class BatchNorm(nn.Module):
             mean = x.mean(axes)
             var = (x - mean.view(shape)).square().mean(axes)
             n = x.numel() // x.shape[self.dim]
-            with torch.no_grad():
-                self.mean.lerp_(mean, self.momentum)
-                self.var.lerp_(var * (n / max(n - 1, 1)), self.momentum)
+            if not remat.recomputing():
+                with torch.no_grad():
+                    self.mean.lerp_(mean, self.momentum)
+                    self.var.lerp_(var * (n / max(n - 1, 1)),
+                                   self.momentum)
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.eps) * self.scale

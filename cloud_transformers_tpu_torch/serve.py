@@ -11,7 +11,8 @@ padding and trimming rules, on one device and no mesh:
   are cut back to the request's own length.
 
 Example:
-    engine = InferenceEngine.build("scanobject_classifier", seed=0)
+    engine = InferenceEngine.from_checkpoint(
+        "scanobject_classifier_scales", "ckpt_latest.pt")
     probs = engine.classify([cloud1, cloud2])   # arbitrary-length clouds
 """
 
@@ -20,7 +21,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from cloud_transformers_tpu_torch.models import get_model
+from cloud_transformers_tpu_torch.convert import load_weights
+from cloud_transformers_tpu_torch.models import get_model, registry_name
 from cloud_transformers_tpu_torch.nn.init import init_model_
 from cloud_transformers_tpu_torch.nn.precision import strict_f32
 
@@ -65,6 +67,23 @@ class InferenceEngine:
         constructor."""
         model = get_model(model_name, **model_kwargs)
         init_model_(model, torch.Generator().manual_seed(seed))
+        return cls(model, device, batch_buckets, point_buckets)
+
+    @classmethod
+    def from_checkpoint(cls, model_name, ckpt_path=None, seed=0,
+                        device="cuda", batch_buckets=(1, 4, 8, 16),
+                        point_buckets=(1024, 2048, 4096), **model_kwargs):
+        """Build the engine with weights the port may not have trained: a
+        reference ``.t7`` state dict through ``convert.load_reference``,
+        any other file (a trainer checkpoint, a ``save_params_only`` file,
+        a bare ``state_dict``) through
+        ``train/checkpoint.restore_params_only``; without ``ckpt_path``,
+        fresh weights from ``seed``, as ``build``."""
+        if ckpt_path is None:
+            return cls.build(model_name, seed, device, batch_buckets,
+                             point_buckets, **model_kwargs)
+        model = load_weights(get_model(model_name, **model_kwargs),
+                             registry_name(model_name), ckpt_path)
         return cls(model, device, batch_buckets, point_buckets)
 
     def pad_batch(self, clouds: Sequence[np.ndarray]):

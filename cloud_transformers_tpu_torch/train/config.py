@@ -16,6 +16,15 @@ def load_config(path):
         return yaml.safe_load(f)
 
 
+def model_name(cfg):
+    """The registry name of the model named in ``cfg['model']``
+    (``generator`` or ``name``)."""
+    from cloud_transformers_tpu_torch.models import registry_name
+
+    m = cfg["model"]
+    return registry_name(m.get("generator") or m["name"])
+
+
 def model_from_config(cfg):
     """Build the model named in ``cfg['model']`` with the remaining keys as
     constructor arguments.  The port computes in float32 only, so a

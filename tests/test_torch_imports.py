@@ -3,7 +3,8 @@
 ``tools`` or scikit-learn (the card's machine has none): the training
 modules (trainer, logger, optimizer, checkpoints, data, tasks, command
 lines), the completion path's modules, the S3DIS segmenters' (both
-protocols) and the single-view reconstructor's too."""
+protocols) and the single-view reconstructor's too, and the remat policies
+and the reference converters of the scales classifier's slice."""
 
 import os
 import subprocess
@@ -39,7 +40,9 @@ missing = [m for m in ("train.trainer", "train.optim", "train.config",
                        "eval_reconstruction_f1", "data.subsample",
                        "data.s3dis_kpconv", "tasks.segmentation_kpconv",
                        "train_segmentation_kpconv",
-                       "eval_segmentation_kpconv")
+                       "eval_segmentation_kpconv", "nn.remat",
+                       "nn.transforms", "convert", "serve",
+                       "models.classifier")
            if "cloud_transformers_tpu_torch." + m not in mods]
 print(len(mods), bad + missing)
 """

@@ -1610,3 +1610,76 @@ def test_kpconv_ragged_rows_fused_block(gen, sizes, f):
     again = tfb.fused_block(*mapping, values, weight, bias, sizes, 16,
                             want_gk2=True)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+_COUNTED = (tps.splat_max, tps.slice_gather, tgc.grid_conv3d,
+            tps.splat_max_bwd, tps.slice_bwd, tgc.grid_conv3d_dw)
+
+
+def _scales_step(model, b=2, k=512, seed=0):
+    """One forward + backward of ``model`` (train mode, no dropout) on a
+    seeded batch, under ``set_sync_debug_mode("error")``; -> {kernel:
+    launches}, the gradients, the buffers after the step."""
+    from cloud_transformers_tpu_torch.tasks import classification
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"pcd": torch.rand(b, k, 3, generator=g, device="cuda") * 2 - 1,
+             "label": torch.arange(b, device="cuda"),
+             "mask": (torch.rand(b, k, generator=g, device="cuda") > 0.5
+                      ).float()}
+    before = [w.launches for w in _COUNTED]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = classification.make_loss_fn(0.5)(model.train(), batch)
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = {w.__name__: w.launches - n
+                for w, n in zip(_COUNTED, before) if w.launches - n}
+    return (launches, {n: p.grad for n, p in model.named_parameters()},
+            {n: b.clone() for n, b in model.named_buffers()})
+
+
+def _scales_model(**kw):
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.nn.init import init_model_
+    model = init_model_(get_model("scanobject_classifier_scales", dropout=0.0,
+                                  **kw), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(1)
+        for n, p in model.named_parameters():
+            if n.endswith("transform.scales"):
+                p.copy_(torch.empty(p.shape).uniform_(0.5, 1.5,
+                                                      generator=gen))
+    return model.cuda()
+
+
+@pytest.mark.gpu
+def test_scales_classifier_step_launches_on_the_card(gen):
+    """The full-width scales classifier's step (B=2 x 512) launches what
+    ``chip_smoke.py`` holds a step (``PER_STEP``), with no host wait, and
+    every frame's scales get a gradient."""
+    import chip_smoke
+    launches, grads, _ = _scales_step(_scales_model())
+    assert launches == chip_smoke.PER_STEP
+    scales = [g for n, g in grads.items() if n.endswith("transform.scales")]
+    assert len(scales) == 26 and all(bool(g.abs().max() > 0) for g in scales)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["point_io", "point_io_grids", "full"])
+def test_remat_step_on_the_card(gen, policy):
+    """A full-width scales classifier step under a remat policy: no host
+    wait, ``chip_smoke.remat_counts`` launches, and (cuDNN deterministic)
+    the gradients and BatchNorm statistics of remat off."""
+    import chip_smoke
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        off = _scales_step(_scales_model())
+        got = _scales_step(_scales_model(remat=True, remat_policy=policy))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert got[0] == chip_smoke.remat_counts(policy, chip_smoke.PER_STEP)
+    for want, have in zip(off[1:], got[1:]):
+        assert all(torch.equal(have[k], want[k]) for k in want)

@@ -199,14 +199,15 @@ def test_evaluate_scores_two_merged_passes(tiny, monkeypatch):
 
 
 def test_available_models_and_generator_paths():
-    """The five ported models are registered, and every reference
+    """The six ported models are registered, and every reference
     ``generator:`` path of a ported model resolves to the port's class."""
     from cloud_transformers_tpu_torch import models
     names = available_models()
     assert names == sorted(names)
     assert {"scanobject_classifier", "completion_inpainter",
             "s3dis_segmenter", "image_reconstructor",
-            "s3dis_segmenter_pad"} <= set(names)
+            "s3dis_segmenter_pad", "scanobject_classifier_scales"} \
+        <= set(names)
     resolved = 0
     for path, name in models._GENERATOR_ALIASES.items():
         if name not in names:
@@ -216,6 +217,6 @@ def test_available_models_and_generator_paths():
                 WIDTHS if name == "image_reconstructor" else {})))
             assert cls is models._REGISTRY[name], alias
         resolved += 1
-    assert resolved == 5
+    assert resolved == 6
     with pytest.raises(KeyError, match="image_reconstructor"):
         models.get_model("no_such_model")
