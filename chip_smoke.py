@@ -176,7 +176,38 @@
    peak memory) and a profiled one (the device's busy time); and the same
    for the completion model's forward, backward and update and for the
    KPConv segmenter's step, with remat off and under ``point_io``;
-15. prints ms/forward and clouds/s, then the training line (ms/step,
+15. the bf16 operand policy, on every model, built from the configs with
+   ``model.mxu_dtype: bfloat16`` as a user turns it on (every kernel stays
+   float32; the policy is float32 again after each part): the full-width
+   classifier at B=8 x 2048 serves 100 counted, timed requests
+   (``PER_FORWARD``) and a sync-free forward; its logits on a batch hold
+   to the same weights' float32 logits on the card (cosine >= 0.9999,
+   top-1 agreement reported) and, for one cloud, to the CPU port under
+   bf16 (PARITY.md, median error of max(1, max |logit|)); it trains 1 +
+   20 counted, timed steps through ``Trainer`` (``PER_STEP``, a falling
+   loss, a sync-free step) and one step under each set (``set_counts``);
+   one step's gradients from seeded weights on a fixed batch under bf16
+   and in float32 (``held_bf16``: cosine > 0.999, or at least the mean
+   cosine of float32 steps with noise of the policy's size on every
+   contraction's output, PARITY.md's jittered floor); the
+   full-width reconstructor at B=4 x
+   128^2 x 8192 trains 1 + 10 counted, timed steps (its float32 launches,
+   one ``top2`` a round) and runs one evaluation forward (24/24/8
+   launches) whose output cloud holds to float32 (cosine > 0.999); one
+   step each of the completion model, the S3DIS segmenter and the KPConv
+   segmenter with their float32 steps' launches and finite losses and
+   gradients.  Then ``V2VModel(32, 8, groups=4)`` on B=2 x 32^3 and
+   ``UNet(16, n_out=8, groups=4)`` on B=4 x 16 x 128^2 in train mode on
+   the card against the CPU (output by PARITY.md, gradients by cosine >
+   0.999 and median error <= 1e-3 of their scale) and under bf16 against
+   float32 on the card (``held_bf16``); and the vertex-list API at the
+   classifier's head-group shapes: ``grid_positions`` equal to the
+   mapping's vertex weights and indices, ``splat_max``/``slice_grid`` on
+   the card against the CPU (the grid and the single-winner routing
+   exact, the slice within 1e-6), ``splat_max_mapping``/
+   ``slice_grid_mapping`` bit-equal to the ``_k`` forms, forward and
+   backward, one launch of each kernel counted each way;
+16. prints ms/forward and clouds/s, then the training line (ms/step,
    clouds/s, peak memory), then the completion line (ms/step, clouds/s,
    peak memory, the EMD's share of a step, the evaluation's table values,
    rounds and seconds per cloud, both tails), then the ``{"switched":
@@ -192,7 +223,9 @@
    and the launches of each of its runs), then the scales and remat line
    (the scales classifier's step, serving and ``.t7`` numbers, each remat
    run's peak memory, host, event and device-busy ms and launches a step,
-   the gradient and statistics differences from remat off), then one
+   the gradient and statistics differences from remat off), then the
+   bf16 line (phase 15's numbers beside float32's and the launches of
+   each of its runs), then one
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
    2D and 3D convs, their weight gradients, the slice, ``top2``, the
@@ -237,7 +270,8 @@ which leaves the host out: ``device_ms`` and
 time to launch one call; ``top2`` on the mid-auction state also with its
 square-root skip off.
 
-TF32 is off for matmuls and cuDNN convolutions, so everything is float32.
+TF32 is off for matmuls and cuDNN convolutions, so everything is float32
+outside phase 15, and cuBLAS accumulates bf16 products in float32.
 Any failure raises and the exit code is non-zero; without CUDA the script
 exits non-zero before printing any result.  ``--profile DIR`` profiles 10
 more classify calls: it adds their host wall time, device busy time and the
@@ -249,8 +283,9 @@ it does the same for 5 more training steps of the classifier
 (``DIR/profile_segmenter.txt``) and of the reconstructor
 (``DIR/profile_reconstructor.txt``), of the KPConv segmenter
 (``DIR/profile_kpconv.txt``) and of the scales classifier
-(``DIR/profile_scales.txt``), and for the classify calls and training
-steps under each set (``DIR/profile_{forward,train}_set_{a,b}.txt``).
+(``DIR/profile_scales.txt``), for the classify calls and training
+steps under each set (``DIR/profile_{forward,train}_set_{a,b}.txt``) and
+under bf16 (``DIR/profile_{forward,train,reconstructor}_bf16.txt``).
 """
 
 import argparse
@@ -339,6 +374,13 @@ REMAT_PROFILE_STEPS = 1   # steps of each remat run under the profiler
 # runs with remat off give the gradients' and statistics' own spread
 REMAT_RUNS = (("off", None), ("off_again", None), ("point_io", "point_io"),
               ("point_io_grids", "point_io_grids"), ("full", "full"))
+BF16_STEPS = 20   # timed bf16 classifier steps, after a warm-up
+BF16_REC_STEPS = 10   # timed bf16 reconstructor steps, after a warm-up
+BF16_LOGIT_COS = 0.9999   # bf16 against f32 logits on the card (the JAX
+#                           package's TPU figure: 0.999997, PARITY.md)
+BF16_COS = 0.999   # bf16 against f32: clouds, outputs, gradients (or the
+#                    float32 floor of ``held_bf16`` where chaos rules)
+BF16_NOISE = 2.0 ** -7   # the relative noise of that floor's float32 runs
 REPLACES = {
     "splat_max": "cloud_transformers_tpu/ops/pallas_splat.py:528",
     "slice_gather": "cloud_transformers_tpu/ops/pallas_splat.py:780",
@@ -1586,7 +1628,14 @@ KERNEL_GROUPS = (
     ("cudnn", "cuDNN convolutions and their layout kernels"),
     ("implicit_gemm", "cuDNN convolutions and their layout kernels"),
     ("implicit_convolve", "cuDNN convolutions and their layout kernels"),
+    # cuDNN's bf16 convs: its CUTLASS fprop and its direct and tiled
+    # weight-gradient kernels, whose names carry no "cudnn"
+    ("fprop", "cuDNN convolutions and their layout kernels"),
+    ("dgrad", "cuDNN convolutions and their layout kernels"),
+    ("wgrad", "cuDNN convolutions and their layout kernels"),
     ("gemm", "matmuls (cuBLAS, CUTLASS)"),
+    # cuBLASLt's Hopper kernels (the bf16 matmuls)
+    ("nvjet", "matmuls (cuBLAS, CUTLASS)"),
     ("", "elementwise, reductions, copies and the rest"))
 
 
@@ -1767,12 +1816,14 @@ def endless(loader):
 
 
 def train_phase(wrappers, smi, profile_dir, exp_root, steps=TRAIN_STEPS,
-                per_step=PER_STEP, profile_name="profile_train.txt"):
+                per_step=PER_STEP, profile_name="profile_train.txt",
+                mxu_dtype=None, after=None):
     """Phase 6: optimizer steps on the full-width classifier through the
     Trainer, whose experiment directories go under ``exp_root``, with
     ``per_step`` launches of each kernel in each of the ``steps`` timed
-    steps (none of the others).  -> (result dict, launches in the timed
-    steps)."""
+    steps (none of the others).  ``mxu_dtype`` goes into the config's
+    ``model.mxu_dtype``; ``after(trainer, batches)`` runs last.  -> (result
+    dict, launches in the timed steps)."""
     from cloud_transformers_tpu_torch.tasks import classification
     from cloud_transformers_tpu_torch.train.config import (
         load_config,
@@ -1785,6 +1836,8 @@ def train_phase(wrappers, smi, profile_dir, exp_root, steps=TRAIN_STEPS,
     if (cfg["data"]["batch_size"], cfg["data"]["num_points"]) != (B, K):
         raise AssertionError("configs/scanobjectnn.yaml is not B=8 x 2048")
     cfg["experiment"] = {"root": exp_root}
+    if mxu_dtype is not None:
+        cfg["model"]["mxu_dtype"] = mxu_dtype
     trainer = Trainer(
         model_from_config(cfg), cfg, "chip_smoke",
         classification.make_loss_fn(
@@ -1865,6 +1918,8 @@ def train_phase(wrappers, smi, profile_dir, exp_root, steps=TRAIN_STEPS,
         result.update(profiled_steps(
             trainer, batches, smi, os.path.join(profile_dir, profile_name),
             "train_"))
+    if after is not None:
+        after(trainer, batches)
     return result, launches
 
 
@@ -3578,6 +3633,626 @@ def profiled_steps(trainer, batches, smi, path, prefix):
     return profiled
 
 
+@contextlib.contextmanager
+def mxu_policy(dtype):
+    """The operand policy set to ``dtype`` while the context lasts, and
+    back to what it was afterwards."""
+    from cloud_transformers_tpu_torch.nn import precision
+    before = precision.resolve()
+    try:
+        precision.set_default_mxu_dtype(dtype)
+        yield
+    finally:
+        precision.set_default_mxu_dtype(before)
+
+
+def cosine(a, b):
+    a, b = a.reshape(-1).double().cpu(), b.reshape(-1).double().cpu()
+    return float(torch.dot(a, b) / (a.norm() * b.norm()))
+
+
+def scaled_parity(card, cpu, what):
+    """PARITY.md's criteria with the median error relative to max(1, max
+    |cpu|): cosine > 0.999, median error <= 1e-3 of that scale."""
+    a, b = card.reshape(-1).double().cpu(), cpu.reshape(-1).double()
+    cos = cosine(a, b)
+    p50 = float((a - b).abs().median()) / max(1.0, float(b.abs().max()))
+    log(f"parity {what}: cosine {cos:.7f}  p50 err {p50:.3e} of the scale")
+    if not (cos > 0.999 and p50 <= 1e-3):
+        raise AssertionError(f"{what}: cosine {cos}, p50 {p50}")
+    return cos, p50
+
+
+@contextlib.contextmanager
+def contraction_noise(model, seed):
+    """While the context lasts, the output of every ``MXU*`` contraction of
+    ``model`` is multiplied by 1 + U(-BF16_NOISE, BF16_NOISE), drawn on the
+    card from ``seed``: float32 with an error the size of the bf16
+    policy's (bf16 rounds both operands and the result, each by up to
+    2^-8 of its magnitude)."""
+    from cloud_transformers_tpu_torch.nn.precision import MXU_MODULES
+    gen = torch.Generator(next(model.parameters()).device).manual_seed(seed)
+
+    def jitter(module, inputs, out):
+        u = torch.rand(out.shape, generator=gen, device=out.device)
+        return out * (1 + (2 * u - 1) * BF16_NOISE)
+    hooks = [m.register_forward_hook(jitter) for m in model.modules()
+             if isinstance(m, MXU_MODULES)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def held_bf16(cos, floors, what):
+    """A bf16 result against float32 passes where its cosine exceeds
+    BF16_COS or reaches the float32 floor, the mean cosine of float32 runs
+    under ``contraction_noise`` against the plain float32 run (PARITY.md's
+    jittered-floor method): a result that chaos amplifies (a random
+    model's gradients, a train-mode UNet) cannot meet a fixed bar in any
+    framework, but a fault would fall below its floor.  -> the floor."""
+    floor = float(np.mean(floors))
+    log(f"{what}: bf16 vs f32 cosine {cos:.7f}; float32 under noise of the "
+        f"policy's size {[round(f, 7) for f in floors]} (floor {floor:.7f})")
+    if not (cos > BF16_COS or cos >= floor):
+        raise AssertionError(f"{what}: bf16 vs f32 cosine {cos}, below "
+                             f"{BF16_COS} and the float32 floor {floor}")
+    return floor
+
+
+def bf16_classifier_config():
+    """``configs/scanobjectnn.yaml`` with ``model.mxu_dtype: bfloat16``:
+    ``model_from_config`` builds the full-width classifier from it and
+    sets the policy, as a user turns it on."""
+    from cloud_transformers_tpu_torch.nn import precision
+    from cloud_transformers_tpu_torch.train.config import (
+        load_config,
+        model_from_config,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs", "scanobjectnn.yaml"))
+    if (cfg["data"]["batch_size"], cfg["data"]["num_points"]) != (B, K):
+        raise AssertionError("configs/scanobjectnn.yaml is not B=8 x 2048")
+    cfg["model"]["mxu_dtype"] = "bfloat16"
+    model = model_from_config(cfg)
+    trunk = model.backbone.trunk
+    if precision.resolve() is not torch.bfloat16 or \
+            sum(st.n for st in trunk.stages) != 12 or \
+            model.backbone.stem.out_features != 512:
+        raise AssertionError("the bf16 classifier is not the full-width "
+                             "one under the bf16 policy")
+    return cfg, model
+
+
+def bf16_serving(wrappers, smi, profile_dir):
+    """Phase 15 (a), serving: the full-width classifier built from the bf16
+    config with weights from seed 0 serves N_REQUESTS classify calls
+    (``PER_FORWARD``), one forward under ``set_sync_debug_mode("error")``;
+    its logits on a batch of B clouds against the same weights served in
+    float32 on the card (cosine >= BF16_LOGIT_COS, the top-1 agreement
+    reported) and, for one cloud, against the CPU port under bf16
+    (``scaled_parity``).  -> (result, launches)."""
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.nn.init import init_model_
+    from cloud_transformers_tpu_torch.serve import InferenceEngine
+
+    _, model = bf16_classifier_config()
+    init_model_(model, torch.Generator().manual_seed(0))
+    engine = InferenceEngine(model, "cuda", batch_buckets=(B,),
+                             point_buckets=(K,))
+    rng = np.random.RandomState(0)
+    batches = [requests(rng, B) for _ in range(N_REQUESTS)]
+    engine.classify(batches[0])                  # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    call_ms = []
+    for clouds in batches:
+        t0 = time.perf_counter()
+        probs = engine.classify(clouds)
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches(wrappers)
+    check_launches(launches, PER_FORWARD, len(batches), "bf16 forwards")
+    if probs.shape != (B, 15) or not np.isfinite(probs).all():
+        raise AssertionError(f"bf16: bad class probabilities {probs}")
+    pcd = torch.from_numpy(engine.pad_batch(batches[0])[0]).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            engine.model(pcd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("bf16 forward: no host-device synchronisation")
+    result = {"bf16_classify_ms_per_forward": float(np.median(call_ms)),
+              "bf16_classify_ms_p10": float(np.percentile(call_ms, 10)),
+              "bf16_classify_ms_p90": float(np.percentile(call_ms, 90))}
+    if profile_dir:
+        result.update({f"bf16_{k}": v for k, v in profile_serving(
+            engine, batches, smi, os.path.join(
+                profile_dir, "profile_forward_bf16.txt")).items()})
+
+    # the same weights in float32 on the card (the policy is read at call
+    # time), and under bf16 on the CPU
+    (l16, _, _), _, _, _ = engine.predict_padded(batches[1])
+    with mxu_policy(None):
+        (l32, _, _), _, _, _ = engine.predict_padded(batches[1])
+    cos = cosine(l16, l32)
+    top1 = int((l16.argmax(-1) == l32.argmax(-1)).sum())
+    log(f"bf16 vs f32 logits on the card: cosine {cos:.7f}, max abs diff "
+        f"{float((l16 - l32).abs().max()):.3e}, top-1 agreement {top1}/{B}")
+    if not (torch.isfinite(l16).all() and cos >= BF16_LOGIT_COS):
+        raise AssertionError(f"bf16 vs f32 logits: cosine {cos}")
+    cpu_model = get_model("scanobject_classifier")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_engine = InferenceEngine(cpu_model, "cpu", batch_buckets=(1,),
+                                 point_buckets=(K,))
+    cloud = batches[1][:1]
+    (card_cls, card_mask, _), _, _, _ = engine.predict_padded(cloud)
+    (cpu_cls, cpu_mask, _), _, _, _ = cpu_engine.predict_padded(cloud)
+    result.update({
+        "bf16_vs_f32_logits_cosine": cos,
+        "bf16_vs_f32_logits_max_abs_diff": float((l16 - l32).abs().max()),
+        "bf16_vs_f32_top1_agreement": top1,
+        "bf16_parity_logits_cosine": scaled_parity(
+            card_cls[:1], cpu_cls, "bf16 class logits, card vs CPU")[0],
+        "bf16_parity_mask_cosine": scaled_parity(
+            card_mask[:1], cpu_mask, "bf16 point mask, card vs CPU")[0]})
+    return result, launches
+
+
+def classifier_step_under_set(name, trainer, batches, wrappers, what):
+    """One classifier training step under the set ``name``: its launches
+    (``set_counts``), a finite loss and gradients.  -> launches."""
+    with switches(name):
+        zero_launches(wrappers)
+        metrics = trainer.train_step(next(batches))
+        torch.cuda.synchronize()
+        got = read_launches(wrappers)
+    check_launches(got, set_counts(name, PER_STEP["splat_max"],
+                                   PER_STEP["slice_gather"], True), 1,
+                   f"{what} step under {name}")
+    bad = [n for n, p in trainer.model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if not np.isfinite(float(metrics["loss"])) or bad:
+        raise AssertionError(f"{what} step under {name}: loss "
+                             f"{metrics['loss']}, gradients {bad[:5]}")
+    log(f"{what} step under {name}: launches {got}")
+    return got
+
+
+def bf16_gradient_cosine():
+    """Phase 15 (a): one training step's gradients of the full-width
+    classifier (weights from seed 1, no dropout, train mode, the key
+    BatchNorms' scales at their initial 0) on a fixed batch of B synthetic
+    clouds, under bf16 and in float32 on the card, by ``held_bf16``
+    against two float32 steps under ``contraction_noise``.  A random
+    full-width model at its first step is chaotic at the policy's scale
+    (the splat's max picks another winner where two contributions are
+    within a rounding of each other), so its bf16 gradients meet no fixed
+    cosine such as 0.999, the JAX package's no better than the port's
+    (``tests/test_torch_precision.py``)."""
+    from cloud_transformers_tpu_torch.data import ScanObjectNN
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.nn.init import init_model_
+    from cloud_transformers_tpu_torch.tasks import classification
+
+    ds = ScanObjectNN(None, train=True, synthetic_items=B, num_points=K)
+    batch = {k: torch.as_tensor(np.stack([ds[i][k] for i in range(B)]))
+             .to("cuda") for k in ("pcd", "label", "mask")}
+    batch["label"] = batch["label"].long()
+    model = init_model_(get_model("scanobject_classifier", dropout=0.0),
+                        torch.Generator().manual_seed(1)).cuda().train()
+    loss_fn = classification.make_loss_fn(0.5)
+
+    def step(dtype=None, noise_seed=None):
+        model.zero_grad()
+        with mxu_policy(dtype), (contraction_noise(model, noise_seed)
+                                 if noise_seed else contextlib.nullcontext()):
+            loss, _ = loss_fn(model, batch)
+            loss.backward()
+        return float(loss.detach()), torch.cat([p.grad.reshape(-1)
+                                                for p in model.parameters()])
+
+    loss32, g32 = step()
+    loss16, g16 = step("bfloat16")
+    if not bool(torch.isfinite(g16).all()):
+        raise AssertionError("bf16 gradients are not finite")
+    cos = cosine(g16, g32)
+    floors = [cosine(step(noise_seed=seed)[1], g32) for seed in (1, 2)]
+    held_bf16(cos, floors, f"one step's gradients (loss {loss16:.6f} "
+              f"against {loss32:.6f})")
+    return {"bf16_vs_f32_grad_cosine": cos,
+            "bf16_grad_noise_floor_cosines": floors,
+            "bf16_vs_f32_loss_rel_diff": abs(loss16 - loss32) / abs(loss32)}
+
+
+def bf16_reconstructor(wrappers, smi, profile_dir, exp_root):
+    """Phase 15 (b): the full-width ``image_reconstructor`` of
+    ``configs/reconstruction.yaml`` with ``model.mxu_dtype: bfloat16``
+    trained through the Trainer at B=4 x 128^2 x 8192: a warm-up step,
+    BF16_REC_STEPS timed and counted steps (``PER_STEP_RECONSTRUCTOR`` and
+    one ``top2`` a round), finite losses and gradients; then one
+    evaluation forward (``PER_FORWARD_RECONSTRUCTOR``) whose output cloud
+    holds to the same weights' float32 forward, cosine > BF16_COS.
+    -> (result, launches)."""
+    from cloud_transformers_tpu_torch.core.noise import sphere_noise
+    from cloud_transformers_tpu_torch.nn import precision
+    from cloud_transformers_tpu_torch.tasks import reconstruction
+    from cloud_transformers_tpu_torch.train.config import (
+        load_config,
+        model_from_config,
+    )
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs", "reconstruction.yaml"))
+    d = cfg["data"]
+    if (d["batch_size"], d["im_size"], d["gt_size"]) != (REC_B, REC_IM,
+                                                         REC_K):
+        raise AssertionError("configs/reconstruction.yaml is not B=4 x "
+                             "128^2 images, 8192 points")
+    cfg["experiment"] = {"root": exp_root}
+    cfg["train"]["save"] = False
+    cfg["model"]["mxu_dtype"] = "bfloat16"
+    gens = {"train": torch.Generator("cuda").manual_seed(1)}
+    trainer = Trainer(model_from_config(cfg), cfg,
+                      "chip_smoke_reconstructor_bf16",
+                      reconstruction.make_loss_fn(gens["train"]),
+                      device="cuda", seed=0, generators=gens)
+    model = trainer.model
+    if precision.resolve() is not torch.bfloat16 or \
+            (len(model.res50.trunk.blocks), len(model.decoder.stages)) != \
+            (16, 4):
+        raise AssertionError("the bf16 reconstructor is not the full-width "
+                             "one under the bf16 policy")
+    train_loader, _ = reconstruction.make_datasets(cfg, synthetic=True)
+    batches = endless(train_loader)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(next(batches))            # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    step_ms, losses = [], []
+    with EmdRecorder() as rec:
+        zero_launches(wrappers)
+        for _ in range(BF16_REC_STEPS):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(batch)["loss"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = read_launches(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    expect = {name: PER_STEP_RECONSTRUCTOR.get(name, 0) * BF16_REC_STEPS
+              for name in got}
+    expect["top2"] = sum(rec.rounds)
+    if got != expect:
+        raise AssertionError(f"bf16 reconstructor training: launches {got}, "
+                             f"expected {expect}")
+    losses = torch.stack(losses).cpu().numpy()
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if not np.isfinite(losses).all() or bad:
+        raise AssertionError(f"bf16 reconstructor: losses {losses}, "
+                             f"gradients {bad[:5]}")
+    result = {"bf16_reconstructor_ms_per_step": float(np.median(step_ms)),
+              "bf16_reconstructor_steps": BF16_REC_STEPS,
+              "bf16_reconstructor_peak_memory_bytes": int(peak),
+              "bf16_reconstructor_loss_first": float(losses[0]),
+              "bf16_reconstructor_loss_last": float(losses[-1])}
+    if profile_dir:
+        result.update(profiled_steps(
+            trainer, batches, smi,
+            os.path.join(profile_dir, "profile_reconstructor_bf16.txt"),
+            "bf16_reconstructor_"))
+    batch = trainer.to_device(next(batches))
+    batches.close()
+    noise = sphere_noise(torch.Generator("cuda").manual_seed(2), REC_B,
+                         REC_K, "cuda")
+    model.eval()
+    with torch.no_grad():
+        zero_launches(wrappers)
+        out16 = model(noise, batch["image"])[0]
+        torch.cuda.synchronize()
+        evaluation = read_launches(wrappers)
+        with mxu_policy(None):
+            out32 = model(noise, batch["image"])[0]
+    check_launches(evaluation, PER_FORWARD_RECONSTRUCTOR, 1,
+                   "bf16 reconstructor evaluation forward")
+    cos = cosine(out16, out32)
+    log(f"bf16 reconstructor: {result['bf16_reconstructor_ms_per_step']:.3f}"
+        f" ms/step, output vs f32 cosine {cos:.7f}")
+    if not (torch.isfinite(out16).all() and cos > BF16_COS):
+        raise AssertionError(f"bf16 reconstructor output vs f32: {cos}")
+    result["bf16_reconstructor_output_vs_f32_cosine"] = cos
+    return result, {"bf16_reconstructor": got,
+                    "bf16_reconstructor_evaluation": evaluation}
+
+
+def bf16_single_steps(wrappers, exp_root):
+    """Phase 15 (c): one bf16 training step (``model.mxu_dtype: bfloat16``
+    in the config) of the full-width completion model, S3DIS segmenter and
+    KPConv segmenter through the Trainer on their synthetic data: the
+    launches of their float32 steps (the EMD's ``top2`` one a round), a
+    finite loss and finite gradients.  -> (result, launches)."""
+    from cloud_transformers_tpu_torch.tasks import completion, segmentation
+    from cloud_transformers_tpu_torch.tasks import segmentation_kpconv
+    from cloud_transformers_tpu_torch.train.config import (
+        load_config,
+        model_from_config,
+    )
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def completion_parts(cfg, gen):
+        return (completion.make_loss_fn(
+            gen, float(cfg["train"].get("chamfer_weight", 0.0))),
+            completion.make_datasets(cfg, synthetic=True)[0])
+
+    def segmenter_parts(cfg, gen):
+        return (segmentation.make_loss_fn(
+            int(cfg["model"]["n_classes"]),
+            0.1 if cfg["train"].get("label_smooth") else 0.0),
+            segmentation.make_datasets(cfg, synthetic=True)[0])
+
+    def kpconv_parts(cfg, gen):
+        cfg["data"]["num_steps"] = KP_B
+        return (segmentation_kpconv.make_loss_fn(),
+                segmentation_kpconv.make_datasets(cfg, synthetic=True)[2])
+
+    result, launches = {}, {}
+    for what, config, per_step, parts in (
+            ("completion", "inpainting.yaml", PER_STEP_COMPLETION,
+             completion_parts),
+            ("segmenter", "s3dis.yaml", PER_STEP_SEGMENTER, segmenter_parts),
+            ("kpconv", "s3dis_kpconv.yaml", PER_STEP_KPCONV, kpconv_parts)):
+        cfg = load_config(os.path.join(root, "configs", config))
+        cfg["experiment"] = {"root": exp_root}
+        cfg["train"]["save"] = False
+        cfg["model"]["mxu_dtype"] = "bfloat16"
+        gens = {"train": torch.Generator("cuda").manual_seed(1)}
+        loss_fn, loader = parts(cfg, gens["train"])
+        trainer = Trainer(model_from_config(cfg), cfg,
+                          f"chip_smoke_{what}_bf16", loss_fn, device="cuda",
+                          seed=0, generators=gens)
+        batches = endless(loader)
+        batch = next(batches)
+        batches.close()
+        torch.cuda.synchronize()
+        with EmdRecorder() as rec:
+            zero_launches(wrappers)
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = read_launches(wrappers)
+        expect = {name: per_step.get(name, 0) for name in got}
+        expect["top2"] = sum(rec.rounds)
+        if got != expect:
+            raise AssertionError(f"bf16 {what} step: launches {got}, "
+                                 f"expected {expect}")
+        loss = float(metrics["loss"])
+        bad = [n for n, p in trainer.model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        if not np.isfinite(loss) or bad:
+            raise AssertionError(f"bf16 {what} step: loss {loss}, "
+                                 f"gradients {bad[:5]}")
+        log(f"bf16 {what} step: loss {loss:.6f} in {seconds:.2f} s (the "
+            f"first step, cuDNN plans included), launches {got}")
+        result[f"bf16_{what}_loss"] = loss
+        result[f"bf16_{what}_first_step_seconds"] = seconds
+        launches[f"bf16_{what}"] = got
+        del trainer
+        torch.cuda.empty_cache()
+    return result, launches
+
+
+def card_cpu_block(name, make, x):
+    """Phase 15 (d): the block ``make()`` (weights from seed 0, train mode)
+    on ``x`` on the card against the CPU: its output by ``scaled_parity``
+    and its gradients (the output's sum against a seeded cotangent) by
+    ``card_cpu_gradients``' gates; then the card's output under bf16
+    against its float32 one by ``held_bf16`` (train-mode BatchNorm
+    normalizes away a channel's mean and so magnifies a contraction's
+    rounding where the mean dwarfs the spread, in the JAX package's UNet
+    as in the port's: ``tests/test_torch_v2v_unet.py``).  -> result
+    dict."""
+    from cloud_transformers_tpu_torch.nn.init import init_model_
+
+    cot = None
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = init_model_(make(), torch.Generator().manual_seed(0))
+        model = model.to(device).train()
+        out = model(x.to(device))
+        if cot is None:
+            cot = torch.randn(out.shape, generator=torch.Generator()
+                              .manual_seed(1))
+        (out * cot.to(device)).sum().backward()
+        runs[device] = (out.detach().cpu(),
+                        torch.cat([p.grad.reshape(-1).cpu()
+                                   for p in model.parameters()]))
+        if device == "cuda":
+            with torch.no_grad():
+                with mxu_policy("bfloat16"):
+                    out16 = model(x.to(device))
+                noisy = []
+                for seed in (1, 2):
+                    with contraction_noise(model, seed):
+                        noisy.append(model(x.to(device)).cpu())
+    result = {f"{name}_parity_output_cosine": scaled_parity(
+        runs["cuda"][0], runs["cpu"][0], f"{name} output")[0]}
+    a, b = (g.double() for g in (runs["cuda"][1], runs["cpu"][1]))
+    cos = cosine(a, b)
+    p50 = float((a - b).abs().median()) / float(b.abs().max())
+    log(f"{name} gradients card vs CPU: cosine {cos:.7f}, p50 {p50:.3e}")
+    if not (bool(torch.isfinite(a).all()) and cos > 0.999 and p50 <= 1e-3):
+        raise AssertionError(f"{name} gradients: cosine {cos}, p50 {p50}")
+    cos16 = cosine(out16, runs["cuda"][0])
+    floors = [cosine(n, runs["cuda"][0]) for n in noisy]
+    held_bf16(cos16, floors, f"{name} output on the card")
+    result.update({f"{name}_parity_grad_cosine": cos,
+                   f"{name}_parity_grad_p50_of_scale": p50,
+                   f"{name}_bf16_vs_f32_output_cosine": cos16,
+                   f"{name}_bf16_noise_floor_cosines": floors})
+    return result
+
+
+def blocks_phase():
+    """Phase 15 (d): ``V2VModel(32, 8, groups=4)`` on B=2 x 32^3 and
+    ``UNet(16, n_out=8, groups=4)`` on B=4 x 16 x 128^2."""
+    from cloud_transformers_tpu_torch.nn import UNet, V2VModel
+
+    g = torch.Generator().manual_seed(2)
+    result = card_cpu_block("v2v", lambda: V2VModel(32, 8, groups=4),
+                            torch.randn(2, 32, 32, 32, 32, generator=g))
+    result.update(card_cpu_block(
+        "unet", lambda: UNet(16, n_out=8, groups=4),
+        torch.randn(4, 16, 128, 128, generator=g)))
+    return result
+
+
+def vertex_list_phase(wrappers):
+    """Phase 15 (e): the vertex-list API at the classifier's head-group
+    shapes (B=8 x 2048 points, 4 heads).  ``grid_positions`` exactly equal
+    to the mapping's ``vertex_weights``/``flat_vertex_indices``;
+    ``splat_max``/``slice_grid`` on the card against the CPU: the grid and
+    the splat's single-winner cotangent routing exact, the slice within
+    1e-6 of its scale; ``splat_max_mapping``/``slice_grid_mapping`` bit-
+    equal to the ``_k`` forms reshaped, forward and backward, with one
+    launch each way counted.  -> (result, launches)."""
+    from cloud_transformers_tpu_torch.core import coords
+    from cloud_transformers_tpu_torch.core import grid_mapping as gm
+    from cloud_transformers_tpu_torch.core import splat_slice as ss
+    from cloud_transformers_tpu_torch.core import vertex_list as vl
+
+    h = 4
+    gen = torch.Generator().manual_seed(3)
+    result, launches = {}, {}
+    for sizes, f in (((128, 128), 4), ((32, 32, 32), 4)):
+        dim, cells = len(sizes), int(np.prod(sizes))
+        keys = torch.tanh(torch.randn(B, K, h, dim, generator=gen))
+        keys[:, 1::2] = keys[:, 0::2]                # exact ties
+        values = torch.randn(B, K, h * f, generator=gen)
+        cot = torch.randn(B, h, cells, f, generator=gen)
+        tag = "x".join(map(str, sizes))
+        # grid_positions against the kernels' form of the same relation
+        w, idx = coords.grid_positions(keys.cuda(), sizes, dim)
+        m = gm.grid_mapping(keys.cuda(), sizes, dim)
+        order = [0, 4, 2, 6, 1, 5, 3, 7] if dim == 3 else [0, 2, 1, 3]
+        mw, mi = gm.vertex_weights(m), gm.flat_vertex_indices(m, sizes)
+        if dim == 2:
+            mw, mi = mw[..., [0, 1, 4, 5]], mi[..., [0, 1, 4, 5]]
+        if not (torch.equal(w[..., order], mw) and
+                torch.equal(idx[..., order], mi)):
+            raise AssertionError(f"grid_positions {tag}: not the mapping's")
+        # the vertex-list splat and slice, card against CPU
+        runs = {}
+        for device in ("cuda", "cpu"):
+            w, idx = coords.grid_positions(keys.to(device), sizes, dim)
+            v = values.to(device)
+            b, p = B, K
+            pre = (w[..., None] * v.reshape(b, p, h, 1, f)).transpose(1, 2)
+            pre = pre.reshape(b * h, -1, f).requires_grad_()
+            rows = vl._rows(idx)
+            grid = vl._SplatCore.apply(pre, rows, cells)
+            grid.backward(cot.to(device).reshape(b * h, cells, f))
+            sliced = vl.slice_grid(w, idx, grid.detach().reshape(
+                b, h, cells, f), h)
+            runs[device] = [t.detach().cpu() for t in (grid, pre.grad,
+                                                       sliced)]
+        (g_card, d_card, s_card), (g_cpu, d_cpu, s_cpu) = runs["cuda"], \
+            runs["cpu"]
+        err = float((s_card - s_cpu).abs().max()) / max(
+            1.0, float(s_cpu.abs().max()))
+        if not (torch.equal(g_card, g_cpu) and torch.equal(d_card, d_cpu)
+                and err <= 1e-6 and bool(g_card.any())):
+            raise AssertionError(f"vertex-list splat/slice {tag}: card vs "
+                                 f"CPU (slice error {err})")
+        result[f"vertex_list_{tag}_slice_err"] = err
+        # the spatial-layout mapping forms against the _k forms
+        grid_in = torch.randn(B, h, cells, f, generator=gen).cuda()
+        cot_pts = torch.randn(B, K, h * f, generator=gen).cuda()
+        forms = {}
+        for form in ("spatial", "k"):
+            kk, vv, gg = (t.cuda().clone().requires_grad_()
+                          for t in (keys, values, grid_in))
+            zero_launches(wrappers)
+            m = gm.grid_mapping(kk, sizes, dim)
+            if form == "spatial":
+                grid = ss.splat_max_mapping(m, vv, sizes)
+                out = ss.slice_grid_mapping(m, gg, sizes)
+            else:
+                grid = ss.splat_max_mapping_k(m, vv, sizes).reshape(gg.shape)
+                out = ss.slice_grid_mapping_k(
+                    m, gg.reshape(B * h, cells, f), sizes, f)
+            ((out * cot_pts).sum() + (grid * cot.cuda()).sum()).backward()
+            torch.cuda.synchronize()
+            got = read_launches(wrappers)
+            check_launches(got, {"splat_max": 1, "slice_gather": 1,
+                                 "splat_max_bwd": 1, "slice_bwd": 1}, 1,
+                           f"{form} mapping forms {tag}")
+            launches[f"vertex_list_{form}_{tag}"] = got
+            forms[form] = (grid.detach(), out.detach(), kk.grad, vv.grad,
+                           gg.grad)
+        if not all(torch.equal(a, c) for a, c in zip(forms["spatial"],
+                                                     forms["k"])):
+            raise AssertionError(f"mapping forms {tag}: not the _k forms'")
+        log(f"vertex-list API {tag}: grid_positions is the mapping's, "
+            f"splat exact and slice within {err:.2e} card vs CPU, mapping "
+            f"forms bit-equal to the _k forms")
+    return result, launches
+
+
+def bf16_phase(wrappers, smi, profile_dir, exp_root):
+    """Phase 15: the bf16 operand policy on every model, the V2V and UNet
+    blocks and the vertex-list API.  The policy is float32 again after
+    each part.  -> (result, {path: launches})."""
+    launches = {}
+    with mxu_policy(None):
+        result, launches["bf16_serving"] = bf16_serving(wrappers, smi,
+                                                        profile_dir)
+    torch.cuda.empty_cache()
+    holder = {}
+
+    def sets(trainer, batches):
+        for name in SETS:
+            holder[name] = classifier_step_under_set(
+                name, trainer, batches, wrappers, "bf16 training")
+
+    with mxu_policy(None):
+        trained, launches["bf16_training"] = train_phase(
+            wrappers, smi, profile_dir, exp_root, steps=BF16_STEPS,
+            profile_name="profile_train_bf16.txt", mxu_dtype="bfloat16",
+            after=sets)
+    for name in SETS:
+        launches[f"bf16_training_{name}"] = holder[name]
+    result.update({f"bf16_{k}": v for k, v in trained.items()})
+    torch.cuda.empty_cache()
+    with mxu_policy(None):
+        result.update(bf16_gradient_cosine())
+    torch.cuda.empty_cache()
+    with mxu_policy(None):
+        rebuilt, got = bf16_reconstructor(wrappers, smi, profile_dir,
+                                          exp_root)
+    result.update(rebuilt)
+    launches.update(got)
+    torch.cuda.empty_cache()
+    with mxu_policy(None):
+        stepped, got = bf16_single_steps(wrappers, exp_root)
+    result.update(stepped)
+    launches.update(got)
+    torch.cuda.empty_cache()
+    result.update(blocks_phase())
+    torch.cuda.empty_cache()
+    listed, got = vertex_list_phase(wrappers)
+    result.update(listed)
+    launches.update(got)
+    return result, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -3589,9 +4264,11 @@ def main():
                          "DIR/profile_segmenter.txt, "
                          "DIR/profile_reconstructor.txt, "
                          "DIR/profile_kpconv.txt, "
-                         "DIR/profile_scales.txt and, under each "
+                         "DIR/profile_scales.txt, under each "
                          "set, "
-                         "DIR/profile_{forward,train}_set_{a,b}.txt")
+                         "DIR/profile_{forward,train}_set_{a,b}.txt and "
+                         "under bf16 DIR/profile_{forward,train,"
+                         "reconstructor}_bf16.txt")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3847,7 +4524,18 @@ def main():
     all_launches.update(remat_launches)
     log(f"scales and remat phase done in {time.perf_counter() - t0:.1f} s")
 
-    # 15. results
+    # 15. the bf16 operand policy on every model, the V2V and UNet blocks
+    # and the vertex-list API
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as exp_root:
+        halved, bf16_launches = bf16_phase(wrappers, smi, args.profile,
+                                           exp_root)
+    all_launches.update(bf16_launches)
+    log(f"bf16, blocks and vertex-list phase done in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 16. results
     log(f"{ms_fwd:.3f} ms/forward (median) at B={B} x {K} points, "
         f"{B * 1e3 / ms_fwd:.2f} clouds/s "
         f"({len(batches)} classify calls, host clock, synchronised)")
@@ -3931,6 +4619,20 @@ def main():
                           for path, counts in {**scales_launches,
                                                **remat_launches}.items()}}),
           flush=True)
+    log(f"bf16: {halved['bf16_classify_ms_per_forward']:.3f} ms/forward "
+        f"(f32 {ms_fwd:.3f}), {halved['bf16_train_ms_per_step']:.3f} ms/step "
+        f"(f32 {trained['train_ms_per_step']:.3f}), peak memory "
+        f"{halved['bf16_train_peak_memory_bytes'] / 2 ** 30:.2f} GiB "
+        f"(f32 {trained['train_peak_memory_bytes'] / 2 ** 30:.2f}); logits "
+        f"vs f32 cosine {halved['bf16_vs_f32_logits_cosine']:.7f}, top-1 "
+        f"{halved['bf16_vs_f32_top1_agreement']}/{B}, gradients "
+        f"{halved['bf16_vs_f32_grad_cosine']:.7f}; reconstructor "
+        f"{halved['bf16_reconstructor_ms_per_step']:.3f} ms/step (f32 "
+        f"{rebuilt['reconstructor_ms_per_step']:.3f}), output vs f32 "
+        f"{halved['bf16_reconstructor_output_vs_f32_cosine']:.7f}")
+    print(json.dumps({"bf16": halved, "bf16_launches": {
+        path: {k: v for k, v in counts.items() if v}
+        for path, counts in bf16_launches.items()}}), flush=True)
     all_launches.update(completion=completion_launches,
                         evaluation=eval_launches, window=window_launches)
     print(json.dumps(kernel_line(rows, all_launches, completion_rows,

@@ -19,7 +19,21 @@ after ``jax.device_get``) and returns tensors under the port's module names:
   stem ``trunk/{Conv,BatchNorm}_0`` (in the node that holds the
   ``Bottleneck_i``, and only there) -> ``trunk.{stem_conv,stem_bn}`` and
   its ``Bottleneck_i/{Conv,BatchNorm}_j`` -> ``blocks.<i>.{conv1..3,
-  bn1..3,downsample_conv,downsample_bn}``;
+  bn1..3,downsample_conv,downsample_bn}``; a ``V2VModel``'s (the node
+  that holds ``UpsampleBlock_i``) ``BasicBlock_0`` -> ``basic``,
+  ``ResBlock_i`` -> ``res_blocks.<i>`` (as the Res trunks' blocks),
+  ``UpsampleBlock_i`` -> ``upsample_blocks.<i>`` and its output
+  ``Conv_0`` -> ``out_conv``; a ``UNet``'s (the node that holds
+  ``Down_i``) ``DoubleConv_0`` -> ``inc``, ``Down_i``/``Up_i`` ->
+  ``downs.<i>``/``ups.<i>`` (their ``DoubleConv_0`` -> ``conv``, an
+  ``Up``'s ``GroupedConvTranspose_0`` -> ``up``), ``Dense_0`` -> ``dense``
+  and ``OutConv_0`` -> ``outc``; in a ``BasicBlock``, an ``UpsampleBlock``
+  and an ``OutConv`` the ``Conv_0`` (or ``GroupedConvTranspose_0``) and
+  ``BatchNorm_0`` -> ``conv`` and ``bn``, in a ``DoubleConv`` ``Conv_j``/
+  ``BatchNorm_j`` -> ``conv<j+1>``/``bn<j+1>``; at the root of a bare
+  ``Up``'s or ``Down``'s tree as in one under a UNet.  A transposed conv's
+  kernel keeps the conv rule: the port's ``GroupedConvTranspose`` holds
+  it in the conv layout;
 * BatchNorm ``scale``/``bias``/``mean``/``var`` and the frames' ``log_R``/
   ``shift`` keep their names.
 
@@ -51,6 +65,24 @@ _BOTTLENECK_PARTS = {"Conv_0": "conv1", "BatchNorm_0": "bn1",
                      "BatchNorm_3": "downsample_bn"}
 _STEM_PARTS = {"Conv_0": "stem_conv", "BatchNorm_0": "stem_bn"}
 _ADAIN_PARTS = {"Dense_0": "dense"}
+_CONV_BN_PARTS = {"Conv_0": "conv", "GroupedConvTranspose_0": "conv",
+                  "BatchNorm_0": "bn"}
+_DOUBLE_CONV_PARTS = {"Conv_0": "conv1", "BatchNorm_0": "bn1",
+                      "Conv_1": "conv2", "BatchNorm_1": "bn2"}
+_UNET_STEP_PARTS = {"DoubleConv_0": "conv", "GroupedConvTranspose_0": "up"}
+# the parts of a node recognised by a child: a ResNet trunk holds
+# ``Bottleneck_i``, a V2V model ``UpsampleBlock_i``, a UNet ``Down_i``
+_ROOT_PARTS = {"Bottleneck": _STEM_PARTS,
+               "UpsampleBlock": {"BasicBlock_0": "basic",
+                                 "Conv_0": "out_conv"},
+               "Down": {"DoubleConv_0": "inc", "Dense_0": "dense",
+                        "OutConv_0": "outc"}}
+_KIND_RE = re.compile(r"(%s)_\d+" % "|".join(_ROOT_PARTS))
+# numbered auto-named blocks -> the port's module list
+_LISTS = {"Res2DBlock": "res2d", "Res3DBlock": "res3d",
+          "Bottleneck": "blocks", "ResBlock": "res_blocks",
+          "UpsampleBlock": "upsample_blocks", "Down": "downs", "Up": "ups"}
+_LIST_RE = re.compile(r"(%s)_(\d+)" % "|".join(_LISTS))
 
 
 def _flatten(tree, prefix=()):
@@ -61,33 +93,40 @@ def _flatten(tree, prefix=()):
             yield prefix + (str(key),), np.asarray(val)
 
 
-def _parts_under(parent, is_resnet_trunk):
+def _parts_under(parent, kind):
     """The renames of the auto-named layers directly under ``parent``;
-    ``is_resnet_trunk``: ``parent`` holds ``Bottleneck_i`` blocks."""
-    if re.fullmatch(r"Res[23]DBlock_\d+", parent):
+    ``kind``: the ``_ROOT_PARTS`` key of the blocks ``parent`` holds, or
+    None."""
+    if re.fullmatch(r"(Res[23]DBlock|ResBlock)_\d+", parent):
         return _BLOCK_PARTS
     if re.fullmatch(r"Bottleneck_\d+", parent):
         return _BOTTLENECK_PARTS
-    if is_resnet_trunk:
-        return _STEM_PARTS
-    if parent.endswith("adain") or not parent:
-        # an AdaIN's, or at the root the tree of a bare ``AdaIn1d``
+    if re.fullmatch(r"(BasicBlock|UpsampleBlock|OutConv)_\d+", parent):
+        return _CONV_BN_PARTS
+    if re.fullmatch(r"DoubleConv_\d+", parent):
+        return _DOUBLE_CONV_PARTS
+    if re.fullmatch(r"(Down|Up)_\d+", parent):
+        return _UNET_STEP_PARTS
+    if kind is not None:
+        return _ROOT_PARTS[kind]
+    if not parent:
+        # at the root the tree of a bare ``AdaIn1d``, ``Up`` or ``Down``
+        return {**_ADAIN_PARTS, **_UNET_STEP_PARTS}
+    if parent.endswith("adain"):
         return _ADAIN_PARTS
     return {}
 
 
-def _rename(path, resnet_trunks):
-    """``resnet_trunks``: the paths (tuples) of the nodes that hold
-    ``Bottleneck_i`` blocks, whose ``Conv_0``/``BatchNorm_0`` are the
-    stem's."""
+def _rename(path, kinds):
+    """``kinds``: {path (tuple) of a node that holds numbered blocks of a
+    ``_ROOT_PARTS`` kind: that kind}."""
     out, parent = [], ""
     for k, part in enumerate(path):
-        m = re.fullmatch(r"(Res[23]DBlock|Bottleneck)_(\d+)", part)
+        m = _LIST_RE.fullmatch(part)
         if m:
-            out += [{"Res2DBlock": "res2d", "Res3DBlock": "res3d",
-                     "Bottleneck": "blocks"}[m.group(1)], m.group(2)]
+            out += [_LISTS[m.group(1)], m.group(2)]
         else:
-            parts = _parts_under(parent, tuple(path[:k]) in resnet_trunks)
+            parts = _parts_under(parent, kinds.get(tuple(path[:k])))
             out.append(parts.get(part, part))
         parent = part
     return out
@@ -107,9 +146,12 @@ def _entries(tree):
     """Every JAX leaf as (port name, axes, index of its stage or None,
     JAX path, JAX array)."""
     leaves = list(_flatten(tree))
-    resnet_trunks = {path[:k] for path, _ in leaves
-                     for k, part in enumerate(path)
-                     if re.fullmatch(r"Bottleneck_\d+", part)}
+    kinds = {}
+    for path, _ in leaves:
+        for k, part in enumerate(path):
+            m = _KIND_RE.fullmatch(part)
+            if m:
+                kinds[path[:k]] = m.group(1)
     for path, arr in leaves:
         if "stages" in path:
             i = path.index("stages") + 1
@@ -119,7 +161,7 @@ def _entries(tree):
             stages = [(path, None)]
         for p, r in stages:
             name, axes = _leaf(p[-1], arr.ndim - (r is not None))
-            key = ".".join(_rename(p[:-1], resnet_trunks) + [name])
+            key = ".".join(_rename(p[:-1], kinds) + [name])
             yield key, axes, r, path, arr
 
 

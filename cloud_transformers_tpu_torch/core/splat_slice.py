@@ -6,7 +6,10 @@ Counterpart of the mapping-based ops of
 their gradients (``_splat_mk``, ``_slice_mk``).  Where the JAX package keeps
 grids in the TPU kernel layout, the port keeps them flat,
 ``[R = B*H, G, F]`` with cells in row-major (x, y[, z]) order; the kernels
-live in ``ops/pallas_splat.py``.
+live in ``ops/pallas_splat.py``.  The JAX package's spatial-layout forms
+``splat_max_mapping``/``slice_grid_mapping`` (grids ``[B, H, G, F]``) are
+reshapes around the ``_k`` forms here, so they run the same kernels; the
+vertex-list forms are in ``core/vertex_list.py``.
 
 Semantics: the splat is a scatter-max of weight-modulated point features
 into a zero grid, so purely negative contributions clamp to 0; the slice
@@ -134,6 +137,22 @@ def slice_grid_mapping_k(mapping, gk, sizes, feat, pts_mask=None):
     if pts_mask is not None:
         out = out * pts_mask[:, :, None].to(out.dtype)
     return out
+
+
+def splat_max_mapping(mapping, values, sizes, pts_mask=None):
+    """values [B, P, H*F] -> grid [B, H, G, F] (``splat_max_mapping_k``'s
+    rows, one per (batch, head))."""
+    b, _, h = mapping.x0.shape
+    gk = splat_max_mapping_k(mapping, values, sizes, pts_mask)
+    return gk.reshape(b, h, gk.shape[1], gk.shape[2])
+
+
+def slice_grid_mapping(mapping, grid, sizes, pts_mask=None):
+    """grid [B, H, G, F] -> [B, P, H*F] (``slice_grid_mapping_k`` on its
+    rows)."""
+    b, h, g, f = grid.shape
+    return slice_grid_mapping_k(mapping, grid.reshape(b * h, g, f), sizes,
+                                f, pts_mask)
 
 
 def gridk_to_spatial(gk, batch, sizes, feat):

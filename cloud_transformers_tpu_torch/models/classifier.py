@@ -29,6 +29,7 @@ from cloud_transformers_tpu_torch.nn.multihead import (
     MultiHeadUnion,
 )
 from cloud_transformers_tpu_torch.nn.norm import BatchNorm
+from cloud_transformers_tpu_torch.nn.precision import MXULinear
 
 # one stage = 3 unions of (features_dims, heads, tensor_sizes, tensor_dims)
 DEFAULT_STAGE_PLAN = (
@@ -93,7 +94,7 @@ class ClassifierBackbone(nn.Module):
                  remat_policy="point_io"):
         super().__init__()
         hp, w = pool_heads, trunk_width
-        self.stem = nn.Linear(3, model_dim, bias=False)
+        self.stem = MXULinear(3, model_dim, bias=False)
         self.stem_bn = BatchNorm(model_dim)
         self.trunk = MHCTTrunk(model_dim, repeats, stage_plan, scales,
                                remat_policy if remat else rm.OFF)
@@ -146,13 +147,13 @@ class Classifier(nn.Module):
             pool_feature_dims, pool_sizes, trunk_width, scales, remat,
             remat_policy)
         pooled_dim = 2 * trunk_width * pool_heads
-        self.class_vector = nn.Linear(pooled_dim, class_dim)
+        self.class_vector = MXULinear(pooled_dim, class_dim)
         self.class_vector_bn = BatchNorm(class_dim)
-        self.class_head = nn.Linear(class_dim, n_classes)
-        self.mask_conv1 = nn.Linear(model_dim + class_dim, mask_dim,
+        self.class_head = MXULinear(class_dim, n_classes)
+        self.mask_conv1 = MXULinear(model_dim + class_dim, mask_dim,
                                     bias=False)
         self.mask_bn = BatchNorm(mask_dim)
-        self.mask_conv2 = nn.Linear(mask_dim, 1)
+        self.mask_conv2 = MXULinear(mask_dim, 1)
         # one module, three independent draws per forward
         self.dropout = nn.Dropout(dropout)
 

@@ -27,6 +27,7 @@ from cloud_transformers_tpu_torch.nn.multihead_adain import (
 )
 from cloud_transformers_tpu_torch.nn import remat as rm
 from cloud_transformers_tpu_torch.nn.norm import AdaIn1d, BatchNorm
+from cloud_transformers_tpu_torch.nn.precision import MXULinear
 
 
 class CompletionEncoder(nn.Module):
@@ -40,7 +41,7 @@ class CompletionEncoder(nn.Module):
         self.backbone = ClassifierBackbone(
             model_dim, repeats, stage_plan, pool_heads, pool_feature_dims,
             pool_sizes, trunk_width, remat=remat)
-        self.class_head = nn.Linear(2 * trunk_width * pool_heads,
+        self.class_head = MXULinear(2 * trunk_width * pool_heads,
                                     latent_width)
         self.class_head_bn = BatchNorm(latent_width)
 
@@ -107,16 +108,16 @@ class Inpainter(nn.Module):
         self.encoder = CompletionEncoder(
             model_dim, latent_width, encoder_repeats, stage_plan, pool_heads,
             pool_feature_dims, pool_sizes, trunk_width, remat=on)
-        self.mapping = nn.Linear(latent_width, num_latent)
-        self.start_conv = nn.Linear(4, model_dim, bias=False)
+        self.mapping = MXULinear(latent_width, num_latent)
+        self.start_conv = MXULinear(4, model_dim, bias=False)
         self.start_adain = AdaIn1d(num_latent, model_dim)
         self.decoder = AdaInDecoder(model_dim, num_latent, decoder_repeats,
                                     stage_plan)
         rm.set_policy(self.decoder, remat_policy)
         # the final head takes the noise channels once more
-        self.final_conv1 = nn.Linear(model_dim + 4, model_dim, bias=False)
+        self.final_conv1 = MXULinear(model_dim + 4, model_dim, bias=False)
         self.final_adain = AdaIn1d(num_latent, model_dim)
-        self.final_conv2 = nn.Linear(model_dim, 3)
+        self.final_conv2 = MXULinear(model_dim, 3)
 
     def forward(self, noise, partial):
         z, enc_stats = self.encoder(partial)

@@ -22,6 +22,7 @@ from cloud_transformers_tpu_torch.models.classifier import DEFAULT_STAGE_PLAN
 from cloud_transformers_tpu_torch.models.inpainter import AdaInDecoder
 from cloud_transformers_tpu_torch.nn import remat as rm
 from cloud_transformers_tpu_torch.nn.norm import AdaIn1d
+from cloud_transformers_tpu_torch.nn.precision import MXULinear
 from cloud_transformers_tpu_torch.nn.resnet import ResNet50Features
 
 
@@ -33,15 +34,15 @@ class Reconstructor(nn.Module):
     def __init__(self, num_latent=512, model_dim=512, remat_policy=rm.OFF):
         super().__init__()
         self.res50 = ResNet50Features()
-        self.mapping = nn.Linear(2048, num_latent)
-        self.start_conv = nn.Linear(3, model_dim, bias=False)
+        self.mapping = MXULinear(2048, num_latent)
+        self.start_conv = MXULinear(3, model_dim, bias=False)
         self.start_adain = AdaIn1d(num_latent, model_dim)
         self.decoder = AdaInDecoder(model_dim, num_latent, 4,
                                     DEFAULT_STAGE_PLAN)
         rm.set_policy(self.decoder, remat_policy)
-        self.final_conv1 = nn.Linear(model_dim, model_dim, bias=False)
+        self.final_conv1 = MXULinear(model_dim, model_dim, bias=False)
         self.final_adain = AdaIn1d(num_latent, model_dim)
-        self.final_conv2 = nn.Linear(model_dim, 3)
+        self.final_conv2 = MXULinear(model_dim, 3)
 
     def forward(self, noise, image):
         z = F.relu(self.mapping(self.res50(image)))

@@ -21,6 +21,7 @@ from cloud_transformers_tpu_torch.models.classifier import (
     MHCTTrunk,
 )
 from cloud_transformers_tpu_torch.nn.norm import BatchNorm
+from cloud_transformers_tpu_torch.nn.precision import MXULinear
 from cloud_transformers_tpu_torch.nn.remat import OFF
 
 
@@ -32,14 +33,14 @@ class _SegmenterBase(nn.Module):
                  repeats=4, stage_plan=None, remat=False,
                  remat_policy="point_io"):
         super().__init__()
-        self.stem = nn.Linear(in_channels, model_dim)
+        self.stem = MXULinear(in_channels, model_dim)
         self.stem_bn = BatchNorm(model_dim)
         self.trunk = MHCTTrunk(model_dim, repeats,
                                stage_plan or DEFAULT_STAGE_PLAN,
                                remat_policy=remat_policy if remat else OFF)
-        self.final_conv1 = nn.Linear(model_dim, model_dim, bias=False)
+        self.final_conv1 = MXULinear(model_dim, model_dim, bias=False)
         self.final_bn = BatchNorm(model_dim)
-        self.final_conv2 = nn.Linear(model_dim, n_classes)
+        self.final_conv2 = MXULinear(model_dim, n_classes)
 
     def _forward(self, pcd_features, xyz, pts_mask=None):
         x = F.relu(self.stem_bn(self.stem(pcd_features)))

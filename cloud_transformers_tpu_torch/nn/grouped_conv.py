@@ -19,6 +19,15 @@ defaults:
 The switches are process-wide, as in the JAX package; ``None`` hands the
 choice back to the environment variable, then to ``"auto"``.
 
+The library branch follows the operand policy (``nn/precision.py``): under
+bf16 it convolves the cast grid and weight without the bias, casts to
+float32 and adds the bias, as the JAX package's ``"xla"`` branch does.  The
+kernel branch and the fused block take float32 whatever the policy, as the
+JAX package's Pallas kernels do.  ``GroupedConv`` is the JAX package's
+public grouped conv under the policy: a grouped ``F.conv{2,3}d`` (the JAX
+package's block-diagonal expansion of small groups is a TPU layout choice
+with the same values).
+
 The kernel branch is a ``torch.autograd.Function`` (the counterpart of
 ``_grid_conv``'s ``custom_vjp``), for 2D and 3D alike: the input gradient is
 the forward kernel on the cotangent with the transposed weights and a zero
@@ -30,10 +39,10 @@ branch's backward is PyTorch's own.
 import os
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cloud_transformers_tpu_torch.core.splat_slice import fused_block_mk
+from cloud_transformers_tpu_torch.nn.precision import policy_conv
 from cloud_transformers_tpu_torch.ops.pallas_grid_conv import (
     grid_conv,
     grid_conv_vjp,
@@ -71,6 +80,26 @@ def kernel_wins(sizes):
     """Grids that ``"auto"`` sends to the kernels (the JAX package's
     dispatch)."""
     return len(sizes) == 3 and sizes[0] >= 16
+
+
+class GroupedConv(nn.Module):
+    """Grouped conv under the operand policy: ``[B, in_channels,
+    *spatial]`` -> ``[B, features, *spatial]``, ``weight [features,
+    in_channels / groups, *kernel_size]``, ``bias [features]`` where
+    ``use_bias``; ``padding`` an int (the same on every side)."""
+
+    def __init__(self, in_channels, features, kernel_size, groups=1,
+                 padding=0, use_bias=True):
+        super().__init__()
+        self.groups, self.padding = groups, padding
+        self.weight = nn.Parameter(torch.zeros(
+            (features, in_channels // groups) + tuple(kernel_size)))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias \
+            else None
+
+    def forward(self, x):
+        return policy_conv(x, self.weight, self.bias, padding=self.padding,
+                           groups=self.groups)
 
 
 class _GridConv(torch.autograd.Function):
@@ -112,12 +141,11 @@ class GridConvK(nn.Module):
                                    self.heads)
         if strategy != "xla":
             raise ValueError(f"unknown grid conv strategy {strategy!r}")
-        h, f, dim = self.heads, self.feat, len(self.sizes)
+        h, f = self.heads, self.feat
         b = gk.shape[0] // h
         x = gk.reshape((b, h) + self.sizes + (f,))
         x = x.movedim(-1, 2).reshape((b, h * f) + self.sizes)
-        conv = F.conv2d if dim == 2 else F.conv3d
-        out = conv(x, self.weight, self.bias, padding=1, groups=h)
+        out = policy_conv(x, self.weight, self.bias, padding=1, groups=h)
         out = out.reshape((b, h, f) + self.sizes).movedim(2, -1)
         return out.reshape(b * h, -1, f)
 

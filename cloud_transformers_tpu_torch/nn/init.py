@@ -12,7 +12,8 @@ every device.
 import torch
 from torch import nn
 
-from cloud_transformers_tpu_torch.nn.grouped_conv import GridConvK
+from cloud_transformers_tpu_torch.nn.conv_blocks import GroupedConvTranspose
+from cloud_transformers_tpu_torch.nn.grouped_conv import GridConvK, GroupedConv
 from cloud_transformers_tpu_torch.nn.norm import BatchNorm
 from cloud_transformers_tpu_torch.nn.transforms import VolTransformer
 
@@ -34,7 +35,8 @@ def _fan_in(weight):
 def init_model_(model, generator):
     """Initialize every parameter and buffer of ``model`` in place."""
     for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d, GridConvK)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d,
+                          GridConvK, GroupedConv, GroupedConvTranspose)):
             bound = _fan_in(m.weight) ** -0.5
             _uniform(m.weight, bound, generator)
             if m.bias is not None:

@@ -41,6 +41,7 @@ from cloud_transformers_tpu_torch.nn.grouped_conv import (
 )
 from cloud_transformers_tpu_torch.nn import remat
 from cloud_transformers_tpu_torch.nn.norm import BatchNorm
+from cloud_transformers_tpu_torch.nn.precision import MXULinear
 from cloud_transformers_tpu_torch.nn.transforms import (
     PlaneTransformer,
     VolTransformer,
@@ -56,7 +57,7 @@ class GridKeysValues(nn.Module):
         super().__init__()
         h, f = heads, in_feature_dim
         self.heads = heads
-        self.keys_values_pred = nn.Linear(in_dim, h * (f + 3), bias=False)
+        self.keys_values_pred = MXULinear(in_dim, h * (f + 3), bias=False)
         self.key_bn = BatchNorm(h * 3, scale_init=0.0)
         self.values_bn = BatchNorm(h * f)
         self.transform = (VolTransformer if tensor_dim == 3
@@ -151,13 +152,13 @@ class MultiHeadUnion(nn.Module):
         self.n_groups = len(features_dims)
         self.has_shortcut = model_dim != out_dim
         if self.has_shortcut:
-            self.shortcut_conv = nn.Linear(model_dim, out_dim, bias=False)
+            self.shortcut_conv = MXULinear(model_dim, out_dim, bias=False)
             self.shortcut_bn = BatchNorm(out_dim)
         for i, (fd, ts, td, hd) in enumerate(zip(
                 features_dims, tensor_sizes, tensor_dims, heads)):
             self.add_module(f"attention_{i}", MultiHead(
                 model_dim, fd, ts, td, hd, scales))
-        self.after_conv = nn.Linear(
+        self.after_conv = MXULinear(
             sum(f * h for f, h in zip(features_dims, heads)), out_dim,
             bias=False)
         self.after_bn = BatchNorm(out_dim)

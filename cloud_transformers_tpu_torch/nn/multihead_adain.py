@@ -34,6 +34,7 @@ from cloud_transformers_tpu_torch.nn.grouped_conv import (
 from cloud_transformers_tpu_torch.nn import remat
 from cloud_transformers_tpu_torch.nn.multihead import head_stats
 from cloud_transformers_tpu_torch.nn.norm import AdaIn1d
+from cloud_transformers_tpu_torch.nn.precision import MXULinear
 from cloud_transformers_tpu_torch.nn.transforms import (
     PlaneTransformer,
     VolTransformer,
@@ -51,7 +52,7 @@ class MultiHeadAdaIn(nn.Module):
         h, f = heads, in_feature_dim
         self.feat, self.heads = f, h
         self.sizes = _sizes(tensor_size, tensor_dim)
-        self.keys_values_pred = nn.Linear(in_dim, h * (f + 3), bias=False)
+        self.keys_values_pred = MXULinear(in_dim, h * (f + 3), bias=False)
         self.keys_adain = AdaIn1d(latent_dim, h * 3)
         self.values_adain = AdaIn1d(latent_dim, h * f)
         self.scale = nn.Parameter(torch.zeros(()))
@@ -116,13 +117,13 @@ class MultiHeadUnionAdaIn(nn.Module):
         self.n_groups = len(features_dims)
         self.has_shortcut = model_dim != out_dim
         if self.has_shortcut:
-            self.shortcut_conv = nn.Linear(model_dim, out_dim, bias=False)
+            self.shortcut_conv = MXULinear(model_dim, out_dim, bias=False)
             self.shortcut_adain = AdaIn1d(latent_dim, out_dim)
         for i, (fd, ts, td, hd) in enumerate(zip(
                 features_dims, tensor_sizes, tensor_dims, heads)):
             self.add_module(f"attention_{i}", MultiHeadAdaIn(
                 model_dim, latent_dim, fd, ts, td, hd, scales))
-        self.after_conv = nn.Linear(
+        self.after_conv = MXULinear(
             sum(f * h for f, h in zip(features_dims, heads)), out_dim,
             bias=False)
         self.after_adain = AdaIn1d(latent_dim, out_dim)

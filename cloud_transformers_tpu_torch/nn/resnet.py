@@ -20,10 +20,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from cloud_transformers_tpu_torch.nn.norm import BatchNorm
+from cloud_transformers_tpu_torch.nn.precision import MXUConv2d
 
 
 def _conv(cin, cout, k, stride=1):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2,
+    return MXUConv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2,
                      bias=False)
 
 

@@ -46,7 +46,9 @@ class InferenceEngine:
     """Bucketed, batched eval-mode inference of a point-cloud model.
 
     On a CUDA device the engine turns TF32 off process-wide
-    (``nn/precision.py``), so the model computes in float32."""
+    (``nn/precision.py``), so the model computes in float32, or, under
+    the bf16 operand policy (``model.mxu_dtype: bfloat16``), contracts
+    bf16 operands with float32 accumulation."""
 
     def __init__(self, model, device="cuda", batch_buckets=(1, 4, 8, 16),
                  point_buckets=(1024, 2048, 4096)):

@@ -27,17 +27,19 @@ def model_name(cfg):
 
 def model_from_config(cfg):
     """Build the model named in ``cfg['model']`` with the remaining keys as
-    constructor arguments.  The port computes in float32 only, so a
-    ``model.mxu_dtype`` other than float32 raises."""
+    constructor arguments.  ``model.mxu_dtype`` sets the process-wide
+    operand policy of the dense contractions (``nn/precision.py``:
+    ``"bfloat16"``, ``"float16"``, or float32 where it is absent or
+    ``"float32"``); an unknown name raises."""
     from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.nn.precision import (
+        set_default_mxu_dtype,
+    )
 
     model_cfg = copy.deepcopy(cfg["model"])
     name = model_cfg.pop("generator", None) or model_cfg.pop("name")
     model_cfg.pop("name", None)
-    mxu_dtype = model_cfg.pop("mxu_dtype", None)
-    if mxu_dtype not in (None, "float32"):
-        raise ValueError(f"model.mxu_dtype {mxu_dtype!r}: the port computes "
-                         "in float32 only")
+    set_default_mxu_dtype(model_cfg.pop("mxu_dtype", None))
 
     def tuplify(v):
         return tuple(tuplify(x) for x in v) if isinstance(v, list) else v

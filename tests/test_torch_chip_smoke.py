@@ -222,3 +222,27 @@ def test_expected_launches_are_the_full_width_kpconv_segmenters(monkeypatch,
         forward = {k: v for k, v in forward.items() if v}
         step = {k: v for k, v in step.items() if v}
     assert runs == {"forward": forward, "step": step}
+
+
+_LAUNCH_TESTS = {
+    "classifier": test_expected_launches_are_the_full_width_classifiers,
+    "segmenter": test_expected_launches_are_the_full_width_segmenters,
+    "reconstructor":
+        test_expected_launches_are_the_full_width_reconstructors,
+    "kpconv": test_expected_launches_are_the_full_width_kpconv_segmenters}
+
+
+@pytest.mark.parametrize("model,name", [
+    ("classifier", None), ("classifier", "set_a"), ("classifier", "set_b"),
+    ("segmenter", None), ("reconstructor", None), ("kpconv", None)])
+def test_bf16_launches_are_the_f32_ones(monkeypatch, model, name):
+    """Under the bf16 operand policy (``model.mxu_dtype: bfloat16``) every
+    kernel stays float32, so the bf16 paths of ``chip_smoke.py`` expect the
+    launches of the float32 ones: the same counts as above, on the default
+    path and, for the classifier, under each set."""
+    from cloud_transformers_tpu_torch.nn import precision
+    precision.set_default_mxu_dtype("bfloat16")
+    try:
+        _LAUNCH_TESTS[model](monkeypatch, name)
+    finally:
+        precision.set_default_mxu_dtype(None)

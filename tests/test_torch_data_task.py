@@ -22,6 +22,7 @@ from cloud_transformers_tpu.utils.metrics import (
     ConfusionAccumulator as JConfusionAccumulator,
 )
 from cloud_transformers_tpu_torch.data import DataLoader, ScanObjectNN
+from cloud_transformers_tpu_torch.nn import precision
 from cloud_transformers_tpu_torch.tasks import classification as tcls
 from cloud_transformers_tpu_torch.train.config import (
     experiment_dirs,
@@ -157,9 +158,17 @@ def test_config_builds_the_model_and_the_datasets(tmp_path):
     model = model_from_config(load_config(path))
     assert len(model.backbone.trunk.stages) == 1
     assert model.class_head.out_features == 15
-    with pytest.raises(ValueError):
+    try:
         model_from_config({"model": {"name": "scanobject_classifier",
-                                     "mxu_dtype": "bfloat16"}})
+                                     "mxu_dtype": "bfloat16", **TINY_MODEL}})
+        assert precision.resolve() is torch.bfloat16
+        with pytest.raises(TypeError):
+            model_from_config({"model": {"name": "scanobject_classifier",
+                                         "mxu_dtype": "bfloat17"}})
+    finally:
+        precision.set_default_mxu_dtype(None)
+    model_from_config(load_config(path))
+    assert precision.resolve() is None
     exp_dir, writer_dir = experiment_dirs(cfg, "run")
     assert os.path.isdir(exp_dir) and os.path.isdir(writer_dir)
     train_loader, val_loader = tcls.make_datasets(cfg, synthetic=True)

@@ -3,12 +3,19 @@
 ``tools`` or scikit-learn (the card's machine has none): the training
 modules (trainer, logger, optimizer, checkpoints, data, tasks, command
 lines), the completion path's modules, the S3DIS segmenters' (both
-protocols) and the single-view reconstructor's too, and the remat policies
-and the reference converters of the scales classifier's slice."""
+protocols) and the single-view reconstructor's too, the remat policies,
+the reference converters, the operand policy, the vertex-list core API and
+the V2V and UNet blocks.
+
+The port's public names are the JAX package's: ``__all__`` of ``core`` (but
+``grid_mapping``, which is the port's module of that name) and ``nn`` equal
+the JAX lists, and the package exports the JAX package's top-level names,
+each as the port's own object."""
 
 import os
 import subprocess
 import sys
+import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -42,7 +49,9 @@ missing = [m for m in ("train.trainer", "train.optim", "train.config",
                        "train_segmentation_kpconv",
                        "eval_segmentation_kpconv", "nn.remat",
                        "nn.transforms", "convert", "serve",
-                       "models.classifier")
+                       "models.classifier", "nn.precision", "nn.unet2d",
+                       "nn.conv_blocks", "nn.grouped_conv", "core.coords",
+                       "core.vertex_list", "core.splat_slice")
            if "cloud_transformers_tpu_torch." + m not in mods]
 print(len(mods), bad + missing)
 """
@@ -58,3 +67,31 @@ def test_port_imports_no_jax():
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) > 54
     assert bad == "[]", bad
+
+
+def test_public_names_are_the_jax_packages():
+    import cloud_transformers_tpu as jct
+    import cloud_transformers_tpu.core as jcore
+    import cloud_transformers_tpu.nn as jnn
+    import cloud_transformers_tpu_torch as tct
+    import cloud_transformers_tpu_torch.core as tcore
+    import cloud_transformers_tpu_torch.nn as tnn
+
+    # the port's core.grid_mapping is the module, not the function
+    assert tcore.__all__ == [n for n in jcore.__all__ if n != "grid_mapping"]
+    assert tcore.grid_mapping.grid_mapping.__module__ == \
+        "cloud_transformers_tpu_torch.core.grid_mapping"
+    assert tnn.__all__ == jnn.__all__
+    def public(pkg):   # the names it defines, not its submodules
+        return sorted(n for n, v in vars(pkg).items()
+                      if not n.startswith("_")
+                      and not isinstance(v, types.ModuleType))
+
+    top = public(jct)
+    assert len(top) == 7 and public(tct) == top
+    for mod, names in ((tcore, tcore.__all__), (tnn, tnn.__all__),
+                       (tct, top)):
+        for name in names:
+            obj = getattr(mod, name)
+            assert obj.__module__.startswith("cloud_transformers_tpu_torch."),\
+                (name, obj.__module__)

@@ -1683,3 +1683,67 @@ def test_remat_step_on_the_card(gen, policy):
     assert got[0] == chip_smoke.remat_counts(policy, chip_smoke.PER_STEP)
     for want, have in zip(off[1:], got[1:]):
         assert all(torch.equal(have[k], want[k]) for k in want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["scanobject_classifier",
+                                  "scanobject_classifier_scales"])
+def test_bf16_step_is_sync_free_with_the_f32_launches(gen, name):
+    """Under the bf16 operand policy a full-width classifier's step (B=2 x
+    512) makes the host wait nowhere, launches what an f32 step does
+    (``PER_STEP``: every kernel stays float32) and has finite gradients."""
+    import chip_smoke
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.nn import precision
+    from cloud_transformers_tpu_torch.nn.init import init_model_
+    model = init_model_(get_model(name, dropout=0.0),
+                        torch.Generator().manual_seed(0)).cuda()
+    precision.set_default_mxu_dtype("bfloat16")
+    try:
+        launches, grads, _ = _scales_step(model)
+    finally:
+        precision.set_default_mxu_dtype(None)
+    assert launches == chip_smoke.PER_STEP
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", [(16, 16), (16, 16, 16), (8, 8, 8)])
+def test_mapping_forms_equal_the_k_forms_on_the_card(gen, sizes):
+    """``splat_max_mapping``/``slice_grid_mapping`` (grids [B, H, G, F])
+    launch the kernels of the ``_k`` forms, once each way, and give their
+    values and gradients bit for bit (the grid's cotangent and the slice's
+    cotangent fixed, d_grid summed in fixed point)."""
+    b, h, k, f = 2, 4, 256, 4
+    keys = torch.tanh(torch.randn(b, k, h, len(sizes), generator=gen,
+                                  device="cuda"))
+    keys[:, 1::2] = keys[:, 0::2]                    # exact ties
+    values = torch.randn(b, k, h * f, generator=gen, device="cuda")
+    cells = 1
+    for s in sizes:
+        cells *= s
+    grid_in = torch.randn(b, h, cells, f, generator=gen, device="cuda")
+    cot = torch.randn(b, k, h * f, generator=gen, device="cuda")
+    cot_grid = torch.randn(b, h, cells, f, generator=gen, device="cuda")
+    runs = {}
+    for form in ("spatial", "k"):
+        kk, vv, gg = (t.clone().requires_grad_()
+                      for t in (keys, values, grid_in))
+        before = [w.launches for w in (tps.splat_max, tps.slice_gather,
+                                       tps.splat_max_bwd, tps.slice_bwd)]
+        m = grid_mapping(kk, sizes, len(sizes))
+        if form == "spatial":
+            grid = tss.splat_max_mapping(m, vv, sizes)
+            out = tss.slice_grid_mapping(m, gg, sizes)
+        else:
+            grid = tss.splat_max_mapping_k(m, vv, sizes).reshape(gg.shape)
+            out = tss.slice_grid_mapping_k(m, gg.reshape(b * h, cells, f),
+                                           sizes, f)
+        ((out * cot).sum() + (grid * cot_grid).sum()).backward()
+        used = [w.launches - n for w, n in zip(
+            (tps.splat_max, tps.slice_gather, tps.splat_max_bwd,
+             tps.slice_bwd), before)]
+        assert used == [1, 1, 1, 1]
+        runs[form] = (grid.detach(), out.detach(), kk.grad, vv.grad, gg.grad)
+    for a, c in zip(runs["spatial"], runs["k"]):
+        assert torch.equal(a, c)
