@@ -207,7 +207,35 @@
    exact, the slice within 1e-6), ``splat_max_mapping``/
    ``slice_grid_mapping`` bit-equal to the ``_k`` forms, forward and
    backward, one launch of each kernel counted each way;
-16. prints ms/forward and clouds/s, then the training line (ms/step,
+16. the parallel layer (``cloud_transformers_tpu_torch/parallel``), in child
+   processes started after phase 1's build, so that no rank builds: two
+   ranks on the one card in a gloo group (a TCP rendezvous on localhost;
+   gloo takes CUDA tensors, NCCL one rank a card) each hold half of every
+   cloud at the classifier's head-group shapes (R = 128, K = 2048 split 1024
+   + 1024): ``splat_max_point_sharded`` bit-equal to the single-process
+   kernel on the whole cloud, twice; ``slice_grid_point_sharded`` and the
+   value gradient within 1e-6 of the single-process ones (the gradient where
+   no positive maximum is held by both ranks; bit-equality and the count of
+   such cells reported); on a built tie (the cloud's second half repeats its
+   first) each rank's share is half the lowest index's gradient, bit for
+   bit; and ``chamfer_point_sharded`` at B=2 x 16384 x 16384 within 1e-6 of
+   ``chamfer_distance`` with equal indices. Then the full-width classifier
+   (``configs/scanobjectnn.yaml``) trains data-parallel at B=4 x 2048 a rank
+   (phase 6's global batch): one warm-up step and 20 counted, timed steps
+   (each rank ``PER_STEP`` a step), every loss and gradient finite,
+   parameters and buffers bit-equal across the ranks after the last step, 3
+   more steps under the profiler (each rank's device time), one step whose
+   all-reduces are counted, and the time of an all-reduce of the flat
+   gradient and of a small one; then one step with dropout 0 against one
+   process's at B=8 on the same global batch and weights: the loss within
+   1e-5 (relative), the averaged gradients by PARITY.md (cosine > 0.999,
+   median error <= 1e-3 of their scale), the BatchNorm running statistics
+   within 1e-6 of max(1, each buffer's largest value). Last, in one more
+   child with cuDNN deterministic, that one-process step twice without a
+   process group and once in a world of one over NCCL: bit-equal where the
+   two group-less steps are, else no farther apart than they. gloo copies
+   through the host, so the ranks' times are not the multi-card NCCL cost;
+17. prints ms/forward and clouds/s, then the training line (ms/step,
    clouds/s, peak memory), then the completion line (ms/step, clouds/s,
    peak memory, the EMD's share of a step, the evaluation's table values,
    rounds and seconds per cloud, both tails), then the ``{"switched":
@@ -225,7 +253,8 @@
    run's peak memory, host, event and device-busy ms and launches a step,
    the gradient and statistics differences from remat off), then the
    bf16 line (phase 15's numbers beside float32's and the launches of
-   each of its runs), then one
+   each of its runs), then the parallel line (phase 16's checks, each
+   rank's times and launches, the parity numbers), then one
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
    2D and 3D convs, their weight gradients, the slice, ``top2``, the
@@ -4253,6 +4282,446 @@ def bf16_phase(wrappers, smi, profile_dir, exp_root):
     return result, launches
 
 
+# --- phase 16: the parallel layer, ranks on the one card -----------------
+
+PAR_WORLD = 2   # ranks on the card, over gloo (NCCL takes one rank a card)
+PAR_B = B // PAR_WORLD   # clouds a rank: the global batch is phase 6's
+PAR_STEPS = 20   # timed data-parallel steps, after one warm-up step
+PAR_PROFILE_STEPS = 3   # steps of each rank under the profiler
+PAR_CHAMFER = (2, 16384)   # (clouds, points a cloud) of the sharded Chamfer
+PAR_JOIN_S = 900   # the children of a run, joined with this timeout
+PAR_GROUP_S = 600   # the process group's timeout: a dead peer fails the rest
+PAR_STAT_TOL = 1e-6   # running statistics, of max(1, a buffer's largest)
+PAR_LOSS_TOL = 1e-5   # the two-rank loss against one process's, relative
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(target, world, workdir, *args):
+    """``target(rank, world, port, workdir, *args)`` in ``world`` fresh
+    processes (spawn) that meet at a TCP rendezvous on localhost; each
+    saves ``workdir/rank{r}.pt``.  A rank that fails fails the phase: no
+    rank's error is caught, the join has a timeout, and a rank left
+    running is killed.  -> [rank r's saved dict]."""
+    import multiprocessing
+    os.makedirs(workdir, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=target, args=(r, world, port, workdir)
+                         + args) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"{target.__name__}: rank exit codes {codes} "
+                             f"(a killed rank outlived {PAR_JOIN_S} s)")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def _rank_setup():
+    """A child's start: the repository on the path, float32 as the parent
+    has it, and the kernels the parent built."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cloud_transformers_tpu_torch.nn.precision import strict_f32
+    from cloud_transformers_tpu_torch.ops import cuda_build
+    torch.cuda.set_device(0)
+    strict_f32()
+    cuda_build.build()
+    cuda_build.libraries()
+
+
+def _rank_wrappers():
+    from cloud_transformers_tpu_torch.ops import pallas_grid_conv as gc
+    from cloud_transformers_tpu_torch.ops import pallas_splat as ps
+    return {"splat_max": ps.splat_max, "slice_gather": ps.slice_gather,
+            "grid_conv3d": gc.grid_conv3d,
+            "splat_max_bwd": ps.splat_max_bwd, "slice_bwd": ps.slice_bwd,
+            "grid_conv3d_dw": gc.grid_conv3d_dw}
+
+
+def sharded_ops(rank, world):
+    """Phase 16a on one rank: the point-sharded splat, slice and Chamfer on
+    this rank's half of each cloud against the single-process kernels on
+    the whole cloud, which every rank also runs.  -> result dict."""
+    from cloud_transformers_tpu_torch.core.grid_mapping import (
+        GridMapping,
+        grid_mapping,
+    )
+    from cloud_transformers_tpu_torch.core.splat_slice import (
+        slice_grid_mapping,
+        splat_max_mapping,
+    )
+    from cloud_transformers_tpu_torch.losses.chamfer import chamfer_distance
+    from cloud_transformers_tpu_torch.parallel import point_sharded as pps
+    from cloud_transformers_tpu_torch.parallel.distributed import all_reduce_
+
+    gen = torch.Generator(device="cuda").manual_seed(16)   # alike on ranks
+    lo, hi = rank * K // world, (rank + 1) * K // world
+    out = {}
+
+    def local(m):
+        return GridMapping(*(a[:, lo:hi] for a in m))
+
+    def grad_of(fn, v, cot):
+        v = v.detach().clone().requires_grad_(True)
+        (fn(v) * cot).sum().backward()
+        return v.grad
+
+    for sizes, f, _, _ in POINT_SHAPES:
+        name = shape_name(sizes, f)
+        dim = len(sizes)
+        lat = torch.tanh(torch.randn(B, K, H, dim, generator=gen,
+                                     device="cuda"))
+        values = torch.randn(B, K, H * f, generator=gen, device="cuda")
+        m = grid_mapping(lat, sizes, dim)
+        ml = local(m)
+        whole = splat_max_mapping(m, values, sizes)
+        grid = pps.splat_max_point_sharded(ml, values[:, lo:hi], sizes)
+        again = pps.splat_max_point_sharded(ml, values[:, lo:hi], sizes)
+        if not (torch.equal(grid, whole) and torch.equal(grid, again)):
+            raise AssertionError(f"sharded splat {name}: not the "
+                                 "single-process grid, bit for bit, twice")
+        # cells whose positive maximum more than one rank holds
+        held = (splat_max_mapping(ml, values[:, lo:hi], sizes) == grid)
+        ties = int(((all_reduce_(held.float(), "sum") > 1)
+                    & (grid > 0)).sum())
+        cot = torch.randn(whole.shape, generator=gen, device="cuda")
+        d_sh = grad_of(lambda v: pps.splat_max_point_sharded(
+            ml, v, sizes), values[:, lo:hi], cot)
+        d_one = grad_of(lambda v: splat_max_mapping(m, v, sizes), values,
+                        cot)[:, lo:hi]
+        g_err = float((d_sh - d_one).abs().max()) / max(
+            1.0, float(d_one.abs().max()))
+        if ties == 0 and g_err > ROUTE_TOL:
+            raise AssertionError(f"sharded splat backward {name}: {g_err} "
+                                 "from the single-process gradient")
+        sl = pps.slice_grid_point_sharded(ml, whole, sizes)
+        sl_one = slice_grid_mapping(m, whole, sizes)[:, lo:hi]
+        s_err = float((sl - sl_one).abs().max()) / max(
+            1.0, float(sl_one.abs().max()))
+        if s_err > ROUTE_TOL:
+            raise AssertionError(f"sharded slice {name}: {s_err}")
+        out[name] = {"grid_bit_equal": True, "cross_rank_ties": ties,
+                     "value_grad_err": g_err,
+                     "value_grad_bit_equal": bool(torch.equal(d_sh, d_one)),
+                     "slice_err": s_err,
+                     "slice_bit_equal": bool(torch.equal(sl, sl_one))}
+
+    # a built tie: the second half of the cloud repeats the first, so each
+    # positive maximum is held by both ranks, which split its cotangent
+    sizes, f = (32, 32, 32), 4
+    half = K // world
+    lat = torch.tanh(torch.randn(B, half, H, 3, generator=gen,
+                                 device="cuda")).repeat(1, world, 1, 1)
+    values = torch.randn(B, half, H * f, generator=gen,
+                         device="cuda").repeat(1, world, 1)
+    m = grid_mapping(lat, sizes, 3)
+    cot = torch.randn(B, H, int(np.prod(sizes)), f, generator=gen,
+                      device="cuda")
+    d_sh = grad_of(lambda v: pps.splat_max_point_sharded(
+        local(m), v, sizes), values[:, lo:hi], cot)
+    d_one = grad_of(lambda v: splat_max_mapping(m, v, sizes), values, cot)
+    shares = all_reduce_(d_sh.clone(), "sum")
+    first = all_reduce_(d_sh.clone() * (rank == 0), "sum")
+    if not (torch.equal(shares, d_one[:, :half])
+            and torch.equal(first * 2, shares)
+            and not d_one[:, half:].any() and bool(d_one.any())):
+        raise AssertionError("built cross-rank tie: the two ranks' shares "
+                             "are not halves of the lowest index's gradient")
+    out["tie_split"] = {"shape": shape_name(sizes, f),
+                        "points_with_gradient": int(
+                            (d_one[:, :half].abs().sum(-1) > 0).sum())}
+
+    cb, cn = PAR_CHAMFER
+    x = torch.randn(cb, cn, 3, generator=gen, device="cuda")
+    y = torch.randn(cb, cn, 3, generator=gen, device="cuda")
+    c0, c1 = rank * cn // world, (rank + 1) * cn // world
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = pps.chamfer_point_sharded(x[:, c0:c1], y[:, c0:c1])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    whole = chamfer_distance(x, y)
+    d_err = max(float((s - w[:, c0:c1]).abs().max())
+                for s, w in zip(sharded[:2], whole[:2]))
+    same_idx = all(torch.equal(s, w[:, c0:c1])
+                   for s, w in zip(sharded[2:], whole[2:]))
+    if d_err > 1e-6 or not same_idx:
+        raise AssertionError(f"sharded Chamfer: distances {d_err} off, "
+                             f"indices equal {same_idx}")
+    out["chamfer"] = {"clouds": cb, "points": cn, "dist_max_abs_err": d_err,
+                      "indices_equal": True, "host_ms": ms}
+    return out
+
+
+def _classifier_trainer(exp_root, dropout=None):
+    """The full-width classifier of ``configs/scanobjectnn.yaml`` in a
+    ``Trainer`` on this process's card, its loader taking this process's
+    rows of the synthetic set (``data.batch_size`` a process)."""
+    from cloud_transformers_tpu_torch.parallel.distributed import world_size
+    from cloud_transformers_tpu_torch.tasks import classification
+    from cloud_transformers_tpu_torch.train.config import (
+        load_config,
+        model_from_config,
+    )
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs", "scanobjectnn.yaml"))
+    cfg["data"]["batch_size"] = B // world_size()
+    cfg["experiment"] = {"root": exp_root}
+    cfg["train"]["auto_resume"] = False
+    if dropout is not None:
+        cfg["model"]["dropout"] = dropout
+    trainer = Trainer(model_from_config(cfg), cfg, "parallel",
+                      classification.make_loss_fn(
+                          float(cfg["train"].get("seg_weight", 0.5))),
+                      device="cuda:0", seed=0)
+    loader, _ = classification.make_datasets(cfg, synthetic=True)
+    return trainer, loader
+
+
+def _flat(tensors):
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+def parity_step(exp_root):
+    """One training step of the full-width classifier, dropout 0, on this
+    process's rows of the synthetic set's first global batch.  -> the
+    loss, the (averaged) gradients and the BatchNorm buffers after it,
+    flat, on the host."""
+    trainer, loader = _classifier_trainer(exp_root, dropout=0.0)
+    loader.set_epoch(0)
+    loss = trainer.train_step(next(iter(loader)))["loss"]
+    model = trainer.model
+    return {"loss": float(loss),
+            "grads": _flat(p.grad for p in model.parameters()).cpu(),
+            "buffers": _flat(model.buffers()).cpu(),
+            "buffer_sizes": [b.numel() for b in model.buffers()]}
+
+
+def collective_costs(trainer, batches):
+    """Where a data-parallel step's host time goes: the collectives one
+    step makes (counted at ``torch.distributed.all_reduce``, restored
+    after) and the time of one all-reduce of the flat gradient and of a
+    small one (a BatchNorm's statistics), each the median of a few, host
+    clock, synchronised."""
+    import torch.distributed as dist
+    from cloud_transformers_tpu_torch.parallel.distributed import all_reduce_
+
+    calls, sizes = [0], []
+    reduce = dist.all_reduce
+
+    def counted(t, *a, **kw):
+        calls[0] += 1
+        sizes.append(t.numel())
+        return reduce(t, *a, **kw)
+
+    dist.all_reduce = counted
+    try:
+        trainer.train_step(next(batches))
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = reduce
+
+    def timed(n, reps):
+        buf = torch.zeros(n, device="cuda")
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_(buf, "sum")
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    n_grad = sum(p.numel() for p in trainer.model.parameters())
+    return {"all_reduces_per_step": calls[0],
+            "floats_all_reduced_per_step": int(sum(sizes)),
+            "gradient_all_reduce_ms": timed(n_grad, 5),
+            "gradient_floats": n_grad,
+            "small_all_reduce_ms": timed(1024, 50)}
+
+
+def parallel_rank(rank, world, port, workdir):
+    """Phase 16 on one of ``world`` ranks of a gloo group on the one card:
+    16a, then ``PAR_STEPS`` counted, timed data-parallel steps of the
+    full-width classifier, then its parity step.  Saves its results in
+    ``workdir/rank{rank}.pt``."""
+    _rank_setup()
+    from cloud_transformers_tpu_torch.parallel import distributed as pdist
+
+    pdist.distributed_init(f"localhost:{port}", world, rank,
+                           backend="gloo", device="cuda:0",
+                           timeout_s=PAR_GROUP_S)
+    out = {"ops": sharded_ops(rank, world)}
+    torch.cuda.empty_cache()
+    wrappers = _rank_wrappers()
+    trainer, loader = _classifier_trainer(os.path.join(workdir, "exp"))
+    batches = endless(loader)
+    trainer.train_step(next(batches))            # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    step_ms, losses = [], []
+    for _ in range(PAR_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch)["loss"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches(wrappers)
+    check_launches(launches, PER_STEP, PAR_STEPS,
+                   f"rank {rank}'s data-parallel steps")
+    losses = torch.stack(losses).cpu().numpy()
+    model = trainer.model
+    if not np.isfinite(losses).all() or not all(
+            p.grad is not None and bool(torch.isfinite(p.grad).all())
+            for p in model.parameters()):
+        raise AssertionError(f"rank {rank}: a non-finite loss or gradient")
+    # every rank holds rank 0's parameters and buffers, bit for bit
+    state = _flat(list(model.parameters()) + list(model.buffers()))
+    ref = pdist.broadcast_tensors_([state.clone()])[0]
+    differ = pdist.all_reduce_(
+        torch.tensor([float(not torch.equal(state, ref))], device="cuda"),
+        "max")
+    if float(differ) != 0:
+        raise AssertionError("the ranks' parameters or buffers differ after "
+                             f"{PAR_STEPS + 1} steps")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAR_PROFILE_STEPS):
+            trainer.train_step(next(batches))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = device_ms(prof.key_averages())
+    out["collectives"] = collective_costs(trainer, batches)
+    out["training"] = {
+        "rank": rank, "launches": launches,
+        "ms_per_step": float(np.median(step_ms)),
+        "ms_p10": float(np.percentile(step_ms, 10)),
+        "ms_p90": float(np.percentile(step_ms, 90)),
+        "profiled_wall_ms_per_step": wall / PAR_PROFILE_STEPS,
+        "profiled_device_ms_per_step": busy / PAR_PROFILE_STEPS,
+        "profiled_device_idle_share": 1 - busy / wall,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "peak_memory_bytes": int(torch.cuda.max_memory_allocated())}
+    del trainer, model, batches, loader, state, ref
+    torch.cuda.empty_cache()
+    out["parity"] = parity_step(os.path.join(workdir, "exp_parity"))
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    pdist.destroy()
+
+
+def solo_rank(rank, world, port, workdir):
+    """The one-process references of phase 16, cuDNN deterministic: the
+    parity step at the whole global batch twice with no process group,
+    then once more in a world of one over NCCL."""
+    _rank_setup()
+    from cloud_transformers_tpu_torch.parallel import distributed as pdist
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    exp = os.path.join(workdir, "exp_solo")
+    out = {"alone": parity_step(exp), "alone_again": parity_step(exp)}
+    pdist.distributed_init(f"localhost:{port}", world, rank,
+                           backend="nccl", device="cuda:0",
+                           timeout_s=PAR_GROUP_S)
+    out["nccl_world_of_one"] = parity_step(exp)
+    out["backend"] = torch.distributed.get_backend()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    pdist.destroy()
+
+
+def parallel_phase(smi):
+    """Phase 16: two ranks on the card over gloo (16a, the data-parallel
+    training and its parity step), then the one-process references.
+    -> (result dict, {rank: launches in the timed steps})."""
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(parallel_rank, PAR_WORLD,
+                            os.path.join(workdir, "ranks"))
+        ranked_s = time.perf_counter() - t0
+        solo = spawn_ranks(solo_rank, 1, os.path.join(workdir, "solo"))[0]
+    result = {"world": PAR_WORLD, "backend": "gloo (CUDA tensors)",
+              "batch_per_rank": PAR_B, "points": K, "steps": PAR_STEPS,
+              "ranks_seconds": ranked_s, "card": smi,
+              "ops": [r["ops"] for r in ranks],
+              "training": [r["training"] for r in ranks],
+              "collectives": [r["collectives"] for r in ranks]}
+    # parity: the two ranks' step against one process's on the same global
+    # batch and weights
+    alone = solo["alone"]
+    two = [r["parity"] for r in ranks]
+    if not torch.equal(two[0]["grads"], two[1]["grads"]):
+        raise AssertionError("the ranks' averaged gradients differ")
+    loss = float(np.mean([t["loss"] for t in two]))
+    loss_rel = abs(loss - alone["loss"]) / abs(alone["loss"])
+    if loss_rel > PAR_LOSS_TOL:
+        raise AssertionError(f"two-rank loss {loss} against one process's "
+                             f"{alone['loss']}: {loss_rel} relative")
+    g, g1 = two[0]["grads"].double(), alone["grads"].double()
+    cos = float(g @ g1 / (g.norm() * g1.norm()))
+    p50 = float((g - g1).abs().median() / g1.abs().max())
+    if not (cos > 0.999 and p50 <= 1e-3):
+        raise AssertionError(f"two-rank gradients against one process's: "
+                             f"cosine {cos}, p50 {p50}")
+    stat_err = 0.0
+    for t in two:
+        for a, b in zip(torch.split(t["buffers"], t["buffer_sizes"]),
+                        torch.split(alone["buffers"],
+                                    alone["buffer_sizes"])):
+            stat_err = max(stat_err, float((a - b).abs().max())
+                           / max(1.0, float(b.abs().max())))
+    if stat_err > PAR_STAT_TOL:
+        raise AssertionError(f"running statistics {stat_err} relative from "
+                             "one process's")
+    # a world of one over NCCL takes the step of no process group
+    again = solo["alone_again"]
+    repeat_equal = torch.equal(again["grads"], alone["grads"]) and \
+        torch.equal(again["buffers"], alone["buffers"])
+    world1 = solo["nccl_world_of_one"]
+    world1_equal = torch.equal(world1["grads"], alone["grads"]) and \
+        torch.equal(world1["buffers"], alone["buffers"]) and \
+        world1["loss"] == alone["loss"]
+    spread = float((again["grads"] - alone["grads"]).abs().max())
+    world1_err = float((world1["grads"] - alone["grads"]).abs().max())
+    if solo["backend"] != "nccl" or (
+            world1_err > spread if not repeat_equal else not world1_equal):
+        raise AssertionError(
+            f"world of one over {solo['backend']}: gradients {world1_err} "
+            f"from the step without a group (two such steps: {spread}; bit "
+            f"equal {repeat_equal})")
+    result["parity"] = {
+        "loss_two_ranks": loss, "loss_one_process": alone["loss"],
+        "loss_rel_diff": loss_rel, "grad_cosine": cos, "grad_p50": p50,
+        "running_stats_rel_err": stat_err,
+        "one_process_repeat_bit_equal": repeat_equal,
+        "nccl_world_of_one_bit_equal": world1_equal,
+        "nccl_world_of_one_grad_max_abs_diff": world1_err}
+    launches = {f"rank{t['rank']}": t["launches"]
+                for t in result["training"]}
+    return result, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -4535,7 +5004,14 @@ def main():
     log(f"bf16, blocks and vertex-list phase done in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # 16. results
+    # 16. the parallel layer: two ranks on the card over gloo, then the
+    # one-process references (the children start after phase 1's build)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paralleled, parallel_launches = parallel_phase(smi)
+    log(f"parallel phase done in {time.perf_counter() - t0:.1f} s")
+
+    # 17. results
     log(f"{ms_fwd:.3f} ms/forward (median) at B={B} x {K} points, "
         f"{B * 1e3 / ms_fwd:.2f} clouds/s "
         f"({len(batches)} classify calls, host clock, synchronised)")
@@ -4633,6 +5109,16 @@ def main():
     print(json.dumps({"bf16": halved, "bf16_launches": {
         path: {k: v for k, v in counts.items() if v}
         for path, counts in bf16_launches.items()}}), flush=True)
+    log("parallel: " + ", ".join(
+        f"rank {t['rank']} {t['ms_per_step']:.3f} ms/step (device "
+        f"{t['profiled_device_ms_per_step']:.3f})"
+        for t in paralleled["training"])
+        + f" at B={PAR_B} x {K} a rank over gloo; two ranks against one "
+        f"process: loss {paralleled['parity']['loss_rel_diff']:.2e} "
+        f"relative, gradient cosine "
+        f"{paralleled['parity']['grad_cosine']:.7f}")
+    print(json.dumps({"parallel": paralleled,
+                      "parallel_launches": parallel_launches}), flush=True)
     all_launches.update(completion=completion_launches,
                         evaluation=eval_launches, window=window_launches)
     print(json.dumps(kernel_line(rows, all_launches, completion_rows,

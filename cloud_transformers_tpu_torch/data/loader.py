@@ -10,8 +10,15 @@ thread pool with a bounded window of batches in flight (numpy releases the
 GIL in the augmentation math, so threads overlap), otherwise by one
 producer thread that keeps up to ``prefetch`` batches in a queue.  Either
 way the batches and their order do not depend on ``num_workers``: each item
-draws from its own ``item_rng``.  The JAX loader's per-process index
-sharding is not ported (one process).
+draws from its own ``item_rng``.
+
+Across processes (``process_index`` of ``process_count``), as in the JAX
+loader, every process shuffles the same index sequence and process p takes
+the contiguous rows [p*bs, (p+1)*bs) of global batch b (bs is the
+per-process ``batch_size``), so a run over N processes sees, step for
+step, the single-process run's batches of N*bs; ``len`` counts global
+batches.  At one process the batches are those of the single-process
+loader.
 """
 
 import queue
@@ -30,13 +37,16 @@ def item_rng(seed, epoch, index):
 
 class DataLoader:
     def __init__(self, dataset, batch_size, shuffle=True, seed=0,
-                 drop_last=True, num_workers=0):
+                 drop_last=True, num_workers=0, process_index=0,
+                 process_count=1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.epoch = 0
+        self.process_index = process_index
+        self.process_count = process_count
         self.num_workers = num_workers
         self.prefetch = max(2, num_workers)
 
@@ -46,31 +56,40 @@ class DataLoader:
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)
 
+    @property
+    def global_batch_size(self):
+        return self.batch_size * self.process_count
+
     def __len__(self):
         if self.drop_last:
-            return len(self.dataset) // self.batch_size
-        return -(-len(self.dataset) // self.batch_size)
+            return len(self.dataset) // self.global_batch_size
+        return -(-len(self.dataset) // self.global_batch_size)
 
     def _indices(self):
-        """The shuffled index sequence, padded to whole batches by its own
-        head unless the last partial batch is dropped."""
+        """The shuffled index sequence, the same on every process, padded
+        to whole global batches by its own head unless the last partial
+        batch is dropped."""
         n = len(self.dataset)
         idx = np.arange(n)
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
         if not self.drop_last:
-            per = -(-n // self.batch_size) * self.batch_size
+            gbs = self.global_batch_size
+            per = -(-n // gbs) * gbs
             idx = np.concatenate([idx, idx[:per - n]])
         return idx
 
     def _build_batch(self, idx, b):
-        sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+        """This process's rows of global batch ``b``."""
+        base = (b * self.process_count + self.process_index) * \
+            self.batch_size
+        sel = idx[base:base + self.batch_size]
         items = [self.dataset[int(i)] for i in sel]
         return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
     def __iter__(self):
         idx = self._indices()
-        nb = len(idx) // self.batch_size
+        nb = len(idx) // self.global_batch_size
         if self.num_workers > 1:
             yield from self._pooled(idx, nb)
         else:

@@ -23,8 +23,12 @@ def f_score_from_dists(dist_pred_sq, dist_gt_sq, threshold=0.01,
     """(f, precision, recall) per batch row from squared nearest-neighbour
     distances, as ``chamfer_distance`` returns them."""
     th_sq = threshold * threshold
-    precision = _share(dist_pred_sq, th_sq, valid_pred)
-    recall = _share(dist_gt_sq, th_sq, valid_gt)
+    return f_from_shares(_share(dist_pred_sq, th_sq, valid_pred),
+                         _share(dist_gt_sq, th_sq, valid_gt))
+
+
+def f_from_shares(precision, recall):
+    """(f = 2 p r / (p + r), or 0 where both are 0, precision, recall)."""
     f = torch.where(precision + recall > 0,
                     2.0 * precision * recall
                     / (precision + recall).clamp_min(1e-12), 0.0)

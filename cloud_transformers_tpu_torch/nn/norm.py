@@ -14,6 +14,16 @@ step: not again while a checkpointed region is recomputed
 (``nn/remat.py``).  In eval mode it normalizes with the running
 statistics.
 
+Across processes (a ``torch.distributed`` group of more than one rank)
+the training statistics are the global batch's, as the JAX package's are
+under its 'data' mesh axis (SyncBN): the per-channel sums and counts are
+all-reduced, then the sums of squares about the global mean (two passes,
+so the variance is JAX's ``mean((x - mean)^2)``), and the running
+variance takes the global count in its Bessel factor.  The all-reduces
+are autograd Functions whose backward all-reduces the statistics'
+cotangents, so the averaged gradients are those of the global batch.
+With no such group the path is the single-process one.
+
 ``instance_norm_1d`` normalizes ``[B, P, C]`` over the point axis with the
 biased variance, in training and in eval mode alike.  ``AdaIn1d`` follows it
 with a per-channel affine from a latent code, ``x * (scale + 1) + bias``
@@ -24,6 +34,23 @@ import torch
 from torch import nn
 
 from cloud_transformers_tpu_torch.nn import remat
+from cloud_transformers_tpu_torch.parallel.distributed import (
+    AllReduceSum,
+    is_distributed,
+)
+
+
+def _global_stats(x, axes, shape):
+    """(mean, biased variance, count) over ``axes`` of every rank's ``x``,
+    in two all-reduced passes; the count is a tensor, so that nothing
+    waits for the device."""
+    count = x.new_full((1,), float(x.numel() // x.shape[shape.index(-1)]))
+    sums = AllReduceSum.apply(torch.cat([x.sum(axes), count]), None)
+    n = sums[-1].detach()
+    mean = sums[:-1] / n
+    var = AllReduceSum.apply((x - mean.view(shape)).square().sum(axes),
+                             None) / n
+    return mean, var, n
 
 
 class BatchNorm(nn.Module):
@@ -44,14 +71,18 @@ class BatchNorm(nn.Module):
         shape[self.dim] = -1
         if self.training:
             axes = [a for a in range(x.dim()) if a != self.dim % x.dim()]
-            mean = x.mean(axes)
-            var = (x - mean.view(shape)).square().mean(axes)
-            n = x.numel() // x.shape[self.dim]
+            if is_distributed():
+                mean, var, n = _global_stats(x, axes, shape)
+                bessel = n / (n - 1).clamp_min(1)
+            else:
+                mean = x.mean(axes)
+                var = (x - mean.view(shape)).square().mean(axes)
+                n = x.numel() // x.shape[self.dim]
+                bessel = n / max(n - 1, 1)
             if not remat.recomputing():
                 with torch.no_grad():
                     self.mean.lerp_(mean, self.momentum)
-                    self.var.lerp_(var * (n / max(n - 1, 1)),
-                                   self.momentum)
+                    self.var.lerp_(var * bessel, self.momentum)
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.eps) * self.scale

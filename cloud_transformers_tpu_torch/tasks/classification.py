@@ -9,7 +9,14 @@ import torch
 import torch.nn.functional as F
 
 from cloud_transformers_tpu_torch.data import DataLoader, ScanObjectNN
-from cloud_transformers_tpu_torch.utils.metrics import ConfusionAccumulator
+from cloud_transformers_tpu_torch.parallel.distributed import (
+    all_reduce_array,
+    process_rows,
+)
+from cloud_transformers_tpu_torch.utils.metrics import (
+    ConfusionAccumulator,
+    iou_from_confusion,
+)
 
 
 def make_loss_fn(seg_weight=0.5):
@@ -51,9 +58,10 @@ def make_datasets(cfg, synthetic=False):
                           num_points=d.get("num_points", 2048), seed=1)
     workers = int(d.get("num_workers", 0))
     train_loader = DataLoader(train_ds, d["batch_size"], shuffle=True,
-                              num_workers=workers)
+                              num_workers=workers, **process_rows())
     val_loader = DataLoader(val_ds, d.get("batch_size_val", d["batch_size"]),
-                            shuffle=False, num_workers=workers)
+                            shuffle=False, num_workers=workers,
+                            **process_rows())
     return train_loader, val_loader
 
 
@@ -73,5 +81,6 @@ class ClassEvalAccumulator:
         self.cm.update(metrics["pred"].cpu().numpy(), batch["label"])
 
     def compute(self):
-        m = self.cm.compute()
+        # the counts of every rank's pass
+        m = iou_from_confusion(all_reduce_array(self.cm.cm))
         return {"cls_acc": float(m["oa"]), "m_acc": float(m["macc"])}

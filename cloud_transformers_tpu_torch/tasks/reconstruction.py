@@ -15,6 +15,9 @@ import torch
 from cloud_transformers_tpu_torch.core.noise import sphere_noise
 from cloud_transformers_tpu_torch.data import DataLoader, ImageToPoint
 from cloud_transformers_tpu_torch.losses import emd_auction, loss_chamfer_adj
+from cloud_transformers_tpu_torch.parallel.distributed import (
+    process_rows,
+)
 
 
 def make_loss_fn(generator, emd_eps=0.005, emd_iters=50):
@@ -71,7 +74,8 @@ def make_datasets(cfg, synthetic=False):
     val_ds = ImageToPoint(path, split="val", seed=1, **common)
     workers = int(d.get("num_workers", 0))
     train_loader = DataLoader(train_ds, d["batch_size"], shuffle=True,
-                              num_workers=workers)
+                              num_workers=workers, **process_rows())
     val_loader = DataLoader(val_ds, d.get("batch_size_val", d["batch_size"]),
-                            shuffle=False, num_workers=workers)
+                            shuffle=False, num_workers=workers,
+                            **process_rows())
     return train_loader, val_loader

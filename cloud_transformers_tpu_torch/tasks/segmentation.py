@@ -10,7 +10,14 @@ import torch
 import torch.nn.functional as F
 
 from cloud_transformers_tpu_torch.data import DataLoader, Indoor3DSemSeg
-from cloud_transformers_tpu_torch.utils.metrics import ConfusionAccumulator
+from cloud_transformers_tpu_torch.parallel.distributed import (
+    all_reduce_array,
+    process_rows,
+)
+from cloud_transformers_tpu_torch.utils.metrics import (
+    ConfusionAccumulator,
+    iou_from_confusion,
+)
 
 
 def make_loss_fn(n_classes=13, label_smooth=0.0):
@@ -48,9 +55,10 @@ def make_datasets(cfg, synthetic=False):
     val_ds = Indoor3DSemSeg(path, train=False, aug=False, **kwargs)
     workers = int(d.get("num_workers", 0))
     train_loader = DataLoader(train_ds, d["batch_size"], shuffle=True,
-                              num_workers=workers)
+                              num_workers=workers, **process_rows())
     val_loader = DataLoader(val_ds, d.get("batch_size_val", d["batch_size"]),
-                            shuffle=False, num_workers=workers)
+                            shuffle=False, num_workers=workers,
+                            **process_rows())
     return train_loader, val_loader
 
 
@@ -73,7 +81,8 @@ class SegEvalAccumulator:
         self.cm.update(pred, batch["label"])
 
     def compute(self):
-        m = self.cm.compute()
+        # the counts of every rank's pass
+        m = iou_from_confusion(all_reduce_array(self.cm.cm))
         return {"oa": float(m["oa"]), "macc": float(m["macc"]),
                 "miou": float(m["miou"]),
                 **{f"iou_{i}": float(v) for i, v in enumerate(m["iou"])}}

@@ -18,6 +18,14 @@ import torch.nn.functional as F
 
 from cloud_transformers_tpu_torch.data import DataLoader
 from cloud_transformers_tpu_torch.data.s3dis_kpconv import S3DISSeg
+from cloud_transformers_tpu_torch.parallel.distributed import (
+    all_gather_array,
+    all_reduce_,
+    is_distributed,
+    process_rows,
+    rank,
+    world_size,
+)
 
 
 def dataset_kwargs(cfg, synthetic, num_epochs=None):
@@ -52,9 +60,10 @@ def make_datasets(cfg, synthetic=False):
     val_ds = S3DISSeg(split="val", **common)
     workers = int(d.get("num_workers", 0))
     train_loader = DataLoader(train_ds, d["batch_size"], shuffle=False,
-                              num_workers=workers)
+                              num_workers=workers, **process_rows())
     val_loader = DataLoader(val_ds, d.get("batch_size_val", d["batch_size"]),
-                            shuffle=False, num_workers=workers)
+                            shuffle=False, num_workers=workers,
+                            **process_rows())
     return train_ds, val_ds, train_loader, val_loader
 
 
@@ -64,7 +73,13 @@ def make_loss_fn():
     ``points [B, P, 3]``, ``mask [B, P]``, ``features [B, P, F]`` and
     ``label [B, P]`` (int64), all on the device with no wait for it.
     ``aux``: ``acc`` over the valid points, ``logits [B, P, C]`` and
-    ``pred [B, P]``.  The model's mode is the caller's to set."""
+    ``pred [B, P]``.  The model's mode is the caller's to set.
+
+    Across processes the normaliser is the global batch's valid count
+    (all-reduced, not differentiated) over the world size, so that the
+    ranks' averaged gradient is the gradient of the JAX package's loss
+    over the global ragged batch, and the ranks' mean ``loss`` and ``acc``
+    are the global batch's."""
     def loss_fn(model, batch):
         logits, _ = model(batch["points"], batch["mask"], batch["features"])
         labels = batch["label"]
@@ -72,7 +87,7 @@ def make_loss_fn():
         per_pt = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                  labels.reshape(-1),
                                  reduction="none").reshape(labels.shape)
-        valid = mask.sum().clamp(min=1.0)
+        valid = _valid_count(mask)
         loss = (per_pt * mask).sum() / valid
         with torch.no_grad():
             pred = logits.argmax(-1)
@@ -80,6 +95,15 @@ def make_loss_fn():
                    "logits": logits.detach(), "pred": pred}
         return loss, aux
     return loss_fn
+
+
+def _valid_count(mask):
+    """The masked mean's normaliser: this batch's valid points, or across
+    processes the global batch's over the world size."""
+    valid = mask.sum().detach()
+    if not is_distributed():
+        return valid.clamp(min=1.0)
+    return all_reduce_(valid.clone(), "sum").clamp(min=1.0) / world_size()
 
 
 # --- metrics (numpy, on the host) ------------------------------------------
@@ -169,7 +193,13 @@ def validate_votes(eval_step, dataset: S3DISSeg, loader, num_classes,
     a batch); ``mask``, ``input_inds`` and ``cloud_index`` are read from
     the numpy batch.  -> {``part_miou``, ``sub_miou``,
     ``running_sub_miou``, ``miou`` (full cloud), ``ious`` (full cloud,
-    per class)} of the last vote."""
+    per class)} of the last vote.
+
+    Across processes each rank evaluates its rows of every global batch,
+    and every rank gathers the global batch and its logits and accumulates
+    all of it (the augmentation too is drawn for the global batch), so
+    that the votes and the metrics are the single-process run's on every
+    rank."""
     rng = np.random.RandomState(seed)
     vote_sum = [np.zeros((num_classes, lbl.shape[0]), np.float32)
                 for lbl in dataset.sub_labels]
@@ -188,6 +218,12 @@ def validate_votes(eval_step, dataset: S3DISSeg, loader, num_classes,
         predictions: List[np.ndarray] = []
         targets: List[np.ndarray] = []
         for batch in loader:
+            rows = None
+            if is_distributed():
+                n = len(batch["points"])
+                rows = slice(rank() * n, (rank() + 1) * n)
+                batch = {k: all_gather_array(np.asarray(a))
+                         for k, a in batch.items()}
             if v > 0:
                 pts = batch_rotate_scale_jitter(batch["points"], rng)
                 batch = dict(batch, points=pts)
@@ -195,7 +231,11 @@ def validate_votes(eval_step, dataset: S3DISSeg, loader, num_classes,
                     colors = batch["features"][..., :input_features_dim - 3]
                     batch["features"] = np.concatenate([colors, pts], -1)
             # [B, N, C], one copy to the host a batch
-            logits = eval_step(batch)["logits"].cpu().numpy()
+            mine = batch if rows is None else \
+                {k: a[rows] for k, a in batch.items()}
+            logits = eval_step(mine)["logits"].cpu().numpy()
+            if rows is not None:
+                logits = all_gather_array(logits)
             for ib in range(logits.shape[0]):
                 mask_i = np.asarray(batch["mask"][ib]).astype(bool)
                 lg = logits[ib][mask_i].T  # [C, n]

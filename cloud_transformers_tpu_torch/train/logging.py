@@ -1,11 +1,12 @@
 """Experiment logging: TensorBoard (where tensorboardX imports), JSONL and
 the console.
 
-Counterpart of ``cloud_transformers_tpu/train/logging.py`` for one process:
-a ``SummaryWriter`` in the experiment's writer directory, every scalar also
-appended to ``metrics.jsonl`` there, the config copied into the experiment
-directory, per-block occupancy and key statistics, and point clouds as
-TensorBoard meshes.
+Counterpart of ``cloud_transformers_tpu/train/logging.py``: on the main
+process (rank 0, or the only one) a ``SummaryWriter`` in the experiment's
+writer directory, every scalar also appended to ``metrics.jsonl`` there,
+the config copied into the experiment directory, per-block occupancy and
+key statistics, and point clouds as TensorBoard meshes; on the other ranks
+a ``MetricLogger`` writes nothing.
 """
 
 import json
@@ -35,9 +36,15 @@ def setup_logger(name="cloud_transformers_tpu_torch"):
 class MetricLogger:
     """Writes scalars to TensorBoard (if tensorboardX imports) and to
     ``{writer_dir}/metrics.jsonl``; copies the config file into
-    ``exp_dir``."""
+    ``exp_dir``.  With ``is_main_process`` false it opens and writes
+    nothing."""
 
-    def __init__(self, writer_dir, exp_dir=None, config_path=None):
+    def __init__(self, writer_dir, exp_dir=None, config_path=None,
+                 is_main_process=True):
+        self.is_main = is_main_process
+        self.writer = self.jsonl = None
+        if not self.is_main:
+            return
         os.makedirs(writer_dir, exist_ok=True)
         try:
             from tensorboardX import SummaryWriter
@@ -54,6 +61,8 @@ class MetricLogger:
         """One JSON line ``{"step", "time", prefix + key: value}`` of the
         metrics that convert to float (others are skipped), and one
         TensorBoard scalar each."""
+        if not self.is_main:
+            return
         clean = {}
         for k, v in metrics.items():
             try:
@@ -91,7 +100,8 @@ class MetricLogger:
     def close(self):
         if self.writer is not None:
             self.writer.close()
-        self.jsonl.close()
+        if self.jsonl is not None:
+            self.jsonl.close()
 
 
 class AverageMeter:

@@ -1,12 +1,36 @@
-"""Single-device trainer: train step, eval step, epoch loop, validation.
+"""Trainer: train step, eval step, epoch loop, validation, on one device or
+one device a process.
 
-Counterpart of ``cloud_transformers_tpu/train/trainer.py`` on one device.
+Counterpart of ``cloud_transformers_tpu/train/trainer.py``.
 A task provides ``loss_fn(model, batch) -> (loss, aux_metrics)``; the
 trainer moves each numpy batch to the device, runs forward, backward and the
 optimizer step, and keeps the metrics on the device until a window of
 ``show_each`` steps is averaged on the host.  Weights are initialised from
-``seed`` through an explicit ``torch.Generator``; the same seed also seeds
-PyTorch's generators, which dropout draws from.
+``seed`` through an explicit ``torch.Generator``; ``seed`` plus the
+process's rank also seeds PyTorch's generators, which dropout draws from.
+
+Across processes (a ``torch.distributed`` group of more than one rank; the
+JAX package's 'data' mesh axis), each rank trains on its device with its
+rows of the global batch (``data.DataLoader``'s ``process_index``):
+parameters and buffers are broadcast from rank 0 once the weights are
+made, loaded or resumed (JAX's ``replicate``); after the backward the
+gradients are all-reduced in one flat buffer and divided by the world
+size, before ``grad_stats``, clipping and the update, so every rank takes
+the same step (the gradient of the global mean loss where each rank's loss
+is the mean of its rows: a task with another normaliser makes it global,
+as ``tasks/segmentation_kpconv.py`` does); BatchNorm's statistics are the
+global batch's (``nn/norm.py``).  This is an explicit all-reduce, not
+``DistributedDataParallel``: ``self.model`` stays the bare module (its
+``state_dict`` names, the hooks), one code path serves NCCL and gloo on
+CUDA tensors, and nothing has to follow the checkpointed regions of
+``nn/remat.py``.  Only rank 0 writes checkpoints (a barrier follows each
+save) and logs; every rank loads ``ckpt_latest`` and ``cfg['restore']``.
+The ``show_each`` window means and the validation metrics are averaged
+over the ranks (an eval hook sums its own counts) before rank 0 logs them
+and the best-metric gates decide, so every rank decides alike.  Dropout
+draws differ by rank (the JAX package draws one mask for the global
+batch); a resumed multi-rank run reseeds them from the seed, the rank and
+the step, since the checkpoint holds rank 0's generator states.
 
 Checkpoints: ``fit`` saves ``ckpt_latest`` every ``save_each`` steps, every
 ``save_each_epoch`` epochs and when ``max_steps`` ends the run (unless
@@ -65,6 +89,7 @@ import torch
 
 from cloud_transformers_tpu_torch.nn.init import init_model_
 from cloud_transformers_tpu_torch.nn.precision import strict_f32
+from cloud_transformers_tpu_torch.parallel import distributed as pdist
 from cloud_transformers_tpu_torch.train.checkpoint import (
     CheckpointManager,
     restore_params_only,
@@ -131,6 +156,9 @@ class Trainer:
             strict_f32()
         self.logger = logger
         self.seed = seed
+        self.rank = pdist.rank()
+        self.world = pdist.world_size()
+        self.is_main = self.rank == 0
         self.model = model
         self.generators = dict(generators or {})
         self._initial_generators = {k: g.get_state()
@@ -138,7 +166,8 @@ class Trainer:
         self._fresh_start()
         self.exp_dir, self.writer_dir = experiment_dirs(cfg, exp_name)
         self.metrics = MetricLogger(self.writer_dir, self.exp_dir,
-                                    config_path)
+                                    config_path,
+                                    is_main_process=self.is_main)
         self.ckpt = CheckpointManager(self.exp_dir)
         resumed = (bool(cfg.get("train", {}).get("auto_resume", True))
                    and self.ckpt.exists("latest") and self._auto_resume())
@@ -149,12 +178,19 @@ class Trainer:
                             "from ckpt_latest", restore["generator"])
             else:
                 self.restore(restore["generator"], restore.get("new_lr"))
+        self._replicate()
+
+    def _replicate(self):
+        """Every rank's parameters and buffers as rank 0's."""
+        pdist.broadcast_tensors_(
+            [p.data for p in self.model.parameters()]
+            + list(self.model.buffers()))
 
     def _fresh_start(self):
         """Weights, optimizer, counters and generators as a new run has
         them."""
         self.generator = torch.Generator().manual_seed(self.seed)
-        torch.manual_seed(self.seed)
+        torch.manual_seed(self.seed + self.rank)
         for k, g in self.generators.items():
             g.set_state(self._initial_generators[k])
         init_model_(self.model, self.generator)
@@ -184,10 +220,13 @@ class Trainer:
         if not unreadable_checkpoint(err, self.ckpt.path("latest")):
             raise err
         quarantine = self.ckpt.path(f"latest_unreadable_{int(time.time())}")
-        try:
-            os.rename(self.ckpt.path("latest"), quarantine)
-        except OSError:
-            quarantine = "<rename failed>"
+        pdist.barrier()   # every rank has given up on the file
+        if self.is_main:
+            try:
+                os.rename(self.ckpt.path("latest"), quarantine)
+            except OSError:
+                quarantine = "<rename failed>"
+        pdist.barrier()
         logger.error("AUTO-RESUME FAILED: ckpt_latest could not be restored "
                      "(%s). It was moved to %s; training restarts from "
                      "scratch.", err, quarantine)
@@ -238,9 +277,19 @@ class Trainer:
             torch.cuda.set_rng_state(rng["cuda"].cpu(), self.device)
         for k, g in self.generators.items():
             g.set_state(rng[f"task.{k}"].cpu())
+        if self.world > 1:
+            # the saved states are rank 0's: dropout differs by rank again
+            torch.manual_seed(self.seed + self.rank
+                              + 1000003 * self.global_step)
 
     def save(self, tag="latest"):
-        return self.ckpt.save(self.checkpoint(), tag)
+        """Rank 0 writes the checkpoint; every rank waits for it.  -> its
+        path."""
+        path = self.ckpt.path(tag)
+        if self.is_main:
+            path = self.ckpt.save(self.checkpoint(), tag)
+        pdist.barrier()
+        return path
 
     def to_device(self, batch):
         """Numpy batch -> tensors on the device (labels as int64)."""
@@ -261,12 +310,32 @@ class Trainer:
         self.optimizer.zero_grad()
         loss, aux = self.loss_fn(self.model, batch)
         loss.backward()
+        self.average_gradients()
         metrics = {"loss": loss.detach(), **aux}
         if self.cfg.get("train", {}).get("grad_stats"):
             metrics.update(self.grad_stats())
         self.optimizer.step()
         self.global_step += 1
         return metrics
+
+    @torch.no_grad()
+    def average_gradients(self):
+        """Across processes, every gradient becomes the mean of the ranks'
+        (one all-reduce of a flat buffer; a parameter that has no gradient
+        on this rank adds zeros and keeps none, and the models' structure
+        is the same on every rank); the identity on one process."""
+        if not pdist.is_distributed():
+            return
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        pdist.all_reduce_(flat, "sum").div_(self.world)
+        i = 0
+        for p in params:
+            if p.grad is not None:
+                p.grad.copy_(flat[i:i + p.numel()].view_as(p))
+            i += p.numel()
 
     @torch.no_grad()
     def grad_stats(self):
@@ -344,7 +413,7 @@ class Trainer:
                             self.global_step >= profile_end:
                         profiler = self._stop_profile(profiler)
                     if self.global_step % show_each == 0:
-                        host = _window_mean(window)
+                        host = _window_mean(window, self.device)
                         n = len(window)
                         host["steps_per_sec"] = n / (time.time() - t0)
                         host["data_time"] = data_t / n
@@ -353,10 +422,12 @@ class Trainer:
                         data_t = step_t = 0.0
                         self.metrics.scalars(self.global_step, host,
                                              prefix="train/")
-                        logger.info("epoch %d step %d: %s", epoch,
-                                    self.global_step,
-                                    {k: round(v, 4) for k, v in host.items()
-                                     if "/" not in k})
+                        if self.is_main:
+                            logger.info(
+                                "epoch %d step %d: %s", epoch,
+                                self.global_step,
+                                {k: round(v, 4) for k, v in host.items()
+                                 if "/" not in k})
                     if mesh_hook is not None and mesh_each and \
                             self.global_step % mesh_each == 0:
                         mesh_hook(self, batch)
@@ -375,9 +446,10 @@ class Trainer:
                     val = self.validate(val_loader, eval_hook)
                     self.metrics.scalars(self.global_step, val,
                                          prefix="val/")
-                    logger.info("epoch %d val: %s", epoch,
-                                {k: round(float(v), 4)
-                                 for k, v in val.items()})
+                    if self.is_main:
+                        logger.info("epoch %d val: %s", epoch,
+                                    {k: round(float(v), 4)
+                                     for k, v in val.items()})
                     for key in keys:
                         score = (-float(val.get("loss", np.inf))
                                  if key == "loss"
@@ -411,15 +483,18 @@ class Trainer:
         profiler.stop()
         out = os.path.join(self.exp_dir, "profile")
         os.makedirs(out, exist_ok=True)
-        path = os.path.join(out, f"trace_step{self.global_step}.json")
+        rank = f"_rank{self.rank}" if self.world > 1 else ""
+        path = os.path.join(out,
+                            f"trace_step{self.global_step}{rank}.json")
         profiler.export_chrome_trace(path)
         logger.info("profiler trace written to %s", path)
         return None
 
     def validate(self, val_loader, eval_hook=None):
-        """Average the eval metrics over the loader.  ``eval_hook(batch,
-        metrics)`` may accumulate task statistics; if it has ``compute()``,
-        its results are merged into (and override) the returned metrics."""
+        """Average the eval metrics over the loader (and over the ranks'
+        loaders).  ``eval_hook(batch, metrics)`` may accumulate task
+        statistics; if it has ``compute()``, its results are merged into
+        (and override) the returned metrics."""
         if eval_hook is not None and hasattr(eval_hook, "reset"):
             eval_hook.reset()
         sums, count = {}, 0
@@ -431,18 +506,26 @@ class Trainer:
                 if v.dim() == 0:
                     sums[k] = sums.get(k, 0.0) + float(v)
             count += 1
-        out = {k: v / max(count, 1) for k, v in sums.items()}
+        if pdist.is_distributed():
+            keys = list(sums)
+            total = pdist.all_reduce_array(
+                np.array([sums[k] for k in keys] + [count], np.float64))
+            sums, count = dict(zip(keys, total[:-1])), total[-1]
+        out = {k: float(v / max(count, 1)) for k, v in sums.items()}
         if eval_hook is not None and hasattr(eval_hook, "compute"):
             out.update(eval_hook.compute())
         return out
 
 
-def _window_mean(window):
+def _window_mean(window, device):
     """Mean of each scalar metric over a window of steps, on the host (one
-    copy from the device for the whole window)."""
+    copy from the device for the whole window), and across processes over
+    the ranks (one all-reduce on ``device``)."""
     keys = [k for k, v in window[0].items() if v.dim() == 0]
     if not keys:
         return {}
     values = torch.stack([torch.stack([m[k].float() for k in keys])
                           for m in window]).cpu().double().mean(0)
+    if pdist.is_distributed():
+        values = pdist.all_reduce_(values.to(device), "mean").cpu()
     return dict(zip(keys, values.tolist()))

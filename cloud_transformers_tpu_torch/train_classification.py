@@ -3,8 +3,12 @@
     python -m cloud_transformers_tpu_torch.train_classification EXP_NAME \\
         -c configs/scanobjectnn.yaml [--synthetic] [--steps N] [--device cpu]
 
-The command line of the JAX package's ``train_classification.py`` without
-its multi-host flags.  Runs on ``cuda`` unless ``--device`` says otherwise.
+The command line of the JAX package's ``train_classification.py``, its
+multi-host flags too (``--coordinator host:port --num-processes N
+--process-id P``, or ``torchrun --nproc-per-node N``'s environment;
+``--dist-backend nccl|gloo``): each process trains on its rows of the global
+batch, ``data.batch_size`` a process. Runs on ``cuda`` (``cuda:<local
+rank>`` across processes) unless ``--device`` says otherwise.
 """
 
 import argparse
@@ -12,6 +16,11 @@ import logging
 
 
 def main(argv=None):
+    from cloud_transformers_tpu_torch.parallel.distributed import (
+        add_cli_flags,
+        init_from_args,
+    )
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("exp_name")
     ap.add_argument("-c", "--config", default="configs/scanobjectnn.yaml")
@@ -20,9 +29,11 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=None,
                     help="stop after N optimizer steps (smoke runs)")
     ap.add_argument("--device", default="cuda")
+    add_cli_flags(ap)
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    device = init_from_args(args)
 
     from cloud_transformers_tpu_torch.tasks import classification
     from cloud_transformers_tpu_torch.train.config import (
@@ -38,7 +49,7 @@ def main(argv=None):
     loss_fn = classification.make_loss_fn(
         seg_weight=float(cfg["train"].get("seg_weight", 0.5)))
     trainer = Trainer(model, cfg, args.exp_name, loss_fn,
-                      device=args.device, config_path=args.config)
+                      device=device, config_path=args.config)
     hook = classification.ClassEvalAccumulator(
         int(cfg.get("model", {}).get("n_classes", 15)))
     # the hook's pooled accuracy and mean class accuracy gate ckpt_best and
@@ -52,4 +63,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from cloud_transformers_tpu_torch.parallel.distributed import destroy
+    try:
+        main()
+    finally:
+        destroy()   # leave the process group, where there is one

@@ -3,12 +3,16 @@
     python -m cloud_transformers_tpu_torch.train_segmentation EXP_NAME \\
         -c configs/s3dis.yaml [--synthetic] [--steps N] [--device cpu]
 
-The command line of the JAX package's ``train_segmentation.py`` without its
-multi-host flags.  Runs on ``cuda`` unless ``--device`` says otherwise.
-The loss is the per-point cross-entropy, label-smoothed by 0.1 where
+The command line of the JAX package's ``train_segmentation.py``, its
+multi-host flags too (``--coordinator host:port --num-processes N
+--process-id P``, or ``torchrun --nproc-per-node N``'s environment;
+``--dist-backend nccl|gloo``): each process trains on its rows of the global
+batch, ``data.batch_size`` a process. Runs on ``cuda`` (``cuda:<local
+rank>`` across processes) unless ``--device`` says otherwise. The loss is
+the per-point cross-entropy, label-smoothed by 0.1 where
 ``train.label_smooth`` is set; each validation reports OA, mAcc, mIoU and
 the IoU of each class, and ``ckpt_best`` follows ``train.best_metric``
-(``miou`` where the config names none).  A run resumes from its
+(``miou`` where the config names none). A run resumes from its
 ``ckpt_latest``.
 """
 
@@ -17,6 +21,11 @@ import logging
 
 
 def main(argv=None):
+    from cloud_transformers_tpu_torch.parallel.distributed import (
+        add_cli_flags,
+        init_from_args,
+    )
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("exp_name")
     ap.add_argument("-c", "--config", default="configs/s3dis.yaml")
@@ -25,9 +34,11 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=None,
                     help="stop after N optimizer steps (smoke runs)")
     ap.add_argument("--device", default="cuda")
+    add_cli_flags(ap)
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    device = init_from_args(args)
 
     from cloud_transformers_tpu_torch.tasks import segmentation
     from cloud_transformers_tpu_torch.train.config import (
@@ -45,7 +56,7 @@ def main(argv=None):
         n_classes=n_classes,
         label_smooth=0.1 if cfg["train"].get("label_smooth") else 0.0)
     trainer = Trainer(model, cfg, args.exp_name, loss_fn,
-                      device=args.device, config_path=args.config)
+                      device=device, config_path=args.config)
     hook = segmentation.SegEvalAccumulator(n_classes)
     # the hook's mIoU gates ckpt_best unless the config names a key, as in
     # the JAX package's CLI
@@ -59,4 +70,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from cloud_transformers_tpu_torch.parallel.distributed import destroy
+    try:
+        main()
+    finally:
+        destroy()   # leave the process group, where there is one

@@ -5,15 +5,19 @@ the port.
         EXP_NAME -c configs/s3dis_kpconv.yaml [--synthetic] [--steps N] \\
         [--num-votes 20] [--device cpu]
 
-The command line of the JAX package's ``train_segmentation_kpconv.py``
-without its multi-host flags.  Runs on ``cuda`` unless ``--device`` says
-otherwise.  The protocol's constants are config keys (2000 steps an
-epoch, ``sampleDl`` 0.04, ``in_radius`` 2.0, 8192 points, 4 feature
-dimensions, ``clip_grad_norm`` 10 where the config names none); training
-items are rotated, scaled and jittered.  Each epoch ends with a 2-vote
-validation (not with ``--steps``, which stops after N optimizer steps);
-the run ends with a ``--num-votes`` validation and prints its part,
-sub-cloud and full-cloud mIoU.  A run resumes from its ``ckpt_latest``.
+The command line of the JAX package's ``train_segmentation_kpconv.py``, its
+multi-host flags too (``--coordinator host:port --num-processes N
+--process-id P``, or ``torchrun --nproc-per-node N``'s environment;
+``--dist-backend nccl|gloo``): each process trains on its rows of the global
+batch, ``data.batch_size`` a process. Runs on ``cuda`` (``cuda:<local
+rank>`` across processes) unless ``--device`` says otherwise. The protocol's
+constants are config keys (2000 steps an epoch, ``sampleDl`` 0.04,
+``in_radius`` 2.0, 8192 points, 4 feature dimensions, ``clip_grad_norm`` 10
+where the config names none); training items are rotated, scaled and
+jittered. Each epoch ends with a 2-vote validation (not with ``--steps``,
+which stops after N optimizer steps); the run ends with a ``--num-votes``
+validation and prints its part, sub-cloud and full-cloud mIoU. A run resumes
+from its ``ckpt_latest``.
 
 The training augmentation shares one ``RandomState(0)`` across the
 loader's worker threads, as the JAX command line does, so its draws
@@ -27,6 +31,11 @@ import numpy as np
 
 
 def main(argv=None):
+    from cloud_transformers_tpu_torch.parallel.distributed import (
+        add_cli_flags,
+        init_from_args,
+    )
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("exp_name")
     ap.add_argument("-c", "--config", default="configs/s3dis_kpconv.yaml")
@@ -36,9 +45,11 @@ def main(argv=None):
                     help="stop after N optimizer steps (smoke runs)")
     ap.add_argument("--num-votes", type=int, default=20)
     ap.add_argument("--device", default="cuda")
+    add_cli_flags(ap)
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    device = init_from_args(args)
 
     from cloud_transformers_tpu_torch.tasks import segmentation_kpconv as task
     from cloud_transformers_tpu_torch.train.config import (
@@ -55,7 +66,7 @@ def main(argv=None):
     features = cfg["data"].get("input_features_dim", 4)
 
     trainer = Trainer(model, cfg, args.exp_name, task.make_loss_fn(),
-                      device=args.device, config_path=args.config)
+                      device=device, config_path=args.config)
     n_classes = int(cfg["model"].get("n_classes", 13))
 
     def epoch_validate(epoch):
@@ -75,7 +86,8 @@ def main(argv=None):
         trainer.eval_step, val_ds, val_loader, num_classes=n_classes,
         num_votes=args.num_votes,
         input_features_dim=features, logger=trainer.logger)
-    print({k: v for k, v in results.items() if k != "ious"})
+    if trainer.is_main:
+        print({k: v for k, v in results.items() if k != "ious"})
     return trainer, results
 
 
@@ -97,4 +109,8 @@ class EpochLoader:
 
 
 if __name__ == "__main__":
-    main()
+    from cloud_transformers_tpu_torch.parallel.distributed import destroy
+    try:
+        main()
+    finally:
+        destroy()   # leave the process group, where there is one

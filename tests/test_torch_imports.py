@@ -5,7 +5,7 @@ modules (trainer, logger, optimizer, checkpoints, data, tasks, command
 lines), the completion path's modules, the S3DIS segmenters' (both
 protocols) and the single-view reconstructor's too, the remat policies,
 the reference converters, the operand policy, the vertex-list core API and
-the V2V and UNet blocks.
+the V2V and UNet blocks, and the parallel layer.
 
 The port's public names are the JAX package's: ``__all__`` of ``core`` (but
 ``grid_mapping``, which is the port's module of that name) and ``nn`` equal
@@ -51,7 +51,9 @@ missing = [m for m in ("train.trainer", "train.optim", "train.config",
                        "nn.transforms", "convert", "serve",
                        "models.classifier", "nn.precision", "nn.unet2d",
                        "nn.conv_blocks", "nn.grouped_conv", "core.coords",
-                       "core.vertex_list", "core.splat_slice")
+                       "core.vertex_list", "core.splat_slice",
+                       "parallel", "parallel.distributed",
+                       "parallel.point_sharded")
            if "cloud_transformers_tpu_torch." + m not in mods]
 print(len(mods), bad + missing)
 """
