@@ -221,7 +221,7 @@
    bit; and ``chamfer_point_sharded`` at B=2 x 16384 x 16384 within 1e-6 of
    ``chamfer_distance`` with equal indices. Then the full-width classifier
    (``configs/scanobjectnn.yaml``) trains data-parallel at B=4 x 2048 a rank
-   (phase 6's global batch): one warm-up step and 20 counted, timed steps
+   (phase 6's global batch): one warm-up step and 10 counted, timed steps
    (each rank ``PER_STEP`` a step), every loss and gradient finite,
    parameters and buffers bit-equal across the ranks after the last step, 3
    more steps under the profiler (each rank's device time), one step whose
@@ -235,7 +235,27 @@
    process group and once in a world of one over NCCL: bit-equal where the
    two group-less steps are, else no farther apart than they. gloo copies
    through the host, so the ranks' times are not the multi-card NCCL cost;
-17. prints ms/forward and clouds/s, then the training line (ms/step,
+17. the points axis (``parallel/mesh.py``): four ranks on the one card over
+   gloo make a data 2 x points 2 grid (``make_mesh(2, 2)``), each with its
+   data row's clouds and one block of every cloud's points, and train
+   through ``Trainer(mesh=...)``: 17a the full-width, full-depth classifier
+   (``configs/scanobjectnn.yaml``, dropout 0) at a global B=8 x 2048 (a
+   rank: 4 x 1024), one step from the initial weights on the synthetic
+   set's first batch against phase 16's one-process step at B=8 (the loss
+   within 1e-5 relative, the gradients by PARITY.md, the running
+   statistics within 1e-6 of max(1, |buffer|), the four ranks' parameters
+   and buffers bit-equal), then 3 timed steps (host ms a step, each rank's
+   launches of #1-#6 equal to ``PER_STEP`` a step, peak memory), one
+   profiled step (device ms, idle share) and one whose all-reduces are
+   counted; 17b ``s3dis_segmenter_pad`` at full width and one stage on 4
+   ragged spheres of 8192 points (valid prefixes of 3000, 5200, 8192 and
+   6100 points, so that the first sphere's second point block holds no
+   valid point) and 17c ``completion_inpainter`` at full width, one
+   encoder and one decoder stage, on the Chamfer loss at B=2, 2048 ->
+   16384 points, one step each against one process's by the same
+   criteria, with each rank's launches (``PTS_PER_STEP``).  The
+   one-process references run in one more child, cuDNN deterministic;
+18. prints ms/forward and clouds/s, then the training line (ms/step,
    clouds/s, peak memory), then the completion line (ms/step, clouds/s,
    peak memory, the EMD's share of a step, the evaluation's table values,
    rounds and seconds per cloud, both tails), then the ``{"switched":
@@ -254,7 +274,10 @@
    the gradient and statistics differences from remat off), then the
    bf16 line (phase 15's numbers beside float32's and the launches of
    each of its runs), then the parallel line (phase 16's checks, each
-   rank's times and launches, the parity numbers), then one
+   rank's times and launches, the parity numbers), then the points line
+   (phase 17's parity numbers for the three models, each rank's launches,
+   the classifier's times, device idle share, collectives and peak
+   memory a rank), then one
    ``{"kernels": [...]}`` line of all thirteen kernels (the TPU kernel
    table's twelve rows, row 9 as its forward and its routed backward; the
    2D and 3D convs, their weight gradients, the slice, ``top2``, the
@@ -4286,7 +4309,7 @@ def bf16_phase(wrappers, smi, profile_dir, exp_root):
 
 PAR_WORLD = 2   # ranks on the card, over gloo (NCCL takes one rank a card)
 PAR_B = B // PAR_WORLD   # clouds a rank: the global batch is phase 6's
-PAR_STEPS = 20   # timed data-parallel steps, after one warm-up step
+PAR_STEPS = 10   # timed data-parallel steps, after one warm-up step
 PAR_PROFILE_STEPS = 3   # steps of each rank under the profiler
 PAR_CHAMFER = (2, 16384)   # (clouds, points a cloud) of the sharded Chamfer
 PAR_JOIN_S = 900   # the children of a run, joined with this timeout
@@ -4469,10 +4492,13 @@ def sharded_ops(rank, world):
     return out
 
 
-def _classifier_trainer(exp_root, dropout=None):
+def _classifier_trainer(exp_root, dropout=None, mesh=None):
     """The full-width classifier of ``configs/scanobjectnn.yaml`` in a
     ``Trainer`` on this process's card, its loader taking this process's
-    rows of the synthetic set (``data.batch_size`` a process)."""
+    rows of the synthetic set (``data.batch_size`` a process, or a data
+    row of ``mesh``)."""
+    import contextlib
+
     from cloud_transformers_tpu_torch.parallel.distributed import world_size
     from cloud_transformers_tpu_torch.tasks import classification
     from cloud_transformers_tpu_torch.train.config import (
@@ -4483,7 +4509,8 @@ def _classifier_trainer(exp_root, dropout=None):
 
     root = os.path.dirname(os.path.abspath(__file__))
     cfg = load_config(os.path.join(root, "configs", "scanobjectnn.yaml"))
-    cfg["data"]["batch_size"] = B // world_size()
+    cfg["data"]["batch_size"] = B // (world_size() if mesh is None
+                                      else mesh.n_data)
     cfg["experiment"] = {"root": exp_root}
     cfg["train"]["auto_resume"] = False
     if dropout is not None:
@@ -4491,8 +4518,9 @@ def _classifier_trainer(exp_root, dropout=None):
     trainer = Trainer(model_from_config(cfg), cfg, "parallel",
                       classification.make_loss_fn(
                           float(cfg["train"].get("seg_weight", 0.5))),
-                      device="cuda:0", seed=0)
-    loader, _ = classification.make_datasets(cfg, synthetic=True)
+                      device="cuda:0", seed=0, mesh=mesh)
+    with mesh if mesh is not None else contextlib.nullcontext():
+        loader, _ = classification.make_datasets(cfg, synthetic=True)
     return trainer, loader
 
 
@@ -4719,6 +4747,292 @@ def parallel_phase(smi):
         "nccl_world_of_one_grad_max_abs_diff": world1_err}
     launches = {f"rank{t['rank']}": t["launches"]
                 for t in result["training"]}
+    return result, launches
+
+
+# --- phase 17: the points axis -----------------------------------------------
+
+PTS_GRID = (2, 2)   # (data, points) ranks on the card, over gloo
+PTS_WORLD = PTS_GRID[0] * PTS_GRID[1]
+PTS_STEPS = 3   # timed grid steps of the classifier, after its parity step
+PTS_KP = (4, 8192)   # 17b: ragged spheres, points a sphere
+# 17b: each sphere's valid points, a prefix; the first sphere's second point
+# block (its points 4096..8191 on a points rank) holds no valid point
+PTS_KP_VALID = (3000, 5200, 8192, 6100)
+PTS_INP = (2, 2048, 16384)   # 17c: clouds, partial points, output points
+# 17b and 17c: the config and the depth cut to keep the phase short
+PTS_MODELS = {"segmenter": ("s3dis_kpconv.yaml", {"repeats": 1}),
+              "inpainter": ("inpainting.yaml", {"encoder_repeats": 1,
+                                                "decoder_repeats": 1})}
+
+
+def trunk_step_counts(repeats, pools=0):
+    """Launches of #1-#6 in one training step of ``repeats`` stages of
+    ``DEFAULT_STAGE_PLAN`` (6 head groups a stage, 2 of them 3D grids with
+    X >= 16) and ``pools`` pool heads (a splat each)."""
+    return {"splat_max": 6 * repeats + pools, "slice_gather": 6 * repeats,
+            "grid_conv3d": 4 * repeats, "splat_max_bwd": 6 * repeats + pools,
+            "slice_bwd": 6 * repeats, "grid_conv3d_dw": 2 * repeats}
+
+
+# per step on every rank of the grid: 17a's full classifier (``PER_STEP``),
+# 17b's one-stage segmenter, 17c's one-stage encoder (with its two pools)
+# and one-stage decoder
+PTS_PER_STEP = {"classifier": trunk_step_counts(4, 2),
+                "segmenter": trunk_step_counts(1),
+                "inpainter": trunk_step_counts(2, 2)}
+
+
+def points_batch(family):
+    """17b's or 17c's global batch, from numpy's generator (alike in every
+    process).  17b pads each sphere as ``S3DISSeg`` does: the valid points
+    first, then repeats of valid points (keys, features and labels)."""
+    rs = np.random.RandomState(17)
+    if family == "segmenter":
+        b, k = PTS_KP
+        pts = rs.uniform(-1, 1, (b, k, 3)).astype(np.float32)
+        feats = rs.uniform(0, 1, (b, k, 4)).astype(np.float32)
+        labels = rs.randint(0, 13, (b, k)).astype(np.int32)
+        mask = np.zeros((b, k), np.float32)
+        for i, n in enumerate(PTS_KP_VALID):
+            idx = np.concatenate([np.arange(n), rs.randint(0, n, k - n)])
+            pts[i], feats[i], labels[i] = pts[i, idx], feats[i, idx], \
+                labels[i, idx]
+            mask[i, :n] = 1
+        return {"points": pts, "features": feats, "mask": mask,
+                "label": labels}
+    b, n_in, n_out = PTS_INP
+    extent = np.linspace(0.6, 1.0, b)[:, None, None]   # clouds unalike
+    xyz = rs.randn(b, n_out, 3)
+    label = (np.arange(n_out) % 2)[None, :, None].repeat(b, 0)
+    return {"partial": (rs.uniform(-0.5, 0.5, (b, n_in, 3))
+                        * extent).astype(np.float32),
+            "gt": (rs.uniform(-0.5, 0.5, (b, n_out, 3))
+                   * extent).astype(np.float32),
+            "noise": np.concatenate(
+                [xyz / np.linalg.norm(xyz, axis=-1, keepdims=True), label],
+                -1).astype(np.float32)}
+
+
+def chamfer_loss(model, batch):
+    """17c's loss, the dryrun's: the Chamfer distance of the completion
+    against ``gt``."""
+    from cloud_transformers_tpu_torch.losses.chamfer import loss_chamfer
+    recon, _ = model(batch["noise"], batch["partial"])
+    return loss_chamfer(recon, batch["gt"]), {}
+
+
+def _points_trainer(family, exp_root, mesh=None):
+    """17b's or 17c's model at full width, its depth cut
+    (``PTS_MODELS``), in a ``Trainer`` on this process's card."""
+    from cloud_transformers_tpu_torch.tasks import segmentation_kpconv
+    from cloud_transformers_tpu_torch.train.config import (
+        load_config,
+        model_from_config,
+    )
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    name, keys = PTS_MODELS[family]
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs", name))
+    cfg["model"].update(keys)
+    cfg["experiment"] = {"root": exp_root}
+    cfg["train"]["auto_resume"] = False
+    loss_fn = segmentation_kpconv.make_loss_fn() if family == "segmenter" \
+        else chamfer_loss
+    return Trainer(model_from_config(cfg), cfg, family, loss_fn,
+                   device="cuda:0", seed=0, mesh=mesh)
+
+
+def _step_result(trainer, loss):
+    model = trainer.model
+    return {"loss": float(loss),
+            "grads": _flat(p.grad for p in model.parameters()).cpu(),
+            "buffers": _flat(model.buffers()).cpu(),
+            "buffer_sizes": [b.numel() for b in model.buffers()]}
+
+
+def _alike_on_ranks(model):
+    """Whether every rank holds rank 0's parameters and buffers, bit for
+    bit."""
+    from cloud_transformers_tpu_torch.parallel import distributed as pdist
+    state = _flat(list(model.parameters()) + list(model.buffers()))
+    ref = pdist.broadcast_tensors_([state.clone()])[0]
+    differ = pdist.all_reduce_(
+        torch.tensor([float(not torch.equal(state, ref))], device="cuda"),
+        "max")
+    return float(differ) == 0
+
+
+def points_rank(rank, world, port, workdir):
+    """Phase 17 on one rank of the data 2 x points 2 grid over gloo on the
+    one card: 17a's parity step and ``PTS_STEPS`` timed steps of the
+    full-width classifier, then 17b's and 17c's parity steps, each
+    counted.  Saves its results in ``workdir/rank{rank}.pt``."""
+    _rank_setup()
+    from cloud_transformers_tpu_torch.parallel import distributed as pdist
+    from cloud_transformers_tpu_torch.parallel.mesh import (
+        make_mesh,
+        shard_batch,
+    )
+
+    pdist.distributed_init(f"localhost:{port}", world, rank,
+                           backend="gloo", device="cuda:0",
+                           timeout_s=PAR_GROUP_S)
+    mesh = make_mesh(*PTS_GRID)
+    wrappers = _rank_wrappers()
+    out = {"rank": rank, "index": (mesh.data_index, mesh.points_index)}
+
+    # 17a: the parity step from the initial weights on the first batch
+    trainer, loader = _classifier_trainer(os.path.join(workdir, "exp_a"),
+                                          dropout=0.0, mesh=mesh)
+    batches = endless(loader)
+    zero_launches(wrappers)
+    loss = trainer.train_step(next(batches))["loss"]
+    torch.cuda.synchronize()
+    out["classifier"] = _step_result(trainer, loss)
+    out["classifier"]["launches"] = read_launches(wrappers)
+    check_launches(out["classifier"]["launches"], PTS_PER_STEP["classifier"],
+                   1, f"rank {rank}'s classifier grid step")
+    if not _alike_on_ranks(trainer.model):
+        raise AssertionError("17a: the ranks' parameters or buffers differ "
+                             "after a grid step")
+    # then timed steps, a profiled one, and one with its collectives counted
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(wrappers)
+    step_ms, losses = [], []
+    for _ in range(PTS_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(batch)["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches(wrappers)
+    check_launches(launches, PTS_PER_STEP["classifier"], PTS_STEPS,
+                   f"rank {rank}'s timed classifier grid steps")
+    peak = int(torch.cuda.max_memory_allocated())
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(next(batches))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = device_ms(prof.key_averages())
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"17a rank {rank}: non-finite losses {losses}")
+    out["timing"] = {
+        "rank": rank, "index": out["index"], "launches": launches,
+        "steps": PTS_STEPS, "ms_per_step": float(np.median(step_ms)),
+        "ms_p10": float(np.percentile(step_ms, 10)),
+        "ms_p90": float(np.percentile(step_ms, 90)),
+        "profiled_wall_ms": wall, "profiled_device_ms": busy,
+        "profiled_device_idle_share": 1 - busy / wall,
+        "peak_memory_bytes": peak, "losses": losses,
+        "collectives": collective_costs(trainer, batches)}
+    del trainer, loader, batches
+    torch.cuda.empty_cache()
+
+    # 17b and 17c: one parity step each
+    for family in ("segmenter", "inpainter"):
+        trainer = _points_trainer(family, os.path.join(workdir, family),
+                                  mesh)
+        rows = shard_batch(mesh, points_batch(family))
+        zero_launches(wrappers)
+        loss = trainer.train_step(rows)["loss"]
+        torch.cuda.synchronize()
+        out[family] = _step_result(trainer, loss)
+        out[family]["launches"] = read_launches(wrappers)
+        check_launches(out[family]["launches"], PTS_PER_STEP[family], 1,
+                       f"rank {rank}'s {family} grid step")
+        if not _alike_on_ranks(trainer.model):
+            raise AssertionError(f"17 {family}: the ranks' parameters or "
+                                 "buffers differ after a grid step")
+        del trainer
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    pdist.destroy()
+
+
+def points_solo(rank, world, port, workdir):
+    """Phase 17's one-process references, cuDNN deterministic: each
+    family's step on the whole global batch, with no process group."""
+    _rank_setup()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {"classifier": parity_step(os.path.join(workdir, "exp_solo"))}
+    for family in ("segmenter", "inpainter"):
+        trainer = _points_trainer(family, os.path.join(workdir, family))
+        loss = trainer.train_step(points_batch(family))["loss"]
+        out[family] = _step_result(trainer, loss)
+        del trainer
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def _points_parity(family, grid, alone):
+    """The grid's step (the ranks' mean loss, their averaged gradients and
+    running statistics, equal on every rank) against one process's: the
+    loss within ``PAR_LOSS_TOL`` relative, the gradients by PARITY.md,
+    the statistics within ``PAR_STAT_TOL`` of max(1, |buffer|)."""
+    for g in grid[1:]:
+        if not (torch.equal(g["grads"], grid[0]["grads"])
+                and torch.equal(g["buffers"], grid[0]["buffers"])):
+            raise AssertionError(f"17 {family}: the ranks' averaged "
+                                 "gradients or statistics differ")
+    loss = float(np.mean([g["loss"] for g in grid]))
+    loss_rel = abs(loss - alone["loss"]) / abs(alone["loss"])
+    if loss_rel > PAR_LOSS_TOL:
+        raise AssertionError(f"17 {family}: grid loss {loss} against one "
+                             f"process's {alone['loss']}: {loss_rel}")
+    g, g1 = grid[0]["grads"].double(), alone["grads"].double()
+    cos = float(g @ g1 / (g.norm() * g1.norm()))
+    p50 = float((g - g1).abs().median() / g1.abs().max())
+    if not (cos > 0.999 and p50 <= 1e-3):
+        raise AssertionError(f"17 {family}: grid gradients against one "
+                             f"process's: cosine {cos}, p50 {p50}")
+    stat_err = 0.0
+    for a, b in zip(torch.split(grid[0]["buffers"], grid[0]["buffer_sizes"]),
+                    torch.split(alone["buffers"], alone["buffer_sizes"])):
+        stat_err = max(stat_err, float((a - b).abs().max())
+                       / max(1.0, float(b.abs().max())))
+    if stat_err > PAR_STAT_TOL:
+        raise AssertionError(f"17 {family}: running statistics {stat_err} "
+                             "relative from one process's")
+    return {"loss_grid": loss, "loss_one_process": alone["loss"],
+            "loss_rel_diff": loss_rel, "grad_cosine": cos,
+            "grad_p50": p50, "running_stats_rel_err": stat_err,
+            "grad_max_abs_diff": float((g - g1).abs().max()),
+            "launches_per_rank": [r["launches"] for r in grid]}
+
+
+def points_phase(smi):
+    """Phase 17: the data 2 x points 2 grid of ranks on the card over
+    gloo (17a-17c), then the one-process references.  -> (result dict,
+    {path: rank 0's launches})."""
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(points_rank, PTS_WORLD,
+                            os.path.join(workdir, "ranks"))
+        ranked_s = time.perf_counter() - t0
+        solo = spawn_ranks(points_solo, 1, os.path.join(workdir, "solo"))[0]
+    result = {"grid": {"data": PTS_GRID[0], "points": PTS_GRID[1]},
+              "backend": "gloo (CUDA tensors, four ranks on one card)",
+              "card": smi, "ranks_seconds": ranked_s,
+              "classifier_batch": {"global": [B, K],
+                                   "rank": [B // PTS_GRID[0],
+                                            K // PTS_GRID[1]]},
+              "segmenter_batch": {"global": list(PTS_KP),
+                                  "valid": list(PTS_KP_VALID)},
+              "inpainter_batch": {"global": list(PTS_INP)}}
+    for family in ("classifier", "segmenter", "inpainter"):
+        result[family] = _points_parity(family, [r[family] for r in ranks],
+                                        solo[family])
+    result["classifier"]["timing"] = [r["timing"] for r in ranks]
+    launches = {f"points_{family}": ranks[0][family]["launches"]
+                for family in ("classifier", "segmenter", "inpainter")}
     return result, launches
 
 
@@ -5011,7 +5325,16 @@ def main():
     paralleled, parallel_launches = parallel_phase(smi)
     log(f"parallel phase done in {time.perf_counter() - t0:.1f} s")
 
-    # 17. results
+    # 17. the points axis: a data 2 x points 2 grid of ranks on the card
+    # over gloo trains the classifier, the ragged KPConv segmenter and the
+    # AdaIN inpainter, each against one process
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pointed, points_launches = points_phase(smi)
+    all_launches.update(points_launches)
+    log(f"points-axis phase done in {time.perf_counter() - t0:.1f} s")
+
+    # 18. results
     log(f"{ms_fwd:.3f} ms/forward (median) at B={B} x {K} points, "
         f"{B * 1e3 / ms_fwd:.2f} clouds/s "
         f"({len(batches)} classify calls, host clock, synchronised)")
@@ -5119,6 +5442,17 @@ def main():
         f"{paralleled['parity']['grad_cosine']:.7f}")
     print(json.dumps({"parallel": paralleled,
                       "parallel_launches": parallel_launches}), flush=True)
+    log("points: " + ", ".join(
+        f"rank {t['rank']} {t['ms_per_step']:.1f} ms/step (device "
+        f"{t['profiled_device_ms']:.1f} ms, idle "
+        f"{t['profiled_device_idle_share']:.3f})"
+        for t in pointed["classifier"]["timing"])
+        + f" for the classifier at B={B} x {K} on the data 2 x points 2 "
+        "grid over gloo; against one process: " + ", ".join(
+            f"{f} loss {pointed[f]['loss_rel_diff']:.2e} relative, "
+            f"gradient cosine {pointed[f]['grad_cosine']:.7f}"
+            for f in ("classifier", "segmenter", "inpainter")))
+    print(json.dumps({"points": pointed}), flush=True)
     all_launches.update(completion=completion_launches,
                         evaluation=eval_launches, window=window_launches)
     print(json.dumps(kernel_line(rows, all_launches, completion_rows,

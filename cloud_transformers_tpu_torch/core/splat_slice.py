@@ -31,6 +31,16 @@ gradient will be taken record the winner map in its forward
 (``splat_route``); the gradients are bit-equal to the two-pass backward's.
 A splat under ``no_grad`` runs the plain ``splat_max`` either way.
 
+Under an ambient points axis (``parallel/mesh.py``) each rank splats its
+block of the points and ``splat_max_mapping_k`` combines the local grids
+by a max all-reduce over the points group (``parallel/constrain.
+combine_max``), whose backward sums the ranks' cotangents of the grid and
+hands each cell's to the ranks that hold its maximum; each rank's splat
+backward then routes its share to its own winner, the forward-tracked
+winner map of ``FWD_WINNER`` included.  The slice reads the combined grid
+at the rank's points as it is.  The fused block raises there: its one
+launch cannot hold the all-reduce between its splat and its conv.
+
 The fused block (``fused_block_mk``, the JAX package's ``_fused_block_mk``)
 runs splat -> grouped conv -> slice in one kernel (``ops/pallas_fused_block``)
 and returns the splatted grid beside the points; under a gradient it also
@@ -125,7 +135,10 @@ def splat_max_mapping_k(mapping, values, sizes, pts_mask=None):
     v = v.transpose(1, 2).reshape(b * h, p, f)
     x0, lane0, w_lo, w_hi = _flatten_mapping(mapping)
     track = FWD_WINNER and _grad_will_be_taken(w_lo, w_hi, v)
-    return _SplatMax.apply(x0, lane0, w_lo, w_hi, v, tuple(sizes), track)
+    grid = _SplatMax.apply(x0, lane0, w_lo, w_hi, v, tuple(sizes), track)
+    # imported here: the parallel package imports this module
+    from cloud_transformers_tpu_torch.parallel.constrain import combine_max
+    return combine_max(grid)
 
 
 def slice_grid_mapping_k(mapping, gk, sizes, feat, pts_mask=None):
@@ -215,7 +228,14 @@ def fused_block_mk(mapping, values, weight, bias, sizes, feat, heads,
     """Splat -> grouped conv (``weight`` [H*F, F, 3, 3(, 3)], ``bias``
     [H*F]) -> slice as one kernel: values [B, P, H*F] -> (out [B, P, H*F],
     the splatted grid [B*H, G, F]).  ``pts_mask`` as in
-    ``splat_max_mapping_k`` and ``slice_grid_mapping_k``."""
+    ``splat_max_mapping_k`` and ``slice_grid_mapping_k``.  Raises under a
+    points axis."""
+    from cloud_transformers_tpu_torch.parallel.mesh import points_mesh
+    if points_mesh() is not None:
+        raise ValueError("the fused block (CT_BLOCK_FUSION=fused) cannot "
+                         "run under a points axis: its splat's grid must be "
+                         "all-reduced before the conv; use the 'ops' block "
+                         "strategy")
     b, p, h = mapping.x0.shape
     v = values.reshape(b, p, h, feat)
     if pts_mask is not None:

@@ -7,6 +7,14 @@ at a time; the differentiable distances are then recomputed through a
 gather at the fixed indices, which sends ``2 g (x1 - x2)`` to both clouds.
 The JAX package leaves these matrix products to XLA, so they are
 ``torch.matmul`` here and no kernel of the port.
+
+Under an ambient points axis (``parallel/mesh.py``) both clouds are this
+rank's blocks, and ``chamfer_distance`` gathers the other cloud over the
+points group (``parallel/point_sharded.chamfer_point_sharded``): each rank
+gets its own points' distances, its losses the means over them (the
+world's mean of which is the whole clouds' mean, the blocks being alike in
+size), and the gather's backward brings each distance's gradient to the
+rank that holds the neighbour.
 """
 
 import torch
@@ -35,7 +43,17 @@ def chamfer_distance(xyz1, xyz2, chunk_size=1024, valid1=None, valid2=None):
     are optional bool masks: an invalid point is no neighbour to anyone and
     has distance 0 itself.  -> (dist1 [B, N], dist2 [B, M], idx1 [B, N],
     idx2 [B, M] int64), differentiable in both clouds through the fixed
-    indices."""
+    indices.  Under a points axis, of this rank's blocks against the whole
+    clouds (the indices global)."""
+    # imported here: the parallel package imports this module
+    from cloud_transformers_tpu_torch.parallel.mesh import points_mesh
+    mesh = points_mesh()
+    if mesh is not None:
+        from cloud_transformers_tpu_torch.parallel.point_sharded import (
+            chamfer_point_sharded,
+        )
+        return chamfer_point_sharded(xyz1, xyz2, chunk_size, valid1, valid2,
+                                     mesh.points_group)
     idx1 = _nn_idx_chunked(xyz1, xyz2, chunk_size, y_valid=valid2)
     idx2 = _nn_idx_chunked(xyz2, xyz1, chunk_size, y_valid=valid1)
     nn1 = torch.gather(xyz2, 1, idx1[..., None].expand(-1, -1, 3))

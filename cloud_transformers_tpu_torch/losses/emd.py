@@ -24,6 +24,9 @@ the device.
 
 The bid search of every round goes to the ``top2`` kernel on a CUDA tensor
 and to its plain version on a CPU tensor.
+
+Under a points axis (``parallel/mesh.py``) the auction raises: it matches
+whole clouds one to one, and a rank holds a block of each.
 """
 
 import torch
@@ -183,6 +186,12 @@ def emd_auction_with_rounds(xyz1, xyz2, eps=0.005, iters=50,
     ends early once every point is assigned)."""
     if xyz1.shape != xyz2.shape:
         raise ValueError("EMD requires equal-size clouds")
+    # imported here: the parallel package imports the losses
+    from cloud_transformers_tpu_torch.parallel.mesh import points_mesh
+    if points_mesh() is not None:
+        raise ValueError("the EMD auction matches whole clouds and cannot "
+                         "run under a points axis; train on the Chamfer "
+                         "distance there")
     b, n, _ = xyz1.shape
     x1 = xyz1.detach().float()
     x2 = xyz2.detach().float()

@@ -38,7 +38,17 @@ def f_from_shares(precision, recall):
 def f_score(pred, gt, threshold=0.01, chunk_size=1024,
             valid_pred=None, valid_gt=None):
     """(f, precision, recall) per batch row at ``threshold``; clouds
-    [B, N, 3]."""
+    [B, N, 3].  Under a points axis, this rank's blocks of the clouds,
+    and the whole clouds' scores (``f_score_point_sharded``)."""
+    # imported here: the parallel package imports this module
+    from cloud_transformers_tpu_torch.parallel.mesh import points_mesh
+    mesh = points_mesh()
+    if mesh is not None:
+        from cloud_transformers_tpu_torch.parallel.point_sharded import (
+            f_score_point_sharded,
+        )
+        return f_score_point_sharded(pred, gt, threshold, chunk_size,
+                                     valid_pred, valid_gt, mesh.points_group)
     d1, d2, _, _ = chamfer_distance(pred, gt, chunk_size,
                                     valid1=valid_pred, valid2=valid_gt)
     return f_score_from_dists(d1, d2, threshold, valid_pred, valid_gt)

@@ -15,6 +15,13 @@ but the port's default is ``remat=False``: the JAX package rematerializes
 the stages to fit the TPU's memory, and the card holds the step whole.
 Remat changes memory and time, not values.  Module names follow the JAX
 parameter tree so that ``convert.py`` maps it.
+
+Under a points axis (``parallel/mesh.py``) the stem, the trunk and the
+mask head run on this rank's block of every cloud's points, and the pools,
+their Res trunks and the class vector on the data row's whole grids,
+alike on its points ranks (the JAX package's ``constrain_batch`` sites):
+those BatchNorms are marked replicated and the class vector's dropout
+draws the row's mask (``parallel/constrain.py``).
 """
 
 import torch
@@ -30,6 +37,10 @@ from cloud_transformers_tpu_torch.nn.multihead import (
 )
 from cloud_transformers_tpu_torch.nn.norm import BatchNorm
 from cloud_transformers_tpu_torch.nn.precision import MXULinear
+from cloud_transformers_tpu_torch.parallel.constrain import (
+    mark_replicated,
+    replicated_dropout,
+)
 
 # one stage = 3 unions of (features_dims, heads, tensor_sizes, tensor_dims)
 DEFAULT_STAGE_PLAN = (
@@ -110,6 +121,7 @@ class ClassifierBackbone(nn.Module):
             ResBlock(c2, (w // 2) * hp, hp, 2),
             ResBlock((w // 2) * hp, w * hp, hp, 2),
             ResBlock(w * hp, w * hp, hp, 2)])
+        mark_replicated(self.res3d, self.res2d)
 
     @staticmethod
     def _trunk(blocks, x):
@@ -149,6 +161,7 @@ class Classifier(nn.Module):
         pooled_dim = 2 * trunk_width * pool_heads
         self.class_vector = MXULinear(pooled_dim, class_dim)
         self.class_vector_bn = BatchNorm(class_dim)
+        mark_replicated(self.class_vector_bn)
         self.class_head = MXULinear(class_dim, n_classes)
         self.mask_conv1 = MXULinear(model_dim + class_dim, mask_dim,
                                     bias=False)
@@ -160,7 +173,8 @@ class Classifier(nn.Module):
     def forward(self, pcd):
         res, pooled, stats = self.backbone(pcd)
         class_vect = F.relu(self.class_vector_bn(self.class_vector(pooled)))
-        class_pred = self.class_head(self.dropout(class_vect))
+        class_pred = self.class_head(replicated_dropout(class_vect,
+                                                        self.dropout))
         b, p, _ = res.shape
         mh = torch.cat([res, class_vect[:, None, :].expand(
             b, p, class_vect.shape[-1])], -1)

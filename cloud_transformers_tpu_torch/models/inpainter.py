@@ -11,6 +11,13 @@ decoder is always rematerialized under it and the encoder under
 ``"point_io"``.  The port's default, ``"off"``, keeps every activation
 (``nn/remat.py``); any JAX name turns remat on as in JAX.  Module names
 follow the JAX parameter tree so that ``convert.py`` maps it.
+
+Under a points axis (``parallel/mesh.py``) the encoder's points and the
+decoder's noise points are split over the points ranks; the pooled latent
+``z``, its mapping and the AdaINs' scales and biases are the data row's,
+alike on its points ranks (the encoder's ``class_head_bn`` is marked
+replicated), and every AdaIN's instance norm takes each cloud's
+statistics over the points group (``nn/norm.py``).
 """
 
 import torch
@@ -28,6 +35,7 @@ from cloud_transformers_tpu_torch.nn.multihead_adain import (
 from cloud_transformers_tpu_torch.nn import remat as rm
 from cloud_transformers_tpu_torch.nn.norm import AdaIn1d, BatchNorm
 from cloud_transformers_tpu_torch.nn.precision import MXULinear
+from cloud_transformers_tpu_torch.parallel.constrain import mark_replicated
 
 
 class CompletionEncoder(nn.Module):
@@ -44,6 +52,7 @@ class CompletionEncoder(nn.Module):
         self.class_head = MXULinear(2 * trunk_width * pool_heads,
                                     latent_width)
         self.class_head_bn = BatchNorm(latent_width)
+        mark_replicated(self.class_head_bn)
 
     def forward(self, pcd):
         _, pooled, stats = self.backbone(pcd)

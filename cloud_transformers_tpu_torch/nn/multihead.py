@@ -18,6 +18,11 @@ puts a bias-free projection and a BatchNorm on its shortcut.
 Under a remat policy (``nn/remat.py``, set by the trunk) a head group's
 dense ops before the splat, its kernel chain and the union's dense ops
 after the slices are checkpointed regions, as the policy says.
+
+Under a points axis (``parallel/mesh.py``) the splat combines the points
+ranks' grids (``core/splat_slice.py``), so the conv and the pool run on the
+data row's grids and the slice reads them at the rank's points; the
+BatchNorms take the world's statistics (``nn/norm.py``).
 """
 
 from typing import Sequence
@@ -46,6 +51,8 @@ from cloud_transformers_tpu_torch.nn.transforms import (
     PlaneTransformer,
     VolTransformer,
 )
+from cloud_transformers_tpu_torch.parallel.distributed import all_reduce_
+from cloud_transformers_tpu_torch.parallel.mesh import points_mesh
 
 
 class GridKeysValues(nn.Module):
@@ -77,13 +84,25 @@ class GridKeysValues(nn.Module):
 @torch.no_grad()
 def head_stats(grid, keys, in_feature_dim, heads):
     """Occupancy / key statistics, normalized as the JAX package does:
-    occupied-element count over grid.shape[0] * F * H."""
+    occupied-element count over grid.shape[0] * F * H.  Under a points axis
+    the grid is the combined one and the key statistics are the whole
+    clouds', over the points group (the JAX package's global mean)."""
     r = grid.shape[0]
     occ = (grid.abs() > 1e-9).sum() / (r * in_feature_dim * heads)
+    mesh = points_mesh()
+    if mesh is None:
+        key_mean, key_var = keys.mean(), keys.var(unbiased=False)
+    else:
+        sums = all_reduce_(torch.stack(
+            [keys.sum(), keys.new_tensor(float(keys.numel()))]), "sum",
+            mesh.points_group)
+        key_mean = sums[0] / sums[1]
+        key_var = all_reduce_((keys - key_mean).square().sum(), "sum",
+                              mesh.points_group) / sums[1]
     return {
         "occupancy": occ.to(torch.float32),
-        "key_mean": keys.mean(),
-        "key_var": keys.var(unbiased=False),
+        "key_mean": key_mean,
+        "key_var": key_var,
     }
 
 

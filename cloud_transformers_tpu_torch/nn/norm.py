@@ -24,6 +24,17 @@ are autograd Functions whose backward all-reduces the statistics'
 cotangents, so the averaged gradients are those of the global batch.
 With no such group the path is the single-process one.
 
+Under an ambient points axis (``parallel/mesh.py``, ``n_points > 1``) a
+BatchNorm of per-point tensors takes its statistics over the world as
+above, every rank's block of every cloud.  One that ``parallel/constrain.
+mark_replicated`` marked (``replicated``: the trunks after the pools, the
+class vector's) normalises tensors that every points rank of a data row
+holds whole, and takes them over the data group: over the world the
+row's ``n_points`` copies would each count in the running variance's
+Bessel factor.  ``instance_norm_1d`` (and so
+``AdaIn1d``) takes each cloud's mean and biased variance over the points
+group, in the same two all-reduced passes.
+
 ``instance_norm_1d`` normalizes ``[B, P, C]`` over the point axis with the
 biased variance, in training and in eval mode alike.  ``AdaIn1d`` follows it
 with a per-channel affine from a latent code, ``x * (scale + 1) + bias``
@@ -38,23 +49,37 @@ from cloud_transformers_tpu_torch.parallel.distributed import (
     AllReduceSum,
     is_distributed,
 )
+from cloud_transformers_tpu_torch.parallel.mesh import points_mesh
 
 
-def _global_stats(x, axes, shape):
-    """(mean, biased variance, count) over ``axes`` of every rank's ``x``,
-    in two all-reduced passes; the count is a tensor, so that nothing
-    waits for the device."""
+def _global_stats(x, axes, shape, group=None):
+    """(mean, biased variance, count) over ``axes`` of the ``x`` of every
+    rank of ``group`` (the world by default), in two all-reduced passes;
+    the count is a tensor, so that nothing waits for the device."""
     count = x.new_full((1,), float(x.numel() // x.shape[shape.index(-1)]))
-    sums = AllReduceSum.apply(torch.cat([x.sum(axes), count]), None)
+    sums = AllReduceSum.apply(torch.cat([x.sum(axes), count]), group)
     n = sums[-1].detach()
     mean = sums[:-1] / n
     var = AllReduceSum.apply((x - mean.view(shape)).square().sum(axes),
-                             None) / n
+                             group) / n
     return mean, var, n
+
+
+def _stats_group(replicated):
+    """-> (whether the statistics span processes, their group): the world
+    across processes, the data group for a replicated tensor under a
+    points axis, none in one process."""
+    if not is_distributed():
+        return False, None
+    mesh = points_mesh()
+    if replicated and mesh is not None:
+        return mesh.n_data > 1, mesh.data_group
+    return True, None
 
 
 class BatchNorm(nn.Module):
     momentum = 0.1   # weight of the batch statistics in the running ones
+    replicated = False   # normalises replicated tensors (a points axis's)
 
     def __init__(self, features, scale_init=1.0, eps=1e-5, dim=-1):
         super().__init__()
@@ -71,8 +96,9 @@ class BatchNorm(nn.Module):
         shape[self.dim] = -1
         if self.training:
             axes = [a for a in range(x.dim()) if a != self.dim % x.dim()]
-            if is_distributed():
-                mean, var, n = _global_stats(x, axes, shape)
+            spread, group = _stats_group(self.replicated)
+            if spread:
+                mean, var, n = _global_stats(x, axes, shape, group)
                 bessel = n / (n - 1).clamp_min(1)
             else:
                 mean = x.mean(axes)
@@ -91,9 +117,21 @@ class BatchNorm(nn.Module):
 
 
 def instance_norm_1d(x, eps=1e-5):
-    """InstanceNorm over the point axis of ``[B, P, C]``, no parameters."""
-    mean = x.mean(1, keepdim=True)
-    var = x.var(1, unbiased=False, keepdim=True)
+    """InstanceNorm over the point axis of ``[B, P, C]``, no parameters;
+    under a points axis over each cloud's points on every points rank."""
+    mesh = points_mesh()
+    if mesh is None:
+        mean = x.mean(1, keepdim=True)
+        var = x.var(1, unbiased=False, keepdim=True)
+    else:
+        b, p, _ = x.shape
+        sums = AllReduceSum.apply(
+            torch.cat([x.sum(1), x.new_full((b, 1), float(p))], -1),
+            mesh.points_group)
+        n = sums[:, -1:].detach()
+        mean = (sums[:, :-1] / n)[:, None]
+        var = (AllReduceSum.apply((x - mean).square().sum(1),
+                                  mesh.points_group) / n)[:, None]
     return (x - mean) * torch.reciprocal(torch.sqrt(var + eps))
 
 

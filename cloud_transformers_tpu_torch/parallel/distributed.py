@@ -98,7 +98,14 @@ def process_device(kind="cuda", rank=None):
 
 def process_rows():
     """``data.DataLoader``'s ``process_index`` and ``process_count`` for
-    this process."""
+    this process: under an ambient mesh (``parallel/mesh.py``) its data
+    index of ``n_data``, so that the points ranks of a data row load the
+    same rows, else its rank of the world."""
+    from cloud_transformers_tpu_torch.parallel.mesh import current
+    mesh = current()
+    if mesh is not None:
+        return {"process_index": mesh.data_index,
+                "process_count": mesh.n_data}
     return {"process_index": rank(), "process_count": world_size()}
 
 

@@ -30,6 +30,9 @@ collectives sit in ``torch.autograd.Function``s over a process ``group``
 Convention: a replicated output (the splat's grid) is used alike on every
 rank, and its cotangent on each rank is the whole cotangent; a sharded
 output (the slice's points, the distances) carries each rank's own part.
+These are the ops on their own, outside an ambient points axis
+(``parallel/mesh.py``); under one the model's splat combines by itself,
+with the convention of ``parallel/constrain.py``.
 """
 
 import torch

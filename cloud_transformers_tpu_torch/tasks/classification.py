@@ -2,7 +2,12 @@
 
 Counterpart of ``cloud_transformers_tpu/tasks/classification.py``:
 loss = (1 - seg_weight) * CE(class) + seg_weight * BCE(per-point mask), with
-overall accuracy, mask accuracy and mean grid occupancy beside it.
+overall accuracy, mask accuracy and mean grid occupancy beside it.  Under a
+points axis (``parallel/mesh.py``) the mask terms are means over this
+rank's block of the points, which are as many on every rank, and the class
+terms are the data row's, alike on its points ranks: the world's mean of
+the ranks' losses and metrics is the global batch's
+(``parallel/constrain.py``).
 """
 
 import torch

@@ -99,7 +99,10 @@ def make_loss_fn():
 
 def _valid_count(mask):
     """The masked mean's normaliser: this batch's valid points, or across
-    processes the global batch's over the world size."""
+    processes the global batch's over the world size, a points axis
+    (``parallel/mesh.py``) included: each rank's loss is then its share,
+    and the world's mean of the ranks' losses the global batch's (a rank
+    whose block holds no valid point adds 0)."""
     valid = mask.sum().detach()
     if not is_distributed():
         return valid.clamp(min=1.0)

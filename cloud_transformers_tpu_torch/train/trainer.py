@@ -23,7 +23,17 @@ global batch's (``nn/norm.py``).  This is an explicit all-reduce, not
 ``DistributedDataParallel``: ``self.model`` stays the bare module (its
 ``state_dict`` names, the hooks), one code path serves NCCL and gloo on
 CUDA tensors, and nothing has to follow the checkpointed regions of
-``nn/remat.py``.  Only rank 0 writes checkpoints (a barrier follows each
+``nn/remat.py``.
+
+``mesh`` (``parallel/mesh.make_mesh(n_data, n_points)``; the JAX
+``Trainer``'s ``mesh=``) adds a points axis: the loader takes the data
+row's rows (``distributed.process_rows`` under ``with mesh:``), each step
+takes the batch of the row's first points rank (``mesh.broadcast_row``)
+and this rank's block of every cloud's points (``shard_batch`` along axis
+1), and the forward and backward run under the mesh, which the model
+code reads (``parallel/constrain.py``).  The averaged gradient is the
+world's sum over the world size, as without it; the replicated draws of
+the dropout are seeded from the seed and the data index.  Only rank 0 writes checkpoints (a barrier follows each
 save) and logs; every rank loads ``ckpt_latest`` and ``cfg['restore']``.
 The ``show_each`` window means and the validation metrics are averaged
 over the ranks (an eval hook sums its own counts) before rank 0 logs them
@@ -79,6 +89,7 @@ state that does not fit the model or the optimizer; see
 (I/O, out of memory) is raised.
 """
 
+import contextlib
 import os
 import pickle
 import time
@@ -90,6 +101,10 @@ import torch
 from cloud_transformers_tpu_torch.nn.init import init_model_
 from cloud_transformers_tpu_torch.nn.precision import strict_f32
 from cloud_transformers_tpu_torch.parallel import distributed as pdist
+from cloud_transformers_tpu_torch.parallel.mesh import (
+    broadcast_row,
+    shard_batch,
+)
 from cloud_transformers_tpu_torch.train.checkpoint import (
     CheckpointManager,
     restore_params_only,
@@ -143,12 +158,15 @@ def unreadable_checkpoint(err, path=None):
 
 class Trainer:
     def __init__(self, model, cfg, exp_name, loss_fn, eval_fn=None,
-                 device="cuda", seed=0, generators=None, config_path=None):
+                 device="cuda", seed=0, generators=None, config_path=None,
+                 mesh=None):
         """``generators``: {name: torch.Generator} of the task (the noise
         of a loss function, say), saved and restored with a checkpoint.
         ``config_path``: the config file, copied into the experiment
-        directory."""
+        directory.  ``mesh``: a ``parallel/mesh.Mesh`` over the world,
+        whose points axis splits every cloud's points."""
         self.cfg = cfg
+        self.mesh = mesh
         self.loss_fn = loss_fn
         self.eval_fn = eval_fn or loss_fn
         self.device = torch.device(device)
@@ -191,6 +209,8 @@ class Trainer:
         them."""
         self.generator = torch.Generator().manual_seed(self.seed)
         torch.manual_seed(self.seed + self.rank)
+        if self.mesh is not None:
+            self.mesh.seed(self.seed)
         for k, g in self.generators.items():
             g.set_state(self._initial_generators[k])
         init_model_(self.model, self.generator)
@@ -281,6 +301,8 @@ class Trainer:
             # the saved states are rank 0's: dropout differs by rank again
             torch.manual_seed(self.seed + self.rank
                               + 1000003 * self.global_step)
+            if self.mesh is not None:
+                self.mesh.seed(self.seed + 1000003 * self.global_step)
 
     def save(self, tag="latest"):
         """Rank 0 writes the checkpoint; every rank waits for it.  -> its
@@ -301,15 +323,30 @@ class Trainer:
             out[k] = t.to(self.device, non_blocking=True)
         return out
 
+    def _on_mesh(self):
+        """The mesh as the ambient one, where there is a mesh."""
+        return self.mesh if self.mesh is not None else \
+            contextlib.nullcontext()
+
+    def _points_block(self, batch):
+        """Under a points axis, this rank's block of the points of the
+        batch that its data row's first points rank holds; ``batch``
+        itself otherwise."""
+        if self.mesh is None or self.mesh.n_points == 1:
+            return batch
+        return shard_batch(self.mesh, broadcast_row(self.mesh, batch),
+                           points_axis=1, global_rows=False)
+
     # --- steps -----------------------------------------------------------
     def train_step(self, batch):
         """One optimizer step; -> metrics as 0-dim tensors on the device
         (plus ``pred``), not yet synchronised."""
         self.model.train()
-        batch = self.to_device(batch)
+        batch = self.to_device(self._points_block(batch))
         self.optimizer.zero_grad()
-        loss, aux = self.loss_fn(self.model, batch)
-        loss.backward()
+        with self._on_mesh():
+            loss, aux = self.loss_fn(self.model, batch)
+            loss.backward()
         self.average_gradients()
         metrics = {"loss": loss.detach(), **aux}
         if self.cfg.get("train", {}).get("grad_stats"):
@@ -356,7 +393,9 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch):
         self.model.eval()
-        loss, aux = self.eval_fn(self.model, self.to_device(batch))
+        with self._on_mesh():
+            loss, aux = self.eval_fn(self.model,
+                                     self.to_device(self._points_block(batch)))
         return {"loss": loss, **aux}
 
     # --- loop ------------------------------------------------------------
@@ -495,6 +534,11 @@ class Trainer:
         loaders).  ``eval_hook(batch, metrics)`` may accumulate task
         statistics; if it has ``compute()``, its results are merged into
         (and override) the returned metrics."""
+        if eval_hook is not None and self.mesh is not None and \
+                self.mesh.n_points > 1:
+            raise ValueError("an eval hook reads the data row's batch beside "
+                             "this rank's block of the points: validate "
+                             "with hooks on a mesh without a points axis")
         if eval_hook is not None and hasattr(eval_hook, "reset"):
             eval_hook.reset()
         sums, count = {}, 0

@@ -279,3 +279,252 @@ def raise_on_rank_one(rank, world):
         raise ValueError("rank 1 fails on purpose")
     all_reduce_(torch.ones(4))
     return {}
+
+
+# --- the points axis ---------------------------------------------------------
+
+POINTS_CFG = {"train": {"optimizer": {"type": "Adam", "lr": 1e-3},
+                        "save": False, "auto_resume": False}}
+
+
+def chamfer_loss_fn(model, batch):
+    """The inpainter's step of ``__graft_entry__``'s dryrun: the Chamfer
+    loss of the reconstruction against ``gt``."""
+    from cloud_transformers_tpu_torch.losses.chamfer import loss_chamfer
+
+    recon, _ = model(batch["noise"], batch["partial"])
+    return loss_chamfer(recon, batch["gt"]), {}
+
+
+def family_loss_fn(family):
+    from cloud_transformers_tpu_torch.tasks import classification
+    from cloud_transformers_tpu_torch.tasks import segmentation_kpconv
+
+    if family == "classifier":
+        return classification.make_loss_fn(0.5)
+    if family == "segmenter":
+        return segmentation_kpconv.make_loss_fn()
+    return chamfer_loss_fn
+
+
+def family_model(family, kwargs):
+    from cloud_transformers_tpu_torch.models import get_model
+
+    name = {"classifier": "scanobject_classifier",
+            "segmenter": "s3dis_segmenter_pad",
+            "inpainter": "completion_inpainter"}[family]
+    return get_model(name, **kwargs)
+
+
+def family_step(family, kwargs, state_path, batch, root, mesh=None):
+    """One ``Trainer.train_step`` of ``family`` from the weights at
+    ``state_path`` on the rows ``batch`` (numpy), under ``mesh`` (None:
+    no mesh) -> the loss, the averaged gradients, the buffers after the
+    step and the parameters after the update, as numpy."""
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    cfg = dict(POINTS_CFG, experiment={"root": root},
+               restore={"generator": state_path})
+    trainer = Trainer(family_model(family, kwargs), cfg, family,
+                      family_loss_fn(family), device="cpu", seed=0,
+                      mesh=mesh)
+    loss = trainer.train_step(batch)["loss"]
+    model = trainer.model
+    return {"loss": float(loss),
+            "grads": {k: _np(p.grad) for k, p in model.named_parameters()},
+            "buffers": {k: _np(b) for k, b in model.named_buffers()},
+            "params": {k: _np(p) for k, p in model.named_parameters()}}
+
+
+def _row(batch, mesh):
+    """The data row's rows of the global batch."""
+    from cloud_transformers_tpu_torch.parallel.mesh import shard_batch
+    return shard_batch(mesh, batch, points_axis=None)
+
+
+def _scrambled(batch, seed):
+    """``batch`` with every float array redrawn: what a points rank of a
+    row might build where the augmentation is not reproducible."""
+    rs = np.random.RandomState(seed)
+    return {k: (rs.permutation(v.reshape(-1)).reshape(v.shape)
+                if v.dtype.kind == "f" else v) for k, v in batch.items()}
+
+
+def points_axis_steps(rank, world, d):
+    """The points-axis cases on this rank of a world of 4: each family's
+    step on a data 2 x points 2 grid (the row's second points rank given
+    a scrambled batch, which the row's first rank's replaces), the
+    classifier's also on a data 4 x points 1 grid and with no mesh, under
+    ``remat_policy="point_io"`` and under ``FWD_WINNER``, its class
+    prediction under dropout 0.5, the fused block, an indivisible point
+    count, the EMD auction and a validation with an eval hook (each must
+    raise); the F-score of the row's clouds and a replicated tensor."""
+    from cloud_transformers_tpu_torch.core import splat_slice
+    from cloud_transformers_tpu_torch.nn.grouped_conv import (
+        set_block_fusion,
+    )
+    from cloud_transformers_tpu_torch.parallel import mesh as pmesh
+    from cloud_transformers_tpu_torch.parallel.distributed import (
+        all_gather_array,
+    )
+
+    grid = pmesh.make_mesh(n_data=2, n_points=2)
+    flat = pmesh.make_mesh(n_data=4, n_points=1)
+    out = {"index": (grid.data_index, grid.points_index)}
+    root = d["root"]
+    for family in ("classifier", "segmenter", "inpainter"):
+        row = _row(d["batch"][family], grid)
+        if grid.points_index:
+            row = _scrambled(row, rank)
+        out[family] = family_step(family, d["kwargs"][family],
+                                  d["state"][family], row,
+                                  f"{root}/{family}{rank}", grid)
+        # every rank's row batch after the broadcast, on every rank
+        got = pmesh.broadcast_row(grid, row)
+        out[family]["row_batch"] = {k: all_gather_array(v[None])
+                                    for k, v in got.items()}
+
+    cls, kw, state = d["batch"]["classifier"], d["kwargs"]["classifier"], \
+        d["state"]["classifier"]
+    out["flat"] = family_step("classifier", kw, state, _row(cls, flat),
+                              f"{root}/flat{rank}", flat)
+    out["no_mesh"] = family_step("classifier", kw, state, _row(cls, flat),
+                                 f"{root}/none{rank}")
+    out["remat"] = family_step(
+        "classifier", dict(kw, remat=True, remat_policy="point_io"), state,
+        _row(cls, grid), f"{root}/remat{rank}", grid)
+    splat_slice.FWD_WINNER = True
+    try:
+        out["winner"] = family_step("classifier", kw, state,
+                                    _row(cls, grid), f"{root}/win{rank}",
+                                    grid)
+    finally:
+        splat_slice.FWD_WINNER = False
+
+    model = family_model("classifier", dict(kw, dropout=0.5))
+    model.load_state_dict(torch.load(state, weights_only=True)["model"])
+    grid.seed(0)
+    torch.manual_seed(rank)   # the per-point draws differ by rank
+    pcd = torch.from_numpy(pmesh.shard_batch(grid, cls, 1)["pcd"])
+    with grid:
+        class_pred, _, _ = model.train()(pcd)
+    out["dropout"] = {"class_pred": _np(class_pred)}
+
+    set_block_fusion("fused")
+    try:
+        with grid:
+            model(pcd)
+    except ValueError as e:
+        out["fused"] = str(e)
+    finally:
+        set_block_fusion(None)
+    try:
+        pmesh.shard_batch(grid, {"pcd": cls["pcd"][:, :-1]}, 1)
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    from cloud_transformers_tpu_torch.losses.emd import emd_auction
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+    try:
+        with grid:
+            emd_auction(pcd, pcd)
+    except ValueError as e:
+        out["emd"] = str(e)
+    trainer = Trainer(model, dict(POINTS_CFG, experiment={
+        "root": f"{root}/val{rank}"}), "val", family_loss_fn("classifier"),
+        device="cpu", mesh=grid)
+    try:
+        trainer.validate([_row(cls, grid)], eval_hook=lambda b, m: None)
+    except ValueError as e:
+        out["eval_hook"] = str(e)
+
+    from cloud_transformers_tpu_torch.losses.fscore import f_score
+    clouds = {k: torch.from_numpy(v) for k, v in
+              pmesh.shard_batch(grid, d["fscore"], 1).items()}
+    with grid:
+        out["f_score"] = [_np(t) for t in f_score(
+            clouds["pred"], clouds["gt"], threshold=0.5, chunk_size=8)]
+    out["replicated"] = _np(pmesh.replicate(
+        grid, [torch.full((3,), float(rank))])[0])
+    return out
+
+
+def _count_launches():
+    """Count the calls of the kernel wrappers (#1-#6 and the switched
+    paths') that the autograd Functions and the convs reach, as
+    ``tests/test_torch_chip_smoke.py`` counts them -> the counts dict."""
+    from cloud_transformers_tpu_torch.core import splat_slice as tss
+    from cloud_transformers_tpu_torch.ops import pallas_grid_conv as tgc
+
+    calls = {}
+
+    def counted(fn, name):
+        def wrapper(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapper
+    for name in ("splat_max", "splat_max_winner", "splat_route",
+                 "splat_max_bwd", "slice_gather", "slice_bwd",
+                 "fused_block"):
+        setattr(tss, name, counted(getattr(tss, name), name))
+    for name in ("grid_conv3d", "grid_conv2d", "grid_conv3d_dw",
+                 "grid_conv2d_dw"):
+        setattr(tgc, name, counted(getattr(tgc, name), name))
+    return calls
+
+
+def grid_launches(rank, world, root):
+    """Phase 17 of ``chip_smoke.py`` at a tiny size: its three models at
+    full width and its depths, one ``Trainer`` step each on the data 2 x
+    points 2 grid, a few points a cloud -> {model: this rank's kernel
+    launches in the step}."""
+    import chip_smoke
+    from cloud_transformers_tpu_torch.parallel.mesh import (
+        make_mesh,
+        shard_batch,
+    )
+    from cloud_transformers_tpu_torch.tasks import classification
+    from cloud_transformers_tpu_torch.tasks import segmentation_kpconv
+    from cloud_transformers_tpu_torch.train.config import (
+        load_config,
+        model_from_config,
+    )
+    from cloud_transformers_tpu_torch.train.trainer import Trainer
+
+    mesh = make_mesh(2, 2)
+    calls = _count_launches()
+    rs = np.random.RandomState(0)
+    mask = np.ones((2, 32), np.float32)
+    mask[0, 12:] = 0   # the first cloud's second block holds no valid point
+    setups = {
+        "classifier": ("scanobjectnn.yaml", {"dropout": 0.0},
+                       classification.make_loss_fn(0.5),
+                       {"pcd": rs.uniform(-1, 1, (2, 32, 3)),
+                        "label": np.array([1, 2]),
+                        "mask": rs.uniform(size=(2, 32)) > 0.5}),
+        "segmenter": (chip_smoke.PTS_MODELS["segmenter"][0],
+                      chip_smoke.PTS_MODELS["segmenter"][1],
+                      segmentation_kpconv.make_loss_fn(),
+                      {"points": rs.uniform(-1, 1, (2, 32, 3)),
+                       "features": rs.uniform(0, 1, (2, 32, 4)),
+                       "mask": mask, "label": rs.randint(0, 13, (2, 32))}),
+        "inpainter": (chip_smoke.PTS_MODELS["inpainter"][0],
+                      chip_smoke.PTS_MODELS["inpainter"][1],
+                      chip_smoke.chamfer_loss,
+                      {"partial": rs.uniform(-0.5, 0.5, (2, 16, 3)),
+                       "gt": rs.uniform(-0.5, 0.5, (2, 32, 3)),
+                       "noise": rs.randn(2, 32, 4)})}
+    out = {}
+    for family, (config, keys, loss_fn, batch) in setups.items():
+        cfg = load_config(os.path.join(os.path.dirname(
+            os.path.abspath(chip_smoke.__file__)), "configs", config))
+        cfg["model"].update(keys)
+        cfg["experiment"] = {"root": os.path.join(str(root), family)}
+        cfg["train"]["auto_resume"] = False
+        trainer = Trainer(model_from_config(cfg), cfg, family, loss_fn,
+                          device="cpu", seed=0, mesh=mesh)
+        batch = {k: (v.astype(np.float32) if v.dtype.kind in "fb" else v)
+                 for k, v in batch.items()}
+        calls.clear()
+        trainer.train_step(shard_batch(mesh, batch))
+        out[family] = dict(calls)
+    return out

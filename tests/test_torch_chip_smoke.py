@@ -3,7 +3,8 @@
 computes, here on the CPU at a small size.  And the kernel launches it
 expects per forward and per training step, on the default path and under
 each set of execution switches, are the full-width classifier's, the
-S3DIS segmenter's and the single-view reconstructor's."""
+S3DIS segmenter's and the single-view reconstructor's, and on every rank
+of phase 17's data 2 x points 2 grid its three models'."""
 
 import contextlib
 
@@ -246,3 +247,18 @@ def test_bf16_launches_are_the_f32_ones(monkeypatch, model, name):
         _LAUNCH_TESTS[model](monkeypatch, name)
     finally:
         precision.set_default_mxu_dtype(None)
+
+
+def test_points_axis_launches_per_rank(tmp_path):
+    """Phase 17's launch counts on every rank of its data 2 x points 2 grid
+    (``PTS_PER_STEP``: the full classifier's ``PER_STEP``, the one-stage
+    segmenter's and the inpainter's one encoder and one decoder stage with
+    the encoder's two pools) are each rank's kernel calls in a grid step
+    of its three models at full width, counted here on the CPU over 4 gloo
+    ranks with 16 points a cloud on a rank."""
+    import _torch_parallel_ranks as ranks
+    assert chip_smoke.PTS_PER_STEP["classifier"] == chip_smoke.PER_STEP
+    outs = ranks.run_ranks(ranks.grid_launches, 4, tmp_path / "ranks",
+                           tmp_path)
+    for counts in outs:
+        assert counts == chip_smoke.PTS_PER_STEP
