@@ -10,7 +10,10 @@ thread pool with a bounded window of batches in flight (numpy releases the
 GIL in the augmentation math, so threads overlap), otherwise by one
 producer thread that keeps up to ``prefetch`` batches in a queue.  Either
 way the batches and their order do not depend on ``num_workers``: each item
-draws from its own ``item_rng``.
+draws from its own ``item_rng``.  Spans (``utils/trace.py``): a batch's
+build is ``loader.build`` on the thread that builds it, the consumer's wait
+for the next batch is ``loader.next``, and ``loader.ready`` counts the
+batches already built each time the consumer asks.
 
 Across processes (``process_index`` of ``process_count``), as in the JAX
 loader, every process shuffles the same index sequence and process p takes
@@ -26,6 +29,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from cloud_transformers_tpu_torch.utils import trace
 
 
 def item_rng(seed, epoch, index):
@@ -84,8 +89,9 @@ class DataLoader:
         base = (b * self.process_count + self.process_index) * \
             self.batch_size
         sel = idx[base:base + self.batch_size]
-        items = [self.dataset[int(i)] for i in sel]
-        return {k: np.stack([it[k] for it in items]) for k in items[0]}
+        with trace.span("loader.build"):
+            items = [self.dataset[int(i)] for i in sel]
+            return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
     def __iter__(self):
         idx = self._indices()
@@ -104,7 +110,10 @@ class DataLoader:
             futs = {b: ex.submit(self._build_batch, idx, b)
                     for b in range(min(window, nb))}
             for b in range(nb):
-                batch = futs.pop(b).result()
+                trace.count("loader.ready",
+                            sum(f.done() for f in futs.values()))
+                with trace.span("loader.next"):
+                    batch = futs.pop(b).result()
                 if b + window < nb:
                     futs[b + window] = ex.submit(self._build_batch, idx,
                                                  b + window)
@@ -141,7 +150,9 @@ class DataLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                trace.count("loader.ready", q.qsize())
+                with trace.span("loader.next"):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, Exception):

@@ -18,6 +18,9 @@ swapped against the 1x1 protocol).  The pipeline:
 5. projections from every full-resolution point to its nearest sub-cloud
    point, for the full-cloud metrics.
 
+Steps 1, 2, 3's first epoch and 5 are the constructor's ``setup.data``
+span (``utils/trace.py``).
+
 Without a dataset a few random synthetic rooms stand in.
 
 The JAX module's ``sklearn.neighbors.KDTree`` is ``scipy.spatial.cKDTree``
@@ -44,6 +47,7 @@ from scipy.spatial import cKDTree
 
 from cloud_transformers_tpu_torch.data.loader import item_rng
 from cloud_transformers_tpu_torch.data.subsample import grid_subsampling
+from cloud_transformers_tpu_torch.utils import trace
 
 LABEL_NAMES = ["ceiling", "floor", "wall", "beam", "column", "window", "door",
                "chair", "table", "bookcase", "sofa", "board", "clutter"]
@@ -115,54 +119,57 @@ class S3DISSeg:
                  num_epochs=600, color_drop=0.2, data_root=None,
                  split="train", seed=0, synthetic_clouds=2,
                  transforms=None):
-        self.input_features_dim = input_features_dim
-        self.in_radius = in_radius
-        self.num_points = num_points
-        self.num_steps = num_steps
-        self.num_epochs = num_epochs
-        self.color_drop = color_drop if split == "train" else 0.0
-        self.split = split
-        self.epoch = 0
-        self.transforms = transforms
-        self.seed = seed
-        self._rng = np.random.RandomState(seed)
+        with trace.span("setup.data"):
+            self.input_features_dim = input_features_dim
+            self.in_radius = in_radius
+            self.num_points = num_points
+            self.num_steps = num_steps
+            self.num_epochs = num_epochs
+            self.color_drop = color_drop if split == "train" else 0.0
+            self.split = split
+            self.epoch = 0
+            self.transforms = transforms
+            self.seed = seed
+            self._rng = np.random.RandomState(seed)
 
-        train_clouds = ["Area_1", "Area_2", "Area_3", "Area_4", "Area_6"]
-        val_clouds = ["Area_5"]
-        names = (train_clouds if split == "train" else val_clouds
-                 if split == "val" else val_clouds + train_clouds)
+            train_clouds = ["Area_1", "Area_2", "Area_3", "Area_4", "Area_6"]
+            val_clouds = ["Area_5"]
+            names = (train_clouds if split == "train" else val_clouds
+                     if split == "val" else val_clouds + train_clouds)
 
-        cache_dir = os.path.join(data_root, "processed") if data_root else None
-        if cache_dir:
-            os.makedirs(cache_dir, exist_ok=True)
+            cache_dir = (os.path.join(data_root, "processed") if data_root
+                         else None)
+            if cache_dir:
+                os.makedirs(cache_dir, exist_ok=True)
 
-        raw = []
-        if data_root and any(os.path.isdir(os.path.join(data_root, n))
-                             for n in names):
-            for name in names:
-                raw.append(self._parse_area(data_root, cache_dir, name))
-        else:
-            for i in range(synthetic_clouds):
-                raw.append(_synthetic_cloud(i if split == "train" else 100 + i))
+            raw = []
+            if data_root and any(os.path.isdir(os.path.join(data_root, n))
+                                 for n in names):
+                for name in names:
+                    raw.append(self._parse_area(data_root, cache_dir, name))
+            else:
+                for i in range(synthetic_clouds):
+                    raw.append(_synthetic_cloud(
+                        i if split == "train" else 100 + i))
 
-        self.clouds_points = [r[0] for r in raw]
-        self.clouds_labels = [r[2] for r in raw]
-        self.sub_points, self.sub_colors, self.sub_labels, self.trees = \
-            [], [], [], []
-        for pts, colors, labels in raw:
-            sp, sc, sl = grid_subsampling(pts, colors, labels,
-                                          sampleDl=subsampling_parameter)
-            sc = sc / 255.0
-            self.sub_points.append(sp)
-            self.sub_colors.append(sc)
-            self.sub_labels.append(sl)
-            self.trees.append(BallTree(sp))
+            self.clouds_points = [r[0] for r in raw]
+            self.clouds_labels = [r[2] for r in raw]
+            self.sub_points, self.sub_colors, self.sub_labels, self.trees = \
+                [], [], [], []
+            for pts, colors, labels in raw:
+                sp, sc, sl = grid_subsampling(pts, colors, labels,
+                                              sampleDl=subsampling_parameter)
+                sc = sc / 255.0
+                self.sub_points.append(sp)
+                self.sub_colors.append(sc)
+                self.sub_labels.append(sl)
+                self.trees.append(BallTree(sp))
 
-        self._build_schedule()
-        # full-cloud projection: each raw point -> nearest sub-cloud point
-        self.projections = [tree.nearest(pts).astype(np.int32)
-                            for pts, tree in zip(self.clouds_points,
-                                                 self.trees)]
+            self._build_schedule()
+            # full-cloud projection: each raw point -> nearest sub-cloud point
+            self.projections = [tree.nearest(pts).astype(np.int32)
+                                for pts, tree in zip(self.clouds_points,
+                                                     self.trees)]
 
     def _parse_area(self, data_root, cache_dir, name):
         cloud_file = os.path.join(cache_dir, name + ".pkl")
@@ -215,7 +222,14 @@ class S3DISSeg:
         """Generate schedule entries until there are ``until``.  The
         sequence is serial (each pick updates the potentials), but the lock
         is taken an entry at a time, so the next epoch's prefetch and
-        ``__getitem__``'s catch-up interleave."""
+        ``__getitem__``'s catch-up interleave.  The work is the
+        ``data.schedule`` span of the thread that does it."""
+        if len(self._schedule) >= until:
+            return
+        with trace.span("data.schedule"):
+            self._extend(until)
+
+    def _extend(self, until):
         r_sq = self.in_radius ** 2
         while len(self._schedule) < until:
             with self._sched_lock:

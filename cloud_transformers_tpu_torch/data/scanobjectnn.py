@@ -6,7 +6,8 @@ dicts of numpy arrays, channel-last: ``pcd [P, 3]``, ``label []``,
 
 When the h5 file is absent a deterministic synthetic set is generated, the
 same clouds as the JAX package makes, so the whole pipeline runs on a
-machine without the dataset.
+machine without the dataset.  The constructor is the ``setup.data`` span
+(``utils/trace.py``).
 """
 
 import os
@@ -15,6 +16,7 @@ import numpy as np
 
 from cloud_transformers_tpu_torch.data import augment
 from cloud_transformers_tpu_torch.data.loader import item_rng
+from cloud_transformers_tpu_torch.utils import trace
 
 
 def _load_h5(path):
@@ -46,16 +48,17 @@ class ScanObjectNN:
     def __init__(self, path=None, center=True, normalize=True, train=False,
                  subsample=None, seed=0, synthetic_items=256,
                  num_points=2048):
-        if path and os.path.exists(path):
-            self.data, self.label, self.mask = _load_h5(path)
-        else:
-            self.data, self.label, self.mask = _synthetic(
-                synthetic_items, num_points, seed=0)
-        if center:
-            self.data = np.stack([augment.center(p) for p in self.data])
-        if normalize:
-            self.data = np.stack(
-                [augment.normalize_unit_sphere(p) for p in self.data])
+        with trace.span("setup.data"):
+            if path and os.path.exists(path):
+                self.data, self.label, self.mask = _load_h5(path)
+            else:
+                self.data, self.label, self.mask = _synthetic(
+                    synthetic_items, num_points, seed=0)
+            if center:
+                self.data = np.stack([augment.center(p) for p in self.data])
+            if normalize:
+                self.data = np.stack(
+                    [augment.normalize_unit_sphere(p) for p in self.data])
         self.train = train
         self.subsample = subsample
         self.seed = seed

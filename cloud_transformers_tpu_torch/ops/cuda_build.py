@@ -22,6 +22,8 @@ from pathlib import Path
 
 import torch
 
+from cloud_transformers_tpu_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -108,18 +110,23 @@ def build(timeout=600):
                 proc.wait()
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    trace.count("kernels.built", len(jobs))
     return {stem: so for stem, (_, so) in targets.items()}
 
 
 def libraries():
-    """{stem: ctypes.CDLL} with argtypes set; builds on first use."""
+    """{stem: ctypes.CDLL} with argtypes set; builds on first use (the
+    ``setup.kernels`` span; ``kernels.built`` and ``kernels.loaded`` count
+    the sources compiled and the libraries loaded)."""
     if not _loaded:
-        for stem, so in build().items():
-            lib = ctypes.CDLL(str(so))
-            for fn, argtypes in SIGNATURES[stem].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _loaded[stem] = lib
+        with trace.span("setup.kernels"):
+            for stem, so in build().items():
+                lib = ctypes.CDLL(str(so))
+                for fn, argtypes in SIGNATURES[stem].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _loaded[stem] = lib
+            trace.count("kernels.loaded", len(_loaded))
     return _loaded
 
 

@@ -4,9 +4,8 @@ the console.
 Counterpart of ``cloud_transformers_tpu/train/logging.py``: on the main
 process (rank 0, or the only one) a ``SummaryWriter`` in the experiment's
 writer directory, every scalar also appended to ``metrics.jsonl`` there,
-the config copied into the experiment directory, per-block occupancy and
-key statistics, and point clouds as TensorBoard meshes; on the other ranks
-a ``MetricLogger`` writes nothing.
+the config copied into the experiment directory, and point clouds as
+TensorBoard meshes; on the other ranks a ``MetricLogger`` writes nothing.
 """
 
 import json
@@ -76,15 +75,6 @@ class MetricLogger:
             {"step": int(step), "time": time.time(), **clean}) + "\n")
         self.jsonl.flush()
 
-    def block_stats(self, step, stats_list, prefix="train/"):
-        """Per-block occupancy and key statistics (a model's ``stats``)."""
-        for i, s in enumerate(stats_list):
-            self.scalars(step, {
-                f"occupancy/block_{i}": s["occupancy"],
-                f"key_mean/block_{i}": s["key_mean"],
-                f"key_var/block_{i}": s["key_var"],
-            }, prefix=prefix)
-
     def mesh(self, step, tag, points, colors=None):
         """A batch of point clouds [B, N, 3] as a TensorBoard mesh; nothing
         without tensorboardX or its mesh plugin."""
@@ -103,21 +93,3 @@ class MetricLogger:
         if self.jsonl is not None:
             self.jsonl.close()
 
-
-class AverageMeter:
-    """Running average."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.sum = 0.0
-        self.count = 0
-
-    def update(self, val, n=1):
-        self.sum += float(val) * n
-        self.count += n
-
-    @property
-    def avg(self):
-        return self.sum / max(self.count, 1)

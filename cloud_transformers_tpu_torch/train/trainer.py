@@ -71,15 +71,24 @@ a copy of ``config_path`` in the experiment directory) takes the window
 means of the ``train/`` scalars every ``show_each`` steps, with
 ``steps_per_sec`` and the ``data_time``/``batch_time`` split (host seconds
 a step waiting for the loader and in ``train_step``, which launches the
-step's work and does not wait for the device), and the ``val/`` metrics of
-every validation and of ``epoch_hook(epoch)``, which ``fit`` calls after
-each validation epoch.  ``train.grad_stats`` adds ``grad_norm`` (the norm
+step's work and does not wait for the device: the lengths of the
+``loader.next`` and ``trainer.step`` spans of ``utils/trace.py``), and the
+``val/`` metrics of every validation and of ``epoch_hook(epoch)``, which
+``fit`` calls after each validation epoch.  ``train.grad_stats`` adds ``grad_norm`` (the norm
 of all gradients) and ``grad_norm/<name>`` per parameter to each step's
 metrics, computed on the device without waiting for it.
 ``train.profile_step`` starts a ``torch.profiler`` trace at that global
 step for ``train.profile_steps`` steps (default 5), written as a Chrome
-trace under ``{exp_dir}/profile``.  ``mesh_hook(trainer, batch)`` runs
-every ``train.mesh_each`` steps (default 100).
+trace under ``{exp_dir}/profile``; the tracer records while it runs, and
+its spans go beside the trace as ``spans_step<N>[_rank<r>].json``, on the
+clock of the trace's device timestamps.  ``mesh_hook(trainer, batch)``
+runs every ``train.mesh_each`` steps (default 100).
+
+Spans (``utils/trace.py``): ``train_step`` is ``trainer.step``, made of
+``trainer.to_device``, ``trainer.forward`` (zeroing the gradients, then
+the loss), ``trainer.backward`` and ``trainer.update`` (the averaged
+gradients, ``grad_stats``, clipping, the optimizer and its schedule);
+``setup.weights`` covers a fresh start's weights and optimizer.
 
 An auto-resume that fails is tried once more.  If it fails again on a file
 that cannot be this run's checkpoint (torn or foreign, a missing key, a
@@ -90,6 +99,7 @@ state that does not fit the model or the optimizer; see
 """
 
 import contextlib
+import json
 import os
 import pickle
 import time
@@ -115,6 +125,7 @@ from cloud_transformers_tpu_torch.train.logging import (
     setup_logger,
 )
 from cloud_transformers_tpu_torch.train.optim import make_optimizer
+from cloud_transformers_tpu_torch.utils import trace
 
 logger = setup_logger()
 
@@ -213,10 +224,11 @@ class Trainer:
             self.mesh.seed(self.seed)
         for k, g in self.generators.items():
             g.set_state(self._initial_generators[k])
-        init_model_(self.model, self.generator)
-        self.model = self.model.to(self.device)
-        self.optimizer = make_optimizer(self.cfg["train"],
-                                        self.model.named_parameters())
+        with trace.span("setup.weights"):
+            init_model_(self.model, self.generator)
+            self.model = self.model.to(self.device)
+            self.optimizer = make_optimizer(self.cfg["train"],
+                                            self.model.named_parameters())
         self.global_step = 0
         self.epoch = 0
 
@@ -341,19 +353,23 @@ class Trainer:
     def train_step(self, batch):
         """One optimizer step; -> metrics as 0-dim tensors on the device
         (plus ``pred``), not yet synchronised."""
-        self.model.train()
-        batch = self.to_device(self._points_block(batch))
-        self.optimizer.zero_grad()
-        with self._on_mesh():
-            loss, aux = self.loss_fn(self.model, batch)
-            loss.backward()
-        self.average_gradients()
-        metrics = {"loss": loss.detach(), **aux}
-        if self.cfg.get("train", {}).get("grad_stats"):
-            metrics.update(self.grad_stats())
-        self.optimizer.step()
-        self.global_step += 1
-        return metrics
+        with trace.span("trainer.step"):
+            self.model.train()
+            with trace.span("trainer.to_device"):
+                batch = self.to_device(self._points_block(batch))
+            with trace.span("trainer.forward"), self._on_mesh():
+                self.optimizer.zero_grad()
+                loss, aux = self.loss_fn(self.model, batch)
+            with trace.span("trainer.backward"), self._on_mesh():
+                loss.backward()
+            with trace.span("trainer.update"):
+                self.average_gradients()
+                metrics = {"loss": loss.detach(), **aux}
+                if self.cfg.get("train", {}).get("grad_stats"):
+                    metrics.update(self.grad_stats())
+                self.optimizer.step()
+                self.global_step += 1
+            return metrics
 
     @torch.no_grad()
     def average_gradients(self):
@@ -425,40 +441,38 @@ class Trainer:
         keys = [tcfg.get("best_metric") or "loss"]
         keys += [k for k in tcfg.get("best_metrics") or [] if k not in keys]
         best = dict.fromkeys(keys, -np.inf)
-        profiler = None
+        profiler = traced = None
         try:
             for epoch in range(self.epoch, num_epochs):
                 self.epoch = epoch
                 train_loader.set_epoch(epoch)
                 t0 = time.time()
                 window = []
-                data_t = step_t = 0.0
-                t_fetch = time.time()
+                data_t, step_t = _waited()
                 for batch in train_loader:
-                    data_t += time.time() - t_fetch
                     if profile_at is not None and \
                             self.global_step == int(profile_at):
                         profiler = self._profiler()
                         profiler.start()
-                    t_step = time.time()
+                        traced = trace.enable(True)
                     # the window keeps the scalars only: a task's per-point
                     # outputs (``pred``, ``logits``) would pile up on the
                     # device for ``show_each`` steps
                     window.append({k: v for k, v in
                                    self.train_step(batch).items()
                                    if v.dim() == 0})
-                    step_t += time.time() - t_step
                     if profiler is not None and \
                             self.global_step >= profile_end:
-                        profiler = self._stop_profile(profiler)
+                        profiler = self._stop_profile(profiler, traced)
                     if self.global_step % show_each == 0:
                         host = _window_mean(window, self.device)
                         n = len(window)
                         host["steps_per_sec"] = n / (time.time() - t0)
-                        host["data_time"] = data_t / n
-                        host["batch_time"] = step_t / n
+                        data_end, step_end = _waited()
+                        host["data_time"] = (data_end - data_t) / n
+                        host["batch_time"] = (step_end - step_t) / n
                         window, t0 = [], time.time()
-                        data_t = step_t = 0.0
+                        data_t, step_t = data_end, step_end
                         self.metrics.scalars(self.global_step, host,
                                              prefix="train/")
                         if self.is_main:
@@ -477,7 +491,6 @@ class Trainer:
                         if save:
                             self.save()
                         return self.model
-                    t_fetch = time.time()
                 self.epoch = epoch + 1   # a resumed run starts the next epoch
                 if save and (epoch + 1) % save_each_epoch == 0:
                     self.save()
@@ -504,7 +517,7 @@ class Trainer:
                                              prefix="val/")
         finally:
             if profiler is not None:
-                self._stop_profile(profiler)
+                self._stop_profile(profiler, traced)
         return self.model
 
     def _profiler(self):
@@ -514,19 +527,25 @@ class Trainer:
             activities.append(ProfilerActivity.CUDA)
         return profile(activities=activities)
 
-    def _stop_profile(self, profiler):
-        """Wait for the device, stop the trace and write it to
+    def _stop_profile(self, profiler, traced):
+        """Wait for the device, stop the trace and the tracer (back to
+        ``traced``, its state before) and write both to
         ``{exp_dir}/profile``.  -> None."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         profiler.stop()
+        spans = trace.take()
+        trace.enable(traced)
         out = os.path.join(self.exp_dir, "profile")
         os.makedirs(out, exist_ok=True)
-        rank = f"_rank{self.rank}" if self.world > 1 else ""
-        path = os.path.join(out,
-                            f"trace_step{self.global_step}{rank}.json")
+        name = f"step{self.global_step}"
+        if self.world > 1:
+            name += f"_rank{self.rank}"
+        path = os.path.join(out, f"trace_{name}.json")
         profiler.export_chrome_trace(path)
-        logger.info("profiler trace written to %s", path)
+        with open(os.path.join(out, f"spans_{name}.json"), "w") as f:
+            json.dump({"clock": "time.time_ns", **spans}, f)
+        logger.info("profiler trace and spans written to %s", out)
         return None
 
     def validate(self, val_loader, eval_hook=None):
@@ -559,6 +578,12 @@ class Trainer:
         if eval_hook is not None and hasattr(eval_hook, "compute"):
             out.update(eval_hook.compute())
         return out
+
+
+def _waited():
+    """(seconds this thread has waited on a loader, seconds it has spent in
+    ``train_step``), from the spans' totals."""
+    return trace.seconds("loader.next"), trace.seconds("trainer.step")
 
 
 def _window_mean(window, device):

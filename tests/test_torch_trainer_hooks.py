@@ -124,16 +124,22 @@ def test_no_grad_stats_without_the_key(tmp_path):
 @pytest.mark.parametrize("max_steps", [4, None])
 def test_profiler_trace_written(tmp_path, max_steps):
     """A trace from ``profile_step`` for ``profile_steps`` steps, also when
-    ``max_steps`` ends the run inside the window."""
+    ``max_steps`` ends the run inside the window, and the tracer's spans of
+    those steps beside it."""
+    from cloud_transformers_tpu_torch.utils import trace as tracer
     trainer = _trainer(tmp_path, profile_step=2, profile_steps=5)
     trainer.fit(_Loader(), num_epochs=3, max_steps=max_steps)
     out = tmp_path / "exp" / "run" / "profile"
-    files = os.listdir(out)
     stop = 4 if max_steps else 7
-    assert files == [f"trace_step{stop}.json"]
-    trace = json.loads((out / files[0]).read_text())
+    assert sorted(os.listdir(out)) == [f"spans_step{stop}.json",
+                                       f"trace_step{stop}.json"]
+    trace = json.loads((out / f"trace_step{stop}.json").read_text())
     assert trace["traceEvents"]
     assert not torch.autograd._profiler_enabled()   # off again
+    spans = json.loads((out / f"spans_step{stop}.json").read_text())
+    steps = [s for s in spans["spans"] if s["name"] == "trainer.step"]
+    assert spans["clock"] == "time.time_ns" and len(steps) == stop - 2
+    assert not tracer.TRACER.on   # off again
 
 
 def test_epoch_hook_and_mesh_hook_cadence(tmp_path):
