@@ -42,13 +42,33 @@
    sphere's valid share drawn from 0.08-1.0; a padded point repeats a
    valid point's keys, its values and its slice cotangent are 0, so the
    splat meets exact ties at 0 and the slice backward zero cotangents);
+   Then row 13 of the kernel table, the BatchNorm kernels
+   (``ops/batch_norm.py``: statistics, apply, backward) at [196608, 512]
+   and [65536, 64] in training mode with the ReLU: each against its plain
+   version (1e-5 of the output scale, the running statistics 1e-6) and
+   timed by a loop of 20 calls (``ms``) and a CUDA graph (``device_ms``)
+   beside its bound (x read once, y or dx written once, dy read once) and
+   its plain version, with a whole forward and backward of the module on
+   the kernels beside its plain autograd ops and the library's BatchNorm
+   (``F.batch_norm`` in training mode and ``relu``, timed only), each by a
+   loop of 20 (``ms``) and by its kernels' summed device time under the
+   profiler (``device_ms``).  Every
+   later phase counts the BatchNorm kernels with the others: a forward
+   launches an apply for each channel-last BatchNorm (91 in the
+   classifier), a training step a statistics pass, an apply and a backward
+   for each (``bn_counts``); the classifier's and the KPConv segmenter's
+   sync-free steps also hold ``bn.plain`` to the channels-first
+   BatchNorms (15 and 0).  The ``{"batch_norm": ...}`` line, before the
+   kernels line, has row 13, the launches a classifier and a KPConv step
+   and every path's launches;
 4. serves 100 full-width ScanObjectNN classifier requests (random weights
    from a seed, clouds of 1024 to 3000 points) through
    ``InferenceEngine.classify`` in the B=8 x 2048 bucket, with the launch
-   counters set to 0 just before and read just after: 26 splat, 24 slice and
-   8 conv launches per forward; ms/forward is the median over the calls;
-   then runs one forward under ``torch.cuda.set_sync_debug_mode("error")``,
-   so that any operation that makes the host wait for the device raises;
+   counters set to 0 just before and read just after: 26 splat, 24 slice,
+   8 conv and 91 BatchNorm apply launches per forward; ms/forward is the
+   median over the calls; then runs one forward under
+   ``torch.cuda.set_sync_debug_mode("error")``, so that any operation that
+   makes the host wait for the device raises;
 5. runs the same model and weights on the CPU (plain versions) for one cloud
    and holds the card's logits and mask to it (cosine > 0.999, median
    error <= 1e-3); then serves the same 100 requests, runs the sync-free
@@ -461,10 +481,30 @@ SOURCES = {
     "splat_max_winner": _SPLAT_CU, "splat_route": _SPLAT_CU,
     "fused_block": "cloud_transformers_tpu_torch/csrc/fused_block.cu",
 }
-# launches per forward of the serving path, and per training step
-PER_FORWARD = {"splat_max": 26, "slice_gather": 24, "grid_conv3d": 8}
+# the BatchNorm kernels (row 13 of the kernel table), apart from SOURCES
+BN_WRAPPERS = ("bn_stats", "bn_apply", "bn_backward")
+
+
+def bn_counts(n, training):
+    """Launches of the BatchNorm kernels in a forward of a model with ``n``
+    channel-last BatchNorms (an apply each, with the running statistics)
+    or in a training step (statistics, apply and backward each)."""
+    return dict.fromkeys(BN_WRAPPERS if training else ("bn_apply",), n)
+
+
+# launches per forward of the serving path, and per training step: the
+# classifier's 91 channel-last BatchNorms take the kernels, its trunk's 15
+# channels-first ones the plain ops
+PER_FORWARD = {"splat_max": 26, "slice_gather": 24,
+               "grid_conv3d": 8} | bn_counts(91, False)
 PER_STEP = {"splat_max": 26, "slice_gather": 24, "grid_conv3d": 16,
-            "splat_max_bwd": 26, "slice_bwd": 24, "grid_conv3d_dw": 8}
+            "splat_max_bwd": 26, "slice_bwd": 24,
+            "grid_conv3d_dw": 8} | bn_counts(91, True)
+# the channel-last BatchNorms of the 12 unions (two head groups' key,
+# value and after BatchNorms and the union's own, 7 a union), which a
+# remat policy runs again (``remat_counts``): the classifier's, the
+# completion encoder's and the KPConv segmenter's
+UNION_BNS = 84
 # the JAX package's execution switches, as the port names them (launches
 # per pass under each: ``set_counts``):
 # set A = set_grid_conv_strategy("pallas") + FWD_WINNER: every grid conv on
@@ -476,22 +516,26 @@ PER_STEP = {"splat_max": 26, "slice_gather": 24, "grid_conv3d": 16,
 # splat backward
 SETS = ("set_a", "set_b")
 # per completion training step: the encoder (the classifier's backbone, 26
-# splats) and the decoder (4 stages x 3 unions x 2 heads groups, 24 splats)
+# splats, and 90 channel-last BatchNorms) and the decoder (4 stages x 3
+# unions x 2 heads groups, 24 splats; AdaIN, no BatchNorm)
 PER_STEP_COMPLETION = {
     "splat_max": 50, "slice_gather": 48, "grid_conv3d": 32,
-    "splat_max_bwd": 50, "slice_bwd": 48, "grid_conv3d_dw": 16}
-# the S3DIS segmenter: the classifier's 12-block trunk without its pools (24
-# head groups; 8 of them 3D with X >= 16), per forward and per training step
-PER_FORWARD_SEGMENTER = {"splat_max": 24, "slice_gather": 24,
-                         "grid_conv3d": 8}
-PER_STEP_SEGMENTER = {"splat_max": 24, "slice_gather": 24, "grid_conv3d": 16,
-                      "splat_max_bwd": 24, "slice_bwd": 24,
-                      "grid_conv3d_dw": 8}
-# the reconstructor's AdaIN decoder: 4 stages x 3 unions x 2 head groups
-# (8 of them 3D with X >= 16), per forward and per training step; its
-# ResNet-50 runs on cuDNN, and the EMD adds one top2 launch a round
-PER_FORWARD_RECONSTRUCTOR = dict(PER_FORWARD_SEGMENTER)
-PER_STEP_RECONSTRUCTOR = dict(PER_STEP_SEGMENTER)
+    "splat_max_bwd": 50, "slice_bwd": 48,
+    "grid_conv3d_dw": 16} | bn_counts(90, True)
+# 24 head groups (8 of them 3D with X >= 16), per forward and per step
+TRUNK_FORWARD = {"splat_max": 24, "slice_gather": 24, "grid_conv3d": 8}
+TRUNK_STEP = {"splat_max": 24, "slice_gather": 24, "grid_conv3d": 16,
+              "splat_max_bwd": 24, "slice_bwd": 24, "grid_conv3d_dw": 8}
+# the S3DIS segmenter: the classifier's 12-block trunk without its pools,
+# and 86 channel-last BatchNorms, per forward and per training step
+PER_FORWARD_SEGMENTER = TRUNK_FORWARD | bn_counts(86, False)
+PER_STEP_SEGMENTER = TRUNK_STEP | bn_counts(86, True)
+# the reconstructor's AdaIN decoder: 4 stages x 3 unions x 2 head groups,
+# per forward and per training step; its ResNet-50 runs on cuDNN (its
+# BatchNorms channels-first, on the plain ops), and the EMD adds one top2
+# launch a round
+PER_FORWARD_RECONSTRUCTOR = dict(TRUNK_FORWARD)
+PER_STEP_RECONSTRUCTOR = dict(TRUNK_STEP)
 # the KPConv protocol's segmenter: the same trunk, the mask applied around
 # the kernels
 PER_FORWARD_KPCONV = dict(PER_FORWARD_SEGMENTER)
@@ -1192,6 +1236,128 @@ def check_trunk_rows(gen, rows, b, k, ragged=False):
     return out
 
 
+BN_SHAPES = ((196608, 512), (65536, 64))   # KPConv B=24 x 8192; cls x 64
+
+
+def batch_norm_row(gen, n, c):
+    """Row 13 at one shape: the BatchNorm kernels against their plain
+    versions, in training mode with the ReLU, and their times."""
+    from cloud_transformers_tpu_torch.nn.norm import BatchNorm
+    from cloud_transformers_tpu_torch.ops import batch_norm as bn_ops
+    x = torch.randn(n, c, generator=gen, device="cuda") * 2 + 0.5
+    dy = torch.randn(n, c, generator=gen, device="cuda")
+    scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(c, generator=gen, device="cuda")
+    runs = [(torch.zeros(c, device="cuda"), torch.ones(c, device="cuda"))
+            for _ in range(2)]
+    mean, rstd = bn_ops.bn_stats(x, *runs[0], 1e-5, 0.1, True)
+    p_mean, p_rstd = bn_ops.bn_stats_plain(x, *runs[1], 1e-5, 0.1, True)
+    err = {"stats": max(held("bn_stats mean", mean, p_mean, TOL),
+                        held("bn_stats rstd", rstd, p_rstd, TOL),
+                        held("bn_stats running mean", runs[0][0],
+                             runs[1][0], 1e-6),
+                        held("bn_stats running var", runs[0][1],
+                             runs[1][1], 1e-6))}
+    y = bn_ops.bn_apply(x, mean, rstd, scale, bias, True)
+    err["apply"] = held("bn_apply", y, bn_ops.bn_apply_plain(
+        x, mean, rstd, scale, bias, True), TOL)
+    got = bn_ops.bn_backward(x, dy, mean, rstd, scale, bias, True, True)
+    want = bn_ops.bn_backward_plain(x, dy, mean, rstd, scale, bias, True,
+                                    True)
+    err["backward"] = max(held(f"bn_backward {k}", a, b, TOL) for k, a, b
+                          in zip(("dx", "d_scale", "d_bias"), got, want))
+    one = x.numel() * 4
+    calls = {
+        "stats": (lambda: bn_ops.bn_stats(x, *runs[0], 1e-5, 0.1, True),
+                  lambda: bn_ops.bn_stats_plain(x, *runs[1], 1e-5, 0.1,
+                                                True), one),
+        "apply": (lambda: bn_ops.bn_apply(x, mean, rstd, scale, bias, True),
+                  lambda: bn_ops.bn_apply_plain(x, mean, rstd, scale, bias,
+                                                True), 2 * one),
+        "backward": (lambda: bn_ops.bn_backward(x, dy, mean, rstd, scale,
+                                                bias, True, True),
+                     lambda: bn_ops.bn_backward_plain(
+                         x, dy, mean, rstd, scale, bias, True, True),
+                     3 * one)}
+    out = {"shape": [n, c]}
+    for name, (kernel, plain, n_bytes) in calls.items():
+        ms = cuda_ms(kernel)
+        bound_ms = bound(n_bytes, 0)[0]
+        out[name] = {"ms": ms, "device_ms": graph_ms(kernel),
+                     "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                     "plain_ms": cuda_ms(plain), "max_abs_err": err[name]}
+    # a whole forward and backward: the module's kernels against its plain
+    # autograd ops (what the kernels replaced) and against the library's
+    # BatchNorm of the same [N, C] view (timed here only; the port never
+    # calls it)
+    module = BatchNorm(c).cuda()
+    xg = x.clone().requires_grad_()
+    lib_stats = (torch.zeros(c, device="cuda"), torch.ones(c, device="cuda"))
+
+    def step(how):
+        if how == "library":
+            y = torch.relu(torch.nn.functional.batch_norm(
+                xg, *lib_stats, module.scale, module.bias, training=True,
+                momentum=module.momentum, eps=module.eps))
+        elif how == "plain":
+            y = module._plain(xg, True)
+        else:
+            y = module(xg, relu=True)
+        torch.autograd.grad(y, [xg, module.scale, module.bias], dy)
+    for how in ("kernels", "plain", "library"):
+        key = "module" if how == "kernels" else f"module_{how}"
+        out[f"{key}_ms"] = cuda_ms(lambda: step(how))
+        out[f"{key}_device_ms"] = profiled_device_ms(lambda: step(how))
+    out["module_bound_ms"] = bound(6 * one, 0)[0]
+    return out
+
+
+def profiled_device_ms(fn, iters=20):
+    """Device time of one ``fn()``: its kernels and copies summed over
+    ``iters`` calls under the profiler (after a warm-up), whatever the
+    host's own time between them."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return device_ms(prof.key_averages()) / iters
+
+
+def plain_batch_norms(model, run, what):
+    """``run()`` (a training step of ``model``) with the tracer on -> the
+    BatchNorm calls on the card that took the plain ops (``bn.plain``);
+    raises unless they are ``model``'s channels-first BatchNorms, one call
+    each (the channel-last ones take the kernels, which the launch counts
+    hold)."""
+    from cloud_transformers_tpu_torch.nn.norm import BatchNorm
+    from cloud_transformers_tpu_torch.utils import trace
+    trace.take()
+    was = trace.enable(True)
+    try:
+        run()
+    finally:
+        trace.enable(was)
+    got = trace.take()["counts"].get("bn.plain", 0)
+    want = sum(m.dim != -1 for m in model.modules()
+               if isinstance(m, BatchNorm))
+    if got != want:
+        raise AssertionError(f"{what}: {got} BatchNorm calls took the plain "
+                             f"ops, expected the {want} channels-first ones")
+    return got
+
+
+def batch_norm_phase(gen):
+    """Row 13 of the kernel table at each of ``BN_SHAPES`` (phase 3); the
+    launches a step come from the main path's runs."""
+    return {"source": "cloud_transformers_tpu_torch/csrc/batch_norm.cu",
+            "replaces": None,
+            "per_shape": [batch_norm_row(gen, n, c) for n, c in BN_SHAPES]}
+
+
 def bound_top2(pairs, n_bytes):
     """The bid search's least time: ``pairs`` values of 12 float32
     operations and one square root each, the square roots at the
@@ -1739,42 +1905,51 @@ def switches(name):
         ss.FWD_WINNER = False
 
 
-def set_counts(name, n_splat, n_slice, training):
+def set_counts(name, per_pass, training):
     """Launches per forward (or per training step) under a set, from the
-    default path's splat and slice counts of a model whose head groups are
-    half 2D and half 3D (the pools' splats have no slice): each slice is
-    one head group.  The classifier (26 splats, 24 slices): set A 26 splat,
+    default path's (``per_pass``) splat and slice counts of a model whose
+    head groups are half 2D and half 3D (the pools' splats have no slice):
+    each slice is one head group.  The BatchNorm kernels launch as on the
+    default path.  The classifier (26 splats, 24 slices): set A 26 splat,
     24 slice, 12 + 12 conv per forward; per step 26 winner splats and
     routing passes, 24 slice and slice backward, 24 + 24 conv, 12 + 12
     weight gradients.  Set B 24 fused and 2 splat per forward; per step 24
     fused, 2 splat, 26 splat backward, 24 slice backward, 12 of each conv
     and each weight gradient."""
+    n_splat, n_slice = per_pass["splat_max"], per_pass["slice_gather"]
     groups = n_slice // 2   # of each dimension
+    normed = {k: v for k, v in per_pass.items() if k in BN_WRAPPERS}
     if name == "set_a":
         if not training:
             return {"splat_max": n_splat, "slice_gather": n_slice,
-                    "grid_conv3d": groups, "grid_conv2d": groups}
+                    "grid_conv3d": groups, "grid_conv2d": groups} | normed
         return {"splat_max_winner": n_splat, "splat_route": n_splat,
                 "slice_gather": n_slice, "slice_bwd": n_slice,
                 "grid_conv3d": 2 * groups, "grid_conv3d_dw": groups,
-                "grid_conv2d": 2 * groups, "grid_conv2d_dw": groups}
+                "grid_conv2d": 2 * groups, "grid_conv2d_dw": groups} | normed
     if not training:
-        return {"fused_block": n_slice, "splat_max": n_splat - n_slice}
+        return {"fused_block": n_slice,
+                "splat_max": n_splat - n_slice} | normed
     return {"fused_block": n_slice, "splat_max": n_splat - n_slice,
             "splat_max_bwd": n_splat, "slice_bwd": n_slice,
             "grid_conv3d": groups, "grid_conv3d_dw": groups,
-            "grid_conv2d": groups, "grid_conv2d_dw": groups}
+            "grid_conv2d": groups, "grid_conv2d_dw": groups} | normed
 
 
-def remat_counts(policy, per_step):
+def remat_counts(policy, per_step, union_bns=0):
     """Launches a training step under the remat ``policy`` (as
     ``nn/remat.policy`` names it; None: off) from the same step's launches
     with remat off: under ``"point_io"`` and ``"full"`` each head group's
     kernel chain runs once more in the backward (a splat and a slice a head
     group, which is a slice of the step, and the 3D convs with X >= 16, as
     many as their weight gradients); ``"point_io_grids"`` recomputes only
-    dense ops."""
+    dense ops.  Under every policy the ``union_bns`` BatchNorms inside the
+    unions (``UNION_BNS``) run their statistics and apply kernels once more
+    in the backward."""
     out = dict(per_step)
+    if policy is not None and union_bns:
+        for name in ("bn_stats", "bn_apply"):
+            out[name] = out.get(name, 0) + union_bns
     if policy in ("point_io", "full"):
         groups = per_step.get("slice_gather", 0)
         for name, extra in (("splat_max", groups), ("slice_gather", groups),
@@ -1829,9 +2004,8 @@ def switched_serving(name, engine, cpu_engine, batches, wrappers, smi,
         probs = engine.classify(clouds)
         call_ms.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches(wrappers)
-    check_launches(launches, set_counts(
-        name, PER_FORWARD["splat_max"], PER_FORWARD["slice_gather"], False),
-        len(batches), f"{name} forwards")
+    check_launches(launches, set_counts(name, PER_FORWARD, False),
+                   len(batches), f"{name} forwards")
     if probs.shape != (B, 15) or not np.isfinite(probs).all():
         raise AssertionError(f"{name}: bad class probabilities {probs}")
     pcd = torch.from_numpy(engine.pad_batch(batches[0])[0]).to("cuda")
@@ -1942,19 +2116,24 @@ def train_phase(wrappers, smi, profile_dir, exp_root, steps=TRAIN_STEPS,
                              f"is off: {trainer.global_step}, "
                              f"{trainer.optimizer.lrs}")
 
-    # forward, backward and the optimizer step never make the host wait
+    # forward, backward and the optimizer step never make the host wait;
+    # only the trunk's channels-first BatchNorms take the plain ops
     batch = trainer.to_device(next(batches))
     model.train()
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        trainer.optimizer.zero_grad()
-        loss, _ = trainer.loss_fn(model, batch)
-        loss.backward()
-        trainer.optimizer.step()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    log("training step: no host-device synchronisation")
+
+    def step():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            trainer.optimizer.zero_grad()
+            loss, _ = trainer.loss_fn(model, batch)
+            loss.backward()
+            trainer.optimizer.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    plain = plain_batch_norms(model, step, "training step")
+    log(f"training step: no host-device synchronisation; {plain} "
+        "BatchNorm calls on the plain ops")
 
     ms = float(np.median(step_ms))
     result = {"train_ms_per_step": ms, "train_clouds_per_s": B * 1e3 / ms,
@@ -1964,7 +2143,8 @@ def train_phase(wrappers, smi, profile_dir, exp_root, steps=TRAIN_STEPS,
               "train_steps": steps,
               "train_peak_memory_bytes": int(peak),
               "loss_first10": first, "loss_last10": last,
-              "key_bn_bias_grad_max": key_grad, "batch": B, "points": K}
+              "key_bn_bias_grad_max": key_grad, "bn_plain_per_step": plain,
+              "batch": B, "points": K}
 
     if profile_dir:
         result.update(profiled_steps(
@@ -2323,8 +2503,7 @@ def emd_step_under_set(name, trainer, batches, wrappers, per_step, what):
         metrics = trainer.train_step(next(batches))
         torch.cuda.synchronize()
         got = read_launches(wrappers)
-    expect = set_counts(name, per_step["splat_max"], per_step["slice_gather"],
-                        True)
+    expect = set_counts(name, per_step, True)
     expect["top2"] = sum(rec.rounds)
     check_launches(got, expect, 1, f"{what} step under {name}")
     loss = float(metrics["loss"])
@@ -2653,10 +2832,8 @@ def segmenter_phase(wrappers, smi, profile_dir, exp_root):
             metrics = trainer.train_step(next(batches))
             torch.cuda.synchronize()
             got = read_launches(wrappers)
-        check_launches(got, set_counts(
-            name, PER_STEP_SEGMENTER["splat_max"],
-            PER_STEP_SEGMENTER["slice_gather"], True), 1,
-            f"segmenter step under {name}")
+        check_launches(got, set_counts(name, PER_STEP_SEGMENTER, True), 1,
+                       f"segmenter step under {name}")
         loss = float(metrics["loss"])
         bad = [n for n, p in model.named_parameters()
                if p.grad is None or not bool(torch.isfinite(p.grad).all())]
@@ -3064,13 +3241,16 @@ def kpconv_phase(wrappers, smi, profile_dir, exp_root):
     # make the host wait
     batch = trainer.to_device(next(batches))
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        trainer.train_step(batch)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+
+    def step():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            trainer.train_step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    plain = plain_batch_norms(model, step, "KPConv step")
     log("KPConv step (masked loss, grad_stats on): no host-device "
-        "synchronisation")
+        f"synchronisation; {plain} BatchNorm calls on the plain ops")
 
     # a checkpoint, restored as the evaluation command line restores it
     path = trainer.save()
@@ -3116,6 +3296,7 @@ def kpconv_phase(wrappers, smi, profile_dir, exp_root):
         "kpconv_data_wait_ms_median": float(np.median(data_ms)),
         "kpconv_data_wait_ms_max": float(np.max(data_ms)),
         "kpconv_steps": KP_STEPS,
+        "kpconv_bn_plain_per_step": plain,
         "kpconv_peak_memory_bytes": int(peak),
         "kpconv_valid_share_min": float(valid.min()),
         "kpconv_valid_share_median": float(np.median(valid)),
@@ -3145,10 +3326,8 @@ def kpconv_phase(wrappers, smi, profile_dir, exp_root):
             metrics = trainer.train_step(next(batches))
             torch.cuda.synchronize()
             got = read_launches(wrappers)
-        check_launches(got, set_counts(
-            name, PER_STEP_KPCONV["splat_max"],
-            PER_STEP_KPCONV["slice_gather"], True), 1,
-            f"KPConv step under {name}")
+        check_launches(got, set_counts(name, PER_STEP_KPCONV, True), 1,
+                       f"KPConv step under {name}")
         loss = float(metrics["loss"])
         bad = [n for n, p in model.named_parameters()
                if p.grad is None or not bool(torch.isfinite(p.grad).all())]
@@ -3328,8 +3507,7 @@ def scales_phase(wrappers, smi, profile_dir, exp_root):
             metrics = trainer.train_step(next(batches))
             torch.cuda.synchronize()
             got = read_launches(wrappers)
-        check_launches(got, set_counts(name, PER_STEP["splat_max"],
-                                       PER_STEP["slice_gather"], True), 1,
+        check_launches(got, set_counts(name, PER_STEP, True), 1,
                        f"scales classifier step under {name}")
         bad = [n for n, p in model.named_parameters()
                if p.grad is None or not bool(torch.isfinite(p.grad).all())]
@@ -3571,7 +3749,7 @@ def remat_phase(wrappers, state, exp_root):
         out, grads, stats = remat_run(
             trainer, batch_dev, _train_step, wrappers,
             remat_counts(remat_policy(name) if name else None,
-                         PER_STEP),
+                         PER_STEP, UNION_BNS),
             f"scales classifier step, remat {label}",
             timed=label != "off_again")
         runs[label] = (grads, stats)
@@ -3625,7 +3803,8 @@ def remat_phase(wrappers, state, exp_root):
                                           dev["gt"].shape[1])
         out, _, _ = remat_run(
             trainer, parts_noise, completion_step, wrappers,
-            remat_counts(remat_policy(name), PER_STEP_COMPLETION),
+            remat_counts(remat_policy(name), PER_STEP_COMPLETION,
+                         UNION_BNS),
             f"completion model step, remat {label}")
         result[f"completion_{label}"] = out
         launches[f"completion_remat_{label}"] = out["launches_per_step"]
@@ -3647,7 +3826,7 @@ def remat_phase(wrappers, state, exp_root):
                           device="cuda", seed=0)
         out, _, _ = remat_run(
             trainer, trainer.to_device(raw), _train_step, wrappers,
-            remat_counts(name, PER_STEP_KPCONV),
+            remat_counts(name, PER_STEP_KPCONV, UNION_BNS),
             f"KPConv step, remat {label}")
         result[f"kpconv_{label}"] = out
         launches[f"kpconv_remat_{label}"] = out["launches_per_step"]
@@ -3862,8 +4041,7 @@ def classifier_step_under_set(name, trainer, batches, wrappers, what):
         metrics = trainer.train_step(next(batches))
         torch.cuda.synchronize()
         got = read_launches(wrappers)
-    check_launches(got, set_counts(name, PER_STEP["splat_max"],
-                                   PER_STEP["slice_gather"], True), 1,
+    check_launches(got, set_counts(name, PER_STEP, True), 1,
                    f"{what} step under {name}")
     bad = [n for n, p in trainer.model.named_parameters()
            if p.grad is None or not bool(torch.isfinite(p.grad).all())]
@@ -4775,7 +4953,8 @@ def trunk_step_counts(repeats, pools=0):
             "slice_bwd": 6 * repeats, "grid_conv3d_dw": 2 * repeats}
 
 
-# per step on every rank of the grid: 17a's full classifier (``PER_STEP``),
+# per step on every rank of the grid: 17a's full classifier (``PER_STEP``'s
+# #1-#6; the grid's BatchNorms span the points group, on the plain ops),
 # 17b's one-stage segmenter, 17c's one-stage encoder (with its two pools)
 # and one-stage decoder
 PTS_PER_STEP = {"classifier": trunk_step_counts(4, 2),
@@ -5064,6 +5243,7 @@ def main():
             log(f"{var} ignored: chip_smoke runs each set of switches itself")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cloud_transformers_tpu_torch.nn.precision import strict_f32
+    from cloud_transformers_tpu_torch.ops import batch_norm as bn_ops
     from cloud_transformers_tpu_torch.ops import cuda_build
     from cloud_transformers_tpu_torch.ops import pallas_emd as pe
     from cloud_transformers_tpu_torch.ops import pallas_fused_block as fb
@@ -5106,6 +5286,7 @@ def main():
     reconstructor_rows = check_trunk_rows(gen, rows, REC_B, REC_K)
     kpconv_rows = check_trunk_rows(gen, rows, KP_B, KP_K, ragged=True)
     torch.cuda.empty_cache()
+    normed = batch_norm_phase(gen)
     log(f"kernel checks done in {time.perf_counter() - t0:.1f} s")
 
     # 4. the main path: serve full-width classifier requests
@@ -5124,7 +5305,8 @@ def main():
                 "grid_conv2d": gc.grid_conv2d,
                 "grid_conv2d_dw": gc.grid_conv2d_dw,
                 "splat_max_winner": ps.splat_max_winner,
-                "splat_route": ps.splat_route, "fused_block": fb.fused_block}
+                "splat_route": ps.splat_route, "fused_block": fb.fused_block,
+                **{name: getattr(bn_ops, name) for name in BN_WRAPPERS}}
     zero_launches(wrappers)
     call_ms = []   # classify returns numpy, so each call ends synchronised
     for clouds in batches:
@@ -5200,8 +5382,7 @@ def main():
             result, all_launches[f"training_{name}"] = train_phase(
                 wrappers, smi, args.profile, exp_root, steps=SWITCHED_STEPS,
                 profile_name=f"profile_train_{name}.txt",
-                per_step=set_counts(name, PER_STEP["splat_max"],
-                                    PER_STEP["slice_gather"], True))
+                per_step=set_counts(name, PER_STEP, True))
             result.update(gradient_parity())
         switched[name].update(result)
         log(f"{name} training phase done in {time.perf_counter() - t0:.1f} s")
@@ -5455,6 +5636,17 @@ def main():
     print(json.dumps({"points": pointed}), flush=True)
     all_launches.update(completion=completion_launches,
                         evaluation=eval_launches, window=window_launches)
+    normed["per_step"] = {
+        "classifier": {k: train_launches[k] / TRAIN_STEPS
+                       for k in BN_WRAPPERS}
+        | {"bn.plain": trained["bn_plain_per_step"]},
+        "kpconv": {k: all_launches["kpconv"][k] / KP_STEPS
+                   for k in BN_WRAPPERS}
+        | {"bn.plain": kpconv["kpconv_bn_plain_per_step"]}}
+    normed["launches"] = {
+        path: {k: counts.get(k, 0) for k in BN_WRAPPERS}
+        for path, counts in all_launches.items()}
+    print(json.dumps({"batch_norm": normed}), flush=True)
     print(json.dumps(kernel_line(rows, all_launches, completion_rows,
                                  segmenter_rows, reconstructor_rows,
                                  kpconv_rows)),

@@ -25,7 +25,6 @@ draws the row's mask (``parallel/constrain.py``).
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cloud_transformers_tpu_torch.models import register
@@ -132,7 +131,7 @@ class ClassifierBackbone(nn.Module):
         return x.flatten(2).mean(-1)
 
     def forward(self, pcd):
-        x = F.relu(self.stem_bn(self.stem(pcd)))
+        x = self.stem_bn(self.stem(pcd), relu=True)
         x, stats = self.trunk(x, pcd)
         to_3d, s3 = self.pool3d(x, pcd)
         to_2d, s2 = self.pool2d(x, pcd)
@@ -172,14 +171,14 @@ class Classifier(nn.Module):
 
     def forward(self, pcd):
         res, pooled, stats = self.backbone(pcd)
-        class_vect = F.relu(self.class_vector_bn(self.class_vector(pooled)))
+        class_vect = self.class_vector_bn(self.class_vector(pooled), relu=True)
         class_pred = self.class_head(replicated_dropout(class_vect,
                                                         self.dropout))
         b, p, _ = res.shape
         mh = torch.cat([res, class_vect[:, None, :].expand(
             b, p, class_vect.shape[-1])], -1)
-        mh = self.mask_bn(self.mask_conv1(self.dropout(mh)))
-        mask_pred = self.mask_conv2(self.dropout(F.relu(mh)))
+        mh = self.mask_bn(self.mask_conv1(self.dropout(mh)), relu=True)
+        mask_pred = self.mask_conv2(self.dropout(mh))
         return class_pred, mask_pred, stats
 
 

@@ -56,7 +56,7 @@ class CompletionEncoder(nn.Module):
 
     def forward(self, pcd):
         _, pooled, stats = self.backbone(pcd)
-        return F.relu(self.class_head_bn(self.class_head(pooled))), stats
+        return self.class_head_bn(self.class_head(pooled), relu=True), stats
 
 
 class AdaInStage(nn.Module):

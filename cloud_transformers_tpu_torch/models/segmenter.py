@@ -12,7 +12,6 @@ names follow the JAX parameter tree so that ``convert.py`` maps it.
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cloud_transformers_tpu_torch.models import register
@@ -43,9 +42,9 @@ class _SegmenterBase(nn.Module):
         self.final_conv2 = MXULinear(model_dim, n_classes)
 
     def _forward(self, pcd_features, xyz, pts_mask=None):
-        x = F.relu(self.stem_bn(self.stem(pcd_features)))
+        x = self.stem_bn(self.stem(pcd_features), relu=True)
         x, stats = self.trunk(x, xyz, pts_mask)
-        x = F.relu(self.final_bn(self.final_conv1(x)))
+        x = self.final_bn(self.final_conv1(x), relu=True)
         return self.final_conv2(x), stats
 
 

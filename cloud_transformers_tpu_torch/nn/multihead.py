@@ -28,7 +28,6 @@ BatchNorms take the world's statistics (``nn/norm.py``).
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cloud_transformers_tpu_torch.core.grid_mapping import (
@@ -135,7 +134,7 @@ class MultiHead(nn.Module):
         return out, head_stats(gk, keys, self.feat, self.heads)
 
     def after(self, out):
-        return F.relu(self.after_bn(out))
+        return self.after_bn(out, relu=True)
 
     def _keys_values(self, x, orig_pcd):
         lattice, keys, values = self.kv(x, orig_pcd)
@@ -199,7 +198,7 @@ class MultiHeadUnion(nn.Module):
         gathered = self.after_conv(torch.cat(
             [getattr(self, f"attention_{i}").after(o)
              for i, o in enumerate(outs)], -1))
-        return residual + F.relu(self.after_bn(gathered))
+        return residual + self.after_bn(gathered, relu=True)
 
 
 class MultiHeadPool(nn.Module):

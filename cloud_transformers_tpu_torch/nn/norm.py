@@ -35,6 +35,15 @@ Bessel factor.  ``instance_norm_1d`` (and so
 ``AdaIn1d``) takes each cloud's mean and biased variance over the points
 group, in the same two all-reduced passes.
 
+On a CUDA float32 tensor normalised over its last axis, with statistics
+that do not span processes, ``BatchNorm`` runs the hand-written kernels of
+``ops/batch_norm.py``: one statistics pass and one apply pass forward, a
+reduce pass and an apply pass backward, the ReLU that follows a BatchNorm
+folded in (``relu=True``).  Every other case (the CPU, other dtypes, the
+channels-first trunks, the synced and points-axis statistics) runs the
+plain ops below, which the tracer counts as ``bn.plain`` where the tensor
+is on the card.
+
 ``instance_norm_1d`` normalizes ``[B, P, C]`` over the point axis with the
 biased variance, in training and in eval mode alike.  ``AdaIn1d`` follows it
 with a per-channel affine from a latent code, ``x * (scale + 1) + bias``
@@ -42,14 +51,17 @@ with both halves from one ``Linear(L, 2C)``.
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from cloud_transformers_tpu_torch.nn import remat
+from cloud_transformers_tpu_torch.ops import batch_norm as kernels
 from cloud_transformers_tpu_torch.parallel.distributed import (
     AllReduceSum,
     is_distributed,
 )
 from cloud_transformers_tpu_torch.parallel.mesh import points_mesh
+from cloud_transformers_tpu_torch.utils import trace
 
 
 def _global_stats(x, axes, shape, group=None):
@@ -77,6 +89,36 @@ def _stats_group(replicated):
     return True, None
 
 
+def kernel_path(device, dtype, channel_last, spread):
+    """Whether a BatchNorm call takes the kernels of ``ops/batch_norm.py``:
+    a CUDA float32 tensor normalised over its last axis, with statistics
+    that do not span processes."""
+    return (device.type == "cuda" and dtype == torch.float32
+            and channel_last and not spread)
+
+
+class _KernelBatchNorm(torch.autograd.Function):
+    """``(x - mean) * (rstd * scale) + bias`` (+ ReLU) on the kernels; where
+    ``train``, mean and rstd are ``x``'s batch statistics and the backward
+    takes their gradient too.  Saves x, mean and rstd (and the
+    parameters)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, mean, rstd, relu, train):
+        ctx.save_for_backward(x, scale, bias, mean, rstd)
+        ctx.relu, ctx.train = relu, train
+        return kernels.bn_apply(x, mean, rstd, scale, bias, relu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias, mean, rstd = ctx.saved_tensors
+        if kernels.rows_of(dy) is None:
+            dy = dy.contiguous()
+        dx, d_scale, d_bias = kernels.bn_backward(
+            x, dy, mean, rstd, scale, bias, ctx.relu, ctx.train)
+        return dx, d_scale, d_bias, None, None, None, None
+
+
 class BatchNorm(nn.Module):
     momentum = 0.1   # weight of the batch statistics in the running ones
     replicated = False   # normalises replicated tensors (a points axis's)
@@ -91,12 +133,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x):
+    def forward(self, x, relu=False):
+        """The normalised ``x``, then ``F.relu`` where ``relu``."""
+        spread, group = (_stats_group(self.replicated) if self.training
+                         else (False, None))
+        if kernel_path(x.device, x.dtype,
+                       self.dim % x.dim() == x.dim() - 1, spread):
+            return self._kernels(x, relu)
+        if x.is_cuda:
+            trace.count("bn.plain")
+        return self._plain(x, relu, spread, group)
+
+    def _plain(self, x, relu, spread=False, group=None):
         shape = [1] * x.dim()
         shape[self.dim] = -1
         if self.training:
             axes = [a for a in range(x.dim()) if a != self.dim % x.dim()]
-            spread, group = _stats_group(self.replicated)
             if spread:
                 mean, var, n = _global_stats(x, axes, shape, group)
                 bessel = n / (n - 1).clamp_min(1)
@@ -112,8 +164,21 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean.view(shape)) * inv.view(shape) \
+        out = (x - mean.view(shape)) * inv.view(shape) \
             + self.bias.view(shape)
+        return F.relu(out) if relu else out
+
+    def _kernels(self, x, relu):
+        if kernels.rows_of(x) is None:
+            x = x.contiguous()
+        if self.training:
+            mean, rstd = kernels.bn_stats(
+                x.detach(), self.mean, self.var, self.eps, self.momentum,
+                not remat.recomputing())
+        else:
+            mean, rstd = self.mean, torch.rsqrt(self.var + self.eps)
+        return _KernelBatchNorm.apply(x, self.scale, self.bias, mean, rstd,
+                                      relu, self.training)
 
 
 def instance_norm_1d(x, eps=1e-5):

@@ -55,6 +55,11 @@ SIGNATURES = {
         "ct_emd_top2": [_P] * 10,
         "ct_emd_auction_window": [_P] * 10 + [_I] * 3 + [_F, _P],
     },
+    "batch_norm": {
+        "ct_bn_stats": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_I, _P],
+        "ct_bn_apply": [_P] * 6 + [_I] * 8 + [_P],
+        "ct_bn_backward": [_P] * 11 + [_I] * 12 + [_P],
+    },
 }
 
 _loaded = {}

@@ -22,8 +22,10 @@ thread); ``data.schedule`` (``S3DISSeg``'s sphere schedule);
 ``setup.kernels`` (the kernels' build or load), ``setup.weights`` (a
 ``Trainer``'s fresh weights and optimizer) and ``setup.data`` (a dataset's
 constructor).  The counters: ``loader.ready`` (batches already built when
-the consumer asks), ``kernels.built`` and ``kernels.loaded``.  A snapshot
-also carries the kernel wrappers' own ``.launches`` counts (``launches()``).
+the consumer asks), ``kernels.built``, ``kernels.loaded`` and ``bn.plain``
+(``nn/norm.BatchNorm`` calls on a CUDA tensor that took the plain ops, not
+the kernels).  A snapshot also carries the kernel wrappers' own
+``.launches`` counts (``launches()``).
 """
 
 import itertools
@@ -111,6 +113,7 @@ class Tracer:
 def launches():
     """{kernel wrapper: its launches since the process started}."""
     from cloud_transformers_tpu_torch.ops import (
+        batch_norm,
         pallas_emd,
         pallas_fused_block,
         pallas_grid_conv,
@@ -122,7 +125,8 @@ def launches():
     wrappers += [getattr(pallas_grid_conv, n) for n in (
         "grid_conv3d", "grid_conv2d", "grid_conv3d_dw", "grid_conv2d_dw")]
     wrappers += [pallas_fused_block.fused_block, pallas_emd.top2,
-                 pallas_emd.auction_window]
+                 pallas_emd.auction_window, batch_norm.bn_stats,
+                 batch_norm.bn_apply, batch_norm.bn_backward]
     return {w.__name__: w.launches for w in wrappers}
 
 

@@ -54,8 +54,12 @@ def _one_thread():
 def _spy_launches(monkeypatch):
     """{kernel: calls} of the kernel wrappers as the model calls them: on
     the card each call is one launch; on the CPU the same calls reach the
-    plain versions."""
+    plain versions.  The BatchNorms take their kernels' path as on the
+    card (a float32 tensor normalised over its last axis, statistics in
+    one process), on the wrappers' plain versions."""
     from cloud_transformers_tpu_torch.core import splat_slice as tss
+    from cloud_transformers_tpu_torch.nn import norm
+    from cloud_transformers_tpu_torch.ops import batch_norm as tbn
     from cloud_transformers_tpu_torch.ops import pallas_grid_conv as tgc
     calls = {}
 
@@ -72,6 +76,12 @@ def _spy_launches(monkeypatch):
     for name in ("grid_conv3d", "grid_conv2d", "grid_conv3d_dw",
                  "grid_conv2d_dw"):
         monkeypatch.setattr(tgc, name, counted(getattr(tgc, name), name))
+    monkeypatch.setattr(
+        norm, "kernel_path", lambda device, dtype, channel_last, spread:
+        dtype == torch.float32 and channel_last and not spread)
+    for name in chip_smoke.BN_WRAPPERS:
+        monkeypatch.setattr(tbn, name, counted(
+            getattr(tbn, f"{name}_plain"), name))
     return calls
 
 
@@ -101,9 +111,9 @@ def test_expected_launches_are_the_full_width_classifiers(monkeypatch, name):
         runs["step"] = dict(calls)
     forward, step = chip_smoke.PER_FORWARD, chip_smoke.PER_STEP
     if name:
-        forward, step = (chip_smoke.set_counts(
-            name, per["splat_max"], per["slice_gather"], training)
-            for per, training in ((forward, False), (step, True)))
+        forward, step = (chip_smoke.set_counts(name, per, training)
+                         for per, training in ((forward, False),
+                                               (step, True)))
     assert runs == {"forward": forward, "step": step}
 
 
@@ -135,9 +145,9 @@ def test_expected_launches_are_the_full_width_segmenters(monkeypatch, name):
     forward = chip_smoke.PER_FORWARD_SEGMENTER
     step = chip_smoke.PER_STEP_SEGMENTER
     if name:
-        forward, step = (chip_smoke.set_counts(
-            name, per["splat_max"], per["slice_gather"], training)
-            for per, training in ((forward, False), (step, True)))
+        forward, step = (chip_smoke.set_counts(name, per, training)
+                         for per, training in ((forward, False),
+                                               (step, True)))
         forward = {k: v for k, v in forward.items() if v}
         step = {k: v for k, v in step.items() if v}
     assert runs == {"forward": forward, "step": step}
@@ -174,9 +184,9 @@ def test_expected_launches_are_the_full_width_reconstructors(monkeypatch,
     forward = chip_smoke.PER_FORWARD_RECONSTRUCTOR
     step = chip_smoke.PER_STEP_RECONSTRUCTOR
     if name:
-        forward, step = (chip_smoke.set_counts(
-            name, per["splat_max"], per["slice_gather"], training)
-            for per, training in ((forward, False), (step, True)))
+        forward, step = (chip_smoke.set_counts(name, per, training)
+                         for per, training in ((forward, False),
+                                               (step, True)))
         forward = {k: v for k, v in forward.items() if v}
         step = {k: v for k, v in step.items() if v}
     assert runs == {"forward": forward, "step": step}
@@ -217,9 +227,9 @@ def test_expected_launches_are_the_full_width_kpconv_segmenters(monkeypatch,
     forward = chip_smoke.PER_FORWARD_KPCONV
     step = chip_smoke.PER_STEP_KPCONV
     if name:
-        forward, step = (chip_smoke.set_counts(
-            name, per["splat_max"], per["slice_gather"], training)
-            for per, training in ((forward, False), (step, True)))
+        forward, step = (chip_smoke.set_counts(name, per, training)
+                         for per, training in ((forward, False),
+                                               (step, True)))
         forward = {k: v for k, v in forward.items() if v}
         step = {k: v for k, v in step.items() if v}
     assert runs == {"forward": forward, "step": step}
@@ -257,8 +267,72 @@ def test_points_axis_launches_per_rank(tmp_path):
     of its three models at full width, counted here on the CPU over 4 gloo
     ranks with 16 points a cloud on a rank."""
     import _torch_parallel_ranks as ranks
-    assert chip_smoke.PTS_PER_STEP["classifier"] == chip_smoke.PER_STEP
+    # the grid's BatchNorms take their statistics over the points group,
+    # on the plain ops
+    assert chip_smoke.PTS_PER_STEP["classifier"] == {
+        k: v for k, v in chip_smoke.PER_STEP.items()
+        if k not in chip_smoke.BN_WRAPPERS}
     outs = ranks.run_ranks(ranks.grid_launches, 4, tmp_path / "ranks",
                            tmp_path)
     for counts in outs:
         assert counts == chip_smoke.PTS_PER_STEP
+
+
+def _remat_model_and_step(family, policy):
+    """A full-width model of ``family`` under the remat ``policy`` (None:
+    off) and a closure running its training step's forward and backward on
+    a few points, as ``chip_smoke.remat_phase`` steps it."""
+    from cloud_transformers_tpu_torch.core.noise import partial_postprocess
+    from cloud_transformers_tpu_torch.models import get_model
+    from cloud_transformers_tpu_torch.tasks import classification
+    from cloud_transformers_tpu_torch.tasks import segmentation_kpconv
+    rs = np.random.RandomState(0)
+    if family == "completion":
+        model = get_model("completion_inpainter",
+                          remat_policy=policy or "off")
+        parts, noise = partial_postprocess(
+            torch.Generator().manual_seed(0), torch.from_numpy(
+                rs.uniform(-1, 1, (2, 32, 3)).astype(np.float32)), 64)
+        return model, lambda: model(noise, parts)[0].square().mean()
+    keys = dict(remat=policy is not None, remat_policy=policy or "point_io")
+    if family == "classifier":
+        model = get_model("scanobject_classifier_scales", **keys)
+        batch = {"pcd": torch.from_numpy(
+                     rs.uniform(-1, 1, (2, 32, 3)).astype(np.float32)),
+                 "label": torch.tensor([1, 2]), "mask": torch.ones(2, 32)}
+        return model, lambda: classification.make_loss_fn(0.5)(model, batch)[0]
+    model = get_model("s3dis_segmenter_pad", **keys)
+    mask = np.zeros((1, 32), np.float32)
+    mask[:, :20] = 1
+    batch = {"points": torch.from_numpy(
+                 rs.uniform(-1, 1, (1, 32, 3)).astype(np.float32)),
+             "features": torch.from_numpy(
+                 rs.uniform(-1, 1, (1, 32, 4)).astype(np.float32)),
+             "mask": torch.from_numpy(mask),
+             "label": torch.from_numpy(rs.randint(0, 13, (1, 32)))}
+    return model, lambda: segmentation_kpconv.make_loss_fn()(model, batch)[0]
+
+
+@pytest.mark.parametrize("family,policy", [
+    ("classifier", "point_io"), ("classifier", "point_io_grids"),
+    ("classifier", "full"), ("completion", "point_io"),
+    ("kpconv", "point_io")])
+def test_remat_runs_the_union_batch_norms_again(monkeypatch, family, policy):
+    """Phase 14's remat runs expect ``remat_counts(policy, step,
+    UNION_BNS)``: the full-width step's launches with remat off, and under
+    a policy the head groups' kernel chains and the ``UNION_BNS``
+    channel-last BatchNorms of the unions once more (statistics and apply,
+    not the backward), for the scales classifier, the completion model and
+    the KPConv segmenter; counted on the CPU with a few points."""
+    calls = _spy_launches(monkeypatch)
+    runs = {}
+    for name in (None, policy):
+        model, loss = _remat_model_and_step(family, name)
+        calls.clear()
+        loss_value = loss()
+        loss_value.backward()
+        runs[name] = dict(calls)
+    assert runs[None]["bn_stats"] == runs[None]["bn_backward"] > \
+        chip_smoke.UNION_BNS
+    assert runs[policy] == chip_smoke.remat_counts(policy, runs[None],
+                                                   chip_smoke.UNION_BNS)

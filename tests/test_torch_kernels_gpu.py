@@ -10,6 +10,8 @@ one; they import no JAX, so they run on a machine that has only PyTorch:
 ``chip_smoke.py`` runs the same comparison at the models' full shapes.
 """
 
+import copy
+
 import pytest
 import torch
 
@@ -22,10 +24,14 @@ from cloud_transformers_tpu_torch.core.splat_slice import (
 from cloud_transformers_tpu_torch.losses import emd as temd
 from cloud_transformers_tpu_torch.nn import grouped_conv as tgcm
 from cloud_transformers_tpu_torch.nn.grouped_conv import GridConvK
+from cloud_transformers_tpu_torch.nn import remat
+from cloud_transformers_tpu_torch.nn.norm import BatchNorm
+from cloud_transformers_tpu_torch.ops import batch_norm as tbn
 from cloud_transformers_tpu_torch.ops import pallas_emd as tpe
 from cloud_transformers_tpu_torch.ops import pallas_fused_block as tfb
 from cloud_transformers_tpu_torch.ops import pallas_grid_conv as tgc
 from cloud_transformers_tpu_torch.ops import pallas_splat as tps
+from cloud_transformers_tpu_torch.utils import trace
 
 
 @pytest.fixture
@@ -1613,7 +1619,8 @@ def test_kpconv_ragged_rows_fused_block(gen, sizes, f):
 
 
 _COUNTED = (tps.splat_max, tps.slice_gather, tgc.grid_conv3d,
-            tps.splat_max_bwd, tps.slice_bwd, tgc.grid_conv3d_dw)
+            tps.splat_max_bwd, tps.slice_bwd, tgc.grid_conv3d_dw,
+            tbn.bn_stats, tbn.bn_apply, tbn.bn_backward)
 
 
 def _scales_step(model, b=2, k=512, seed=0):
@@ -1680,7 +1687,8 @@ def test_remat_step_on_the_card(gen, policy):
         got = _scales_step(_scales_model(remat=True, remat_policy=policy))
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    assert got[0] == chip_smoke.remat_counts(policy, chip_smoke.PER_STEP)
+    assert got[0] == chip_smoke.remat_counts(policy, chip_smoke.PER_STEP,
+                                             chip_smoke.UNION_BNS)
     for want, have in zip(off[1:], got[1:]):
         assert all(torch.equal(have[k], want[k]) for k in want)
 
@@ -1747,3 +1755,174 @@ def test_mapping_forms_equal_the_k_forms_on_the_card(gen, sizes):
         runs[form] = (grid.detach(), out.detach(), kk.grad, vv.grad, gg.grad)
     for a, c in zip(runs["spatial"], runs["k"]):
         assert torch.equal(a, c)
+
+
+# --- BatchNorm (ops/batch_norm.py) ------------------------------------------
+
+def _bn_pair(gen, c, train=True):
+    """A channel-last BatchNorm on the card with drawn parameters and
+    running statistics, and a copy of it for the plain path."""
+    bn = BatchNorm(c).cuda()
+    with torch.no_grad():
+        bn.scale.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.normal_(generator=gen)
+        bn.mean.normal_(generator=gen)
+        bn.var.uniform_(0.5, 2.0, generator=gen)
+    bn.train(train)
+    return bn, copy.deepcopy(bn)
+
+
+def _bn_launches():
+    return [w.launches for w in (tbn.bn_stats, tbn.bn_apply,
+                                 tbn.bn_backward)]
+
+
+def _bn_run(bn, x, dy, relu, plain=False, mask=None):
+    """(y, dx, d_scale, d_bias) of one BatchNorm call and its backward.
+    The plain path's ReLU takes ``mask``, the kernels' own: where the two
+    paths' statistics differ in their last bit, an output within rounding
+    of 0 may fall on either side, and the ReLU's derivative jumps there."""
+    x = x.detach().requires_grad_()
+    if not plain:
+        y = bn(x, relu=relu)
+        return (y.detach(), *torch.autograd.grad(
+            y, [x, bn.scale, bn.bias], dy))
+    y = bn._plain(x, False)
+    grads = torch.autograd.grad(y, [x, bn.scale, bn.bias],
+                                dy if mask is None else dy * mask)
+    return (torch.relu(y).detach() if relu else y.detach(), *grads)
+
+
+def _bn_compare(bn, ref, x, dy, relu):
+    """The kernel path against the plain path: outputs and gradients
+    within 1e-5 of the plain ones' scale, running statistics within 1e-6.
+    -> both runs."""
+    got = _bn_run(bn, x, dy, relu)
+    want = _bn_run(ref, x, dy, relu, plain=True,
+                   mask=(got[0] > 0).float() if relu else None)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-5)
+    for a, b in ((bn.mean, ref.mean), (bn.var, ref.var)):
+        _close(a, b, 1e-6)
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n", [32, 4096, 65536, 196608])
+@pytest.mark.parametrize("c", [48, 64, 112, 256, 512, 768, 1024])
+def test_batch_norm_kernels_match_plain(gen, c, n, relu):
+    bn, ref = _bn_pair(gen, c)
+    x = torch.randn(n, c, generator=gen, device="cuda") * 2 + 0.5
+    dy = torch.randn(n, c, generator=gen, device="cuda")
+    before = _bn_launches()
+    _bn_compare(bn, ref, x, dy, relu)
+    assert [a - b for a, b in zip(_bn_launches(), before)] == [1, 1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("c,offset", [(48, 0), (50, 0), (64, 1), (7, 3)])
+def test_batch_norm_kernels_on_column_slices(gen, c, offset, relu):
+    """A column slice of a wider tensor (a head group's keys or values)
+    needs no copy; a cotangent at a row stride (a slice of ``cat``'s); odd
+    widths and offsets take the one-float loads."""
+    bn, ref = _bn_pair(gen, c)
+    wide = torch.randn(8, 4096, c + 56, generator=gen, device="cuda")
+    x = wide[..., offset:offset + c]
+    dy = torch.randn(8, 4096, 2 * c + 8, generator=gen,
+                     device="cuda")[..., 4:4 + c]
+    assert tbn.rows_of(x)[2] == c + 56 and tbn.rows_of(dy)[2] == 2 * c + 8
+    _bn_compare(bn, ref, x, dy, relu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("c", [48, 512])
+def test_batch_norm_eval_applies_the_running_statistics(gen, c, relu):
+    """Eval mode: the apply kernel with the running statistics gives the
+    plain ops' bits; its backward treats them as constants."""
+    bn, ref = _bn_pair(gen, c, train=False)
+    x = torch.randn(4096, c, generator=gen, device="cuda") * 2 + 0.5
+    dy = torch.randn(4096, c, generator=gen, device="cuda")
+    before = _bn_launches()
+    got, want = _bn_compare(bn, ref, x, dy, relu)
+    assert [a - b for a, b in zip(_bn_launches(), before)] == [0, 1, 1]
+    assert torch.equal(got[0], want[0])
+    with torch.no_grad():
+        assert torch.equal(bn(x, relu=relu), want[0])
+
+
+@pytest.mark.gpu
+def test_batch_norm_recompute_under_remat(gen):
+    """A checkpointed region's recompute runs the statistics again without
+    moving the running ones: the same bits as without remat."""
+    runs = []
+    for on in (False, True):
+        g = torch.Generator(device="cuda").manual_seed(5)
+        bn, _ = _bn_pair(g, 256)
+        x = (torch.randn(65536, 256, generator=g, device="cuda")
+             ).requires_grad_()
+        before = _bn_launches()
+        y = remat.region(on, lambda t: bn(t, relu=True) * 2.0, x)
+        grads = torch.autograd.grad(y.square().sum(), [x, bn.scale])
+        used = [a - b for a, b in zip(_bn_launches(), before)]
+        # the recompute may stop once the Function has saved its tensors
+        assert used[0] == (2 if on else 1) and used[2] == 1
+        runs.append((y.detach(), *grads, bn.mean.clone(), bn.var.clone()))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c", [(196608, 512), (65536, 48), (4096, 50)])
+def test_batch_norm_kernels_are_deterministic(gen, n, c):
+    x = torch.randn(n, c, generator=gen, device="cuda")
+    dy = torch.randn(n, c, generator=gen, device="cuda")
+    runs = []
+    for _ in range(2):
+        bn, _ = _bn_pair(torch.Generator(device="cuda").manual_seed(1), c)
+        runs.append((*_bn_run(bn, x, dy, True), bn.mean, bn.var))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_batch_norm_takes_no_sync_and_counts_the_plain_path(gen):
+    bn, _ = _bn_pair(gen, 64)
+    trunk_bn, _ = _bn_pair(gen, 64)
+    trunk_bn.dim = 1
+    x = torch.randn(4, 1000, 64, generator=gen, device="cuda",
+                    requires_grad=True)
+    trace.take()
+    was = trace.enable(True)
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            bn(x, relu=True).sum().backward()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert "bn.plain" not in trace.take()["counts"]
+        trunk_bn(x.transpose(1, 2))
+        assert trace.take()["counts"]["bn.plain"] == 1
+    finally:
+        trace.enable(was)
+
+
+@pytest.mark.gpu
+def test_batch_norm_wrappers_validate_inputs(gen):
+    c = 64
+    x = torch.randn(128, c, generator=gen, device="cuda")
+    run = (torch.zeros(c, device="cuda"), torch.ones(c, device="cuda"))
+    mean, rstd = tbn.bn_stats(x, *run, 1e-5, 0.1, False)
+    scale, bias = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+    with pytest.raises(TypeError):
+        tbn.bn_stats(x.double(), *run, 1e-5, 0.1, False)
+    with pytest.raises(ValueError):
+        tbn.bn_apply(x, mean, rstd, scale.cpu(), bias, False)
+    with pytest.raises(ValueError):
+        tbn.bn_apply(x.t(), mean, rstd, scale, bias, False)
+    with pytest.raises(ValueError):
+        tbn.bn_apply(x, mean[:32], rstd, scale, bias, False)
+    with pytest.raises(ValueError):
+        tbn.bn_backward(x, x[:64], mean, rstd, scale, bias, False, True)
